@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch package on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out PATH]
+
+Phases, each fatal on failure:
+
+1. device  — requires CUDA; prints the card's name and power limit
+   (nvidia-smi) and pins fp32 products to full fp32 (no TF32).
+2. build   — compiles the DPU kernels from src/repro_torch/kernels/csrc
+   with nvcc (sm_90a) and loads them.
+3. kernels — at the main path's shapes (N in {1, 16} signals of
+   L in {48,000, 192,000} samples) holds each kernel against its plain
+   PyTorch version on the same inputs, and times the kernel, the plain
+   version and, where one PyTorch call computes the same function, that
+   call (CUDA events; each sample is one call queued behind a spin kernel,
+   so host overhead is not timed; median of 25 after warm-up). bound_ms is
+   the larger of bytes / 3.35 TB/s and fp32 operations / 67 TFLOP/s (H100
+   SXM data-sheet peaks).
+4. serve   — PREBA's audio serving path through the package's entry points:
+   16 requests carrying 48 kHz audio through the DPU service (wall clock,
+   kernels on the service's stream) into the pipelined runtime over
+   full-width tinyllama-1.1b in bf16 with seeded weights. Every request
+   must be served, its features finite, [98, 80] and equal to the plain
+   CPU pipeline (rtol 1e-3, atol 1e-2); every kernel's launch count in
+   this run must be > 0 and equal the service's launched groups.
+
+Prints one JSON line {"kernels": [...]}, the card's name and power limit,
+and last {"ok": true, "device": {...}}. With --out PATH the per-shape
+kernel numbers and the serve statistics are also written to PATH as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_S = 3.35e12   # H100 SXM data sheet
+FP32_FLOPS_S = 67e12    # H100 SXM data sheet, fp32 on the CUDA cores
+SHAPES = [(1, 48_000), (16, 48_000), (1, 192_000), (16, 192_000)]
+MAIN_SHAPE = (16, 48_000)  # the serve phase: one group of 16 payloads of 1 s
+TOL = {"audio_resample": (1e-4, 1e-5), "mel_spectrogram": (2e-4, 2e-4),
+       "audio_normalize": (3e-3, 3e-3)}
+REPLACES = {
+    "audio_resample": "src/repro/kernels/audio_resample.py:67",
+    "mel_spectrogram": "src/repro/kernels/mel_spectrogram.py:40",
+    "audio_normalize": "src/repro/kernels/audio_normalize.py:71",
+}
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, n: int = 25, warmup: int = 3) -> float:
+    """Median device time of one call of fn, in ms. Each sample queues the
+    call behind a spin kernel, so the events bracket device work only."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def errors(torch, name, got, want):
+    """(max abs error, max rel error where |plain| >= 1e-2, allclose at the
+    kernel's tolerance)."""
+    rtol, atol = TOL[name]
+    d = (got.double() - want.double()).abs()
+    big = want.double().abs() >= 1e-2
+    rel = d[big] / want.double().abs()[big]
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, rtol=rtol, atol=atol)
+    return float(d.max()), float(rel.max()) if rel.numel() else 0.0, ok
+
+
+def kernel_phase(torch, F):
+    from repro_torch.kernels import audio_normalize as kn
+    from repro_torch.kernels import audio_resample as kr
+    from repro_torch.kernels import mel_spectrogram as km
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    h = ops.resample_taps(1, 3, 48, dev)
+    taps = h.shape[0]
+    win, cr, ci, fb = ops.mel_constants(512, 400, 80, 16000, dev)
+    rows = []
+    for n, length in SHAPES:
+        x = torch.randn((n, length), generator=gen, device=dev)
+        xp = F.pad(x, (taps // 2, taps)).contiguous()
+        n_out = (length + 2) // 3
+        # resample
+        y = kr.audio_resample_batch_kernel(xp, h, 3, n_out)
+        want = kr.audio_resample_batch_plain(xp, h, 3, n_out)
+        row = dict(name="audio_resample", n=n, L=length,
+                   err=errors(torch, "audio_resample", y, want))
+        row["ms"] = time_ms(torch, lambda: kr.audio_resample_batch_kernel(xp, h, 3, n_out))
+        row["plain_ms"] = time_ms(torch, lambda: kr.audio_resample_batch_plain(xp, h, 3, n_out))
+        row["library_ms"] = time_ms(
+            torch, lambda: F.conv1d(xp[:, None], h[None, None], stride=3)[:, 0, :n_out])
+        row["bytes"] = 4 * (xp.numel() + taps + n * n_out)
+        row["flops"] = 2 * taps * n * n_out
+        rows.append(row)
+        # mel, on the frames of the kernel's resampled signal
+        t = 1 + (n_out - 400) // 160
+        idx = (torch.arange(400, device=dev)[None, :]
+               + 160 * torch.arange(t, device=dev)[:, None])
+        frames = F.pad(y[:, idx] * win, (0, 112)).reshape(n * t, 512).contiguous()
+        mel = km.mel_spectrogram_batch_kernel(frames, cr, ci, fb)
+        want = km.mel_spectrogram_batch_plain(frames, cr, ci, fb)
+        row = dict(name="mel_spectrogram", n=n, L=length,
+                   err=errors(torch, "mel_spectrogram", mel, want))
+        row["ms"] = time_ms(torch, lambda: km.mel_spectrogram_batch_kernel(frames, cr, ci, fb))
+        row["plain_ms"] = time_ms(torch, lambda: km.mel_spectrogram_batch_plain(frames, cr, ci, fb))
+        row["library_ms"] = None  # no single PyTorch call computes a log-mel spectrogram
+        m, nb, nm = n * t, cr.shape[1], fb.shape[1]
+        row["bytes"] = 4 * (frames.numel() + cr.numel() + ci.numel() + fb.numel() + m * nm)
+        row["flops"] = 2 * 2 * m * 512 * nb + 3 * m * nb + 2 * m * nb * nm + m * nm
+        rows.append(row)
+        # normalize, on the kernel's log-mel features
+        feats = mel.reshape(n, t, nm).contiguous()
+        z = kn.audio_normalize_batch_kernel(feats)
+        want = kn.audio_normalize_batch_plain(feats)
+        row = dict(name="audio_normalize", n=n, L=length,
+                   err=errors(torch, "audio_normalize", z, want))
+        row["ms"] = time_ms(torch, lambda: kn.audio_normalize_batch_kernel(feats))
+        row["plain_ms"] = time_ms(torch, lambda: kn.audio_normalize_batch_plain(feats))
+        ft = feats.transpose(1, 2)
+        row["library_ms"] = time_ms(torch, lambda: F.instance_norm(ft, eps=1e-5))
+        row["bytes"] = 4 * 2 * feats.numel()
+        row["flops"] = 5 * feats.numel()
+        rows.append(row)
+    torch.cuda.synchronize()
+    for row in rows:
+        abs_err, rel_err, ok = row.pop("err")
+        row["max_abs_err"], row["max_rel_err"] = abs_err, rel_err
+        t_bytes, t_ops = row["bytes"] / HBM_BYTES_S, row["flops"] / FP32_FLOPS_S
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"  {row['name']:16s} N={row['n']:2d} L={row['L']:6d}  "
+              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}) max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e}")
+        if not ok:
+            fail(f"{row['name']} N={row['n']} L={row['L']} disagrees with its plain "
+                 f"version beyond rtol/atol {TOL[row['name']]}")
+    return rows
+
+
+def serve_phase(torch, np):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.dpu.runtime import DpuConfig
+    from repro_torch.core.dpu.service import DpuService, DpuServiceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.requests import WorkloadSpec, generate_requests
+    from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime
+
+    cfg = get_config("tinyllama-1.1b")
+    ec = EngineConfig(max_new_tokens=8, continuous=True, max_slots=8, segment_len=8,
+                      max_prompt_len=128)
+    spec = WorkloadSpec(modality="text", rate_qps=50.0, mean_len=48, max_len=120,
+                        vocab=cfg.vocab, payload_samples=48_000)
+    service = DpuService(DpuServiceConfig(clock="wall", dpu=DpuConfig(backend="dpu")),
+                         device="cuda")
+    feats = {}
+    poll = service.poll
+
+    def recording_poll(now, n=None):
+        out = poll(now, n)
+        for r in out:
+            feats[r.rid] = np.array(r.payload)
+        return out
+
+    service.poll = recording_poll
+    rt = build_pipelined_runtime(cfg, ec=ec, service=service, device="cuda",
+                                 rc=RuntimeConfig(clock="wall", max_ingest=64))
+
+    def drive(reqs):
+        t0 = time.monotonic()
+        for r in reqs:
+            r.arrival += t0
+        rt.submit(reqs)
+        done = rt.run_until_idle()
+        torch.cuda.synchronize()
+        return done, time.monotonic() - t0
+
+    # warm-up (cuBLAS handles, allocator) with two requests of other rids
+    warm = generate_requests(WorkloadSpec(modality="text", rate_qps=50.0, mean_len=48,
+                                          max_len=120, vocab=cfg.vocab,
+                                          payload_samples=48_000, seed=99), 2)
+    for i, r in enumerate(warm):
+        r.rid = 10_000 + i
+    drive(warm)
+    rt.reset_metrics()
+    feats.clear()
+    groups0 = service.stats["groups"]
+
+    reqs = generate_requests(spec, 16)
+    raws = {r.rid: r.payload.copy() for r in reqs}
+    kernels.reset_launch_counts()              # the main path starts here
+    done, wall = drive(reqs)
+    launches = kernels.launch_counts()         # ... and ends here
+    groups = service.stats["groups"] - groups0
+    rt.close()
+
+    if len(done) != 16 or rt.shed or not rt.conservation_ok():
+        fail(f"served {len(done)} of 16, shed {rt.shed_counts()}")
+    for r in done:
+        f = feats.get(r.rid)
+        if f is None or f.shape != (98, 80) or not np.isfinite(f).all():
+            fail(f"request {r.rid}: features {None if f is None else f.shape} not finite [98, 80]")
+        plain = ops.audio_pipeline_batch(torch.from_numpy(raws[r.rid][None]))[0].numpy()
+        if not np.allclose(f, plain, rtol=1e-3, atol=1e-2):
+            fail(f"request {r.rid}: features differ from the plain CPU pipeline "
+                 f"(max abs {np.abs(f - plain).max():.3e})")
+        toks = np.asarray(r.payload)
+        if toks.shape != (8,) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            fail(f"request {r.rid}: tokens {toks}")
+    for k, v in launches.items():
+        if v <= 0 or v != groups:
+            fail(f"{k}: {v} launches on the main path, the service launched {groups} groups")
+    lat = np.array([r.completed_at - r.arrival for r in done])
+    ttft = np.array([r.first_token_at - r.arrival for r in done])
+    n_tok = int(sum(len(r.payload) for r in done))
+    stats = dict(served=len(done), shed=rt.shed_counts(), groups=groups, tokens=n_tok,
+                 wall_s=wall, tokens_per_s=n_tok / wall,
+                 latency_p50_ms=1e3 * float(np.percentile(lat, 50)),
+                 latency_p99_ms=1e3 * float(np.percentile(lat, 99)),
+                 ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
+                 ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
+                 launches=launches, stage_occupancy=rt.stage_occupancy())
+    print("serve: " + json.dumps(stats))
+    return stats
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
+    ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+
+    # 1. device
+    card = card_line()
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 2. build
+    t0 = time.perf_counter()
+    build.library()
+    print(f"build: {time.perf_counter() - t0:.1f}s -> {build.library_path().name}")
+    for line in build.ptxas_log.splitlines():
+        if "Used" in line or "spill" in line:
+            print("  " + line.strip())
+
+    # 3. kernels
+    rows = kernel_phase(torch, F)
+
+    # 4. serve
+    stats = serve_phase(torch, np)
+
+    line = []
+    for name in ("audio_resample", "mel_spectrogram", "audio_normalize"):
+        main_row = next(r for r in rows if r["name"] == name and (r["n"], r["L"]) == MAIN_SHAPE)
+        line.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=REPLACES[name], launches=stats["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=main_row["library_ms"]))
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(
+            {"card": card, "kernels_by_shape": rows, "serve": stats}, indent=1))
+    print(json.dumps({"kernels": line}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

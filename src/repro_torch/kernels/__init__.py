@@ -1,0 +1,22 @@
+"""DPU kernels: hand-written CUDA for Hopper, each with its plain PyTorch
+version beside it and a count of its launches."""
+from typing import Dict
+
+from repro_torch.kernels import audio_normalize, audio_resample, mel_spectrogram
+
+_MODULES = {
+    "audio_resample": audio_resample,
+    "mel_spectrogram": mel_spectrogram,
+    "audio_normalize": audio_normalize,
+}
+KERNELS = tuple(_MODULES)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset (process-wide)."""
+    return {name: mod.LAUNCHES for name, mod in _MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _MODULES.values():
+        mod.LAUNCHES = 0

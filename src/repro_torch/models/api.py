@@ -1,0 +1,63 @@
+"""Public model API: the dense decoder as an `nn.Module` over the
+reference-layout weight tree, and the functions it serves with."""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+from repro_torch.models.params import from_reference, init_params, leaves  # noqa: F401
+
+
+def _to_module(tree: Dict[str, Any]) -> nn.Module:
+    mod = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            mod.add_module(k, _to_module(v))
+        else:
+            mod.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    return mod
+
+
+def _to_tree(mod: nn.Module) -> Dict[str, Any]:
+    out: Dict[str, Any] = {k: p for k, p in mod.named_parameters(recurse=False)}
+    for k, child in mod.named_children():
+        out[k] = _to_tree(child)
+    return out
+
+
+class DenseLM(nn.Module):
+    """The dense-family decoder for serving. Its weights are registered as
+    (frozen) parameters under the reference paths (`body.l0.mixer.wq`, ...),
+    so `state_dict()` keys read like the JAX package's tree; `tree()` hands
+    the same tensors, uncopied, to the functions of `models.lm`."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.weights = _to_module(params)
+        self._tree: Optional[Dict[str, Any]] = None
+
+    def tree(self) -> Dict[str, Any]:
+        if self._tree is None:
+            self._tree = _to_tree(self.weights)
+        return self._tree
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, pos_offset=None) -> torch.Tensor:
+        """Last-position prefill logits [B, 1, V] of a (left-padded) batch."""
+        logits, _ = lm.prefill(self.tree(), tokens, self.cfg, pos_offset=pos_offset)
+        return logits
+
+    @torch.no_grad()
+    def prefill_into_slots(self, tokens, pool, slot_ids, clock, *, pos_offset):
+        return lm.prefill_into_slots(self.tree(), tokens, pool, slot_ids, clock,
+                                     self.cfg, pos_offset=pos_offset)
+
+    @torch.no_grad()
+    def decode_segment(self, pool, tok, pos0, *, steps, pos_offset):
+        return lm.decode_segment(self.tree(), pool, tok, pos0, self.cfg,
+                                 steps=steps, pos_offset=pos_offset)

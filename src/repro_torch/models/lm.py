@@ -1,0 +1,311 @@
+"""The dense decoder LM, serving half: prefill, decode, and the KV slot pool
+of continuous batching.
+
+Plain functions over a parameter tree laid out as the JAX package lays it
+out (`models/params.py`): layer-stacked leaves under
+``params["body"]["l0"]``, GQA heads factored as [kv_heads, q_per_kv,
+head_dim] (``wq [L, d, kh, g, hd]``, ``wk``/``wv [L, d, kh, hd]``,
+``wo [L, kh, g, hd, d]``). Caches mirror that tree:
+``cache["body"]["l0"]["mixer"]["k"|"v"]`` is ``[L, B, ring, kh, hd]``.
+
+Where the JAX functions return a new cache, these update the cache (the
+slot pool) in place and return it — the same values, without a copy of the
+pool per step.
+
+KV slot pool. The pool is one fixed-shape cache ``[max_slots, ring]``
+shared by all in-flight requests; requests join by having their prefill
+cache scattered into a row slot and leave by being ignored (stale rows are
+masked, overwritten on slot reuse). A single scalar clock is the shared
+padded write position: a request admitted at clock P with true prompt length
+n gets pos_offset = P - n, and each row's cache is TRUE-POSITION indexed —
+its prompt KV lands on ring slots 0..n-1, and every decode step writes row
+b's slot (clock - pos_offset[b]) mod ring — so the decode step never changes
+shape as requests come and go, and a row's KV layout is the layout of an
+isolated per-request cache no matter WHEN it joined.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+Tree = Dict[str, Any]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def ring_len(cfg: ModelConfig, cache_len: int) -> int:
+    return min(cfg.sliding_window, cache_len) if cfg.sliding_window else cache_len
+
+
+def _layer(tree: Tree, i: int) -> Tree:
+    """Layer i's view of a layer-stacked subtree (views, no copies)."""
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def _kv_leaves(cache: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
+    m = cache["body"]["l0"]["mixer"]
+    return m["k"], m["v"]
+
+
+def _qkv(x: torch.Tensor, p: Tree):
+    """x: [B, S, D] -> q [B, S, kh, g, hd], k/v [B, S, kh, hd]."""
+    B, S, D = x.shape
+    dt = x.dtype
+    wq = p["wq"].to(dt)
+    kh, g, hd = wq.shape[1:]
+    q = (x @ wq.reshape(D, -1)).view(B, S, kh, g, hd)
+    k = (x @ p["wk"].to(dt).reshape(D, -1)).view(B, S, kh, hd)
+    v = (x @ p["wv"].to(dt).reshape(D, -1)).view(B, S, kh, hd)
+    return q, k, v
+
+
+def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """o: [B, S, kh, g, hd] -> [B, S, D]."""
+    B, S = o.shape[:2]
+    w = wo.to(o.dtype)
+    return o.reshape(B, S, -1) @ w.reshape(-1, w.shape[-1])
+
+
+def _rope4(q: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """RoPE on [B, S, KH, G, D] (factored GQA heads)."""
+    b, s, kh, g, d = q.shape
+    return L.apply_rope(q.reshape(b, s, kh * g, d), pos, theta).reshape(b, s, kh, g, d)
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+
+def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int, pos_offset=None):
+    """Causal self-attention sublayer over a full prompt, emitting its cache.
+
+    pos_offset: [B] left-pad amounts for ragged serving batches — row b's
+    token at padded index j has true position j - pos_offset[b]; negative
+    positions are padding, masked out of attention. With pos_offset the
+    keys and values are shifted to the canonical TRUE-POSITION layout (axis
+    column t holds the roped key/value at true position t, columns past the
+    true length are zero and masked), the same layout the slot pool stores,
+    and the shifted tensors double as the emitted cache.
+    Returns (out [B, S, D], {"k", "v"} [B, ring, kh, hd])."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, p)
+    s_idx = torch.arange(S, device=x.device)
+    qpos = s_idx
+    if pos_offset is not None:
+        off = pos_offset.to(device=x.device, dtype=torch.int64)[:, None]
+        qpos = s_idx[None, :] - off
+    kpos = qpos
+    q = _rope4(q, qpos, cfg.rope_theta)
+    k = L.apply_rope(k, qpos, cfg.rope_theta)
+    if pos_offset is not None:
+        gi = s_idx[None, :] + off
+        keep = (gi < S)[..., None, None]
+        gidx = torch.clamp(gi, max=S - 1)[..., None, None].expand(-1, -1, *k.shape[2:])
+        zero = torch.zeros((), dtype=k.dtype, device=k.device)
+        k = torch.where(keep, torch.gather(k, 1, gidx), zero)
+        v = torch.where(keep, torch.gather(v, 1, gidx), zero)
+        kpos = torch.where(gi < S, s_idx[None, :], torch.full_like(gi, -1))
+    kh, g, hd = q.shape[2:]
+    o = L.attention(q.reshape(B, S, kh * g, hd), k, v, qpos, kpos,
+                    causal=True, window=cfg.sliding_window)
+    out = _out(o.reshape(B, S, kh, g, hd), p["wo"])
+    wc = ring_len(cfg, cache_len)
+    if wc < S:
+        raise NotImplementedError(
+            "a ring smaller than the prompt (sliding window) is not served yet")
+    # decode headroom: slots S..wc-1 stay empty (masked until decode writes)
+    cache = {"k": F.pad(k, (0, 0, 0, 0, 0, wc - S)),
+             "v": F.pad(v, (0, 0, 0, 0, 0, wc - S))}
+    return out, cache
+
+
+def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
+            cache_len: int, pos_offset=None) -> Tuple[torch.Tensor, Tree]:
+    """Prefill forward: (final hidden [B, S, D], cache tree).
+
+    pos_offset: optional [B] left-pad amounts (bucketed serving): row b's
+    first pos_offset[b] token slots are padding. Their embeddings are zeroed
+    and they are masked out of attention, so each row computes what it
+    would at its true length."""
+    dt = _dtype(cfg)
+    x = params["embed"][tokens].to(dt)
+    if pos_offset is not None:
+        valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                 >= pos_offset.to(x.device)[:, None])
+        x = x * valid[..., None].to(dt)
+    body = params["body"]["l0"]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        sub = _layer(body, i)
+        h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
+        o, c = _attn_forward(h, sub["mixer"], cfg, cache_len=cache_len,
+                             pos_offset=pos_offset)
+        x = x + o
+        h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
+        x = x + L.mlp(h, sub["ffn"])
+        ks.append(c["k"])
+        vs.append(c["v"])
+    x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    cache = {"body": {"l0": {"mixer": {"k": torch.stack(ks), "v": torch.stack(vs)}}}}
+    return x, cache
+
+
+def logits_from_hidden(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """fp32 logits [..., vocab]: products of the activation-dtype inputs
+    accumulated in fp32 (the JAX package's preferred_element_type=f32)."""
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    logits = x.float() @ w.to(x.dtype).float()
+    return logits[..., : cfg.vocab]  # strip the padded vocab slots
+
+
+def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
+            pos_offset=None, cache_len: Optional[int] = None):
+    """Full-sequence prefill. Returns (last-position logits [B, 1, V], cache).
+    cache_len: KV slots to allocate (defaults to the prompt length)."""
+    x, cache = forward(params, tokens, cfg,
+                       cache_len=tokens.shape[1] if cache_len is None else cache_len,
+                       pos_offset=pos_offset)
+    return logits_from_hidden(params, x[:, -1:], cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def _attn_decode(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
+                 pos: int, pos_offset=None) -> torch.Tensor:
+    """Single-token attention. x: [B, 1, D]; ck/cv: this layer's ring
+    buffers [B, ring, kh, hd], written in place.
+
+    `pos` is the scalar *padded* write position; with pos_offset [B] the
+    cache is TRUE-POSITION indexed per row: row b's step writes ring slot
+    (pos - offset_b) mod ring, so slot t always holds the row's token at
+    true position t, exactly like an unpadded per-request cache. Validity
+    needs no slot bookkeeping: within [0, qpos] every slot is the row's own
+    most recent write (a row's live span never exceeds the ring, by pool
+    sizing), and anything past qpos is cut by the causal mask."""
+    B = x.shape[0]
+    q, k1, v1 = _qkv(x, p)
+    wc = ck.shape[1]
+    wc_idx = torch.arange(wc, device=x.device)
+    if pos_offset is None:
+        pos_t = torch.tensor(pos, device=x.device)
+        qpos = pos_t[None]
+        slot_pos = L.ring_slot_positions(pos_t, wc)
+        kpos = torch.where(slot_pos >= 0, slot_pos, torch.full_like(slot_pos, -1))
+    else:
+        off = pos_offset.to(device=x.device, dtype=torch.int64)
+        qpos = (pos - off)[:, None]                            # [B, 1] true positions
+        # per-row true-position ring: slot t holds the most recent true
+        # position <= qpos congruent to t (mod ring); negatives are invalid
+        kpos = qpos - torch.remainder(qpos - wc_idx[None, :], wc)
+        kpos = torch.where(kpos >= 0, kpos, torch.full_like(kpos, -1))
+    q = _rope4(q, qpos, cfg.rope_theta)
+    k1 = L.apply_rope(k1, qpos, cfg.rope_theta).to(ck.dtype)
+    v1 = v1.to(cv.dtype)
+    if pos_offset is None:
+        ck[:, pos % wc] = k1[:, 0]
+        cv[:, pos % wc] = v1[:, 0]
+    else:
+        # per-row slot write as a dense select, written back in place
+        widx = torch.remainder(pos - off, wc)
+        hit = (wc_idx[None, :] == widx[:, None])[:, :, None, None]
+        ck.copy_(torch.where(hit, k1, ck))
+        cv.copy_(torch.where(hit, v1, cv))
+    kh, g, hd = q.shape[2:]
+    o = L.attention_dense(q.reshape(B, 1, kh * g, hd), ck, cv, qpos, kpos,
+                          causal=True, window=0)
+    return _out(o.reshape(B, 1, kh, g, hd), p["wo"])
+
+
+def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
+           cfg: ModelConfig, *, pos_offset=None):
+    """One decode step. tokens: [B, 1]; pos: the padded write position;
+    pos_offset: optional [B] (row b's true position is pos - pos_offset[b]).
+    Returns (logits [B, 1, V], cache) — the cache updated in place."""
+    dt = _dtype(cfg)
+    x = params["embed"][tokens].to(dt)
+    body = params["body"]["l0"]
+    K, V = _kv_leaves(cache)
+    for i in range(cfg.n_layers):
+        sub = _layer(body, i)
+        h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
+        x = x + _attn_decode(h, sub["mixer"], cfg, K[i], V[i], pos, pos_offset)
+        h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
+        x = x + L.mlp(h, sub["ffn"])
+    x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return logits_from_hidden(params, x, cfg), cache
+
+
+def decode_segment(params: Tree, cache: Tree, tok: torch.Tensor, pos0: int,
+                   cfg: ModelConfig, *, steps: int, pos_offset=None):
+    """Greedy-decode `steps` tokens starting *after* the last emitted token
+    `tok` [B, 1] (the continuous-batching segment). pos0: the shared padded
+    write position of the first step (the slot-pool clock). Returns
+    (tokens [B, steps], cache); chaining segments equals one longer segment
+    or the sequential decode() loop."""
+    toks = []
+    pos = int(pos0)
+    for _ in range(steps):
+        logits, cache = decode(params, cache, tok, pos, cfg, pos_offset=pos_offset)
+        tok = torch.argmax(logits, -1)
+        toks.append(tok)
+        pos += 1
+    return torch.cat(toks, dim=1), cache
+
+
+# ---------------------------------------------------------------------------
+# KV slot pool (continuous batching)
+# ---------------------------------------------------------------------------
+
+
+def alloc_slot_pool(cfg: ModelConfig, max_slots: int, cache_len: int,
+                    device: torch.device) -> Tree:
+    """Zero-initialized slot-pool cache tree ([L, max_slots, ring, kh, hd])."""
+    shape = (cfg.n_layers, max_slots, ring_len(cfg, cache_len), cfg.n_kv_heads, cfg.hd)
+    z = lambda: torch.zeros(shape, dtype=_dtype(cfg), device=device)  # noqa: E731
+    return {"body": {"l0": {"mixer": {"k": z(), "v": z()}}}}
+
+
+def scatter_into_slots(pool: Tree, prefill_cache: Tree, slot_ids: torch.Tensor,
+                       clock: int, lp: int) -> Tree:
+    """Admit a prefilled batch into pool row slots, in place: prefill-cache
+    row i lands in pool slot slot_ids[i], at ring slots 0..lp-1 (the
+    prefill cache is already true-position indexed); rows whose slot id is
+    out of range (admission padding) are dropped. The clock does not enter:
+    placement is true-position indexed."""
+    del clock
+    pk, pv = _kv_leaves(pool)
+    qk, qv = _kv_leaves(prefill_cache)
+    if qk.shape[2] != lp or lp > pk.shape[2]:
+        raise ValueError(f"prefill ring {qk.shape[2]} / pool ring {pk.shape[2]} "
+                         f"cannot take a prompt bucket of {lp}")
+    slot_ids = slot_ids.to(pk.device)
+    keep = slot_ids < pk.shape[1]
+    rows = slot_ids[keep]
+    pk[:, rows, :lp] = qk[:, keep].to(pk.dtype)
+    pv[:, rows, :lp] = qv[:, keep].to(pv.dtype)
+    return pool
+
+
+def prefill_into_slots(params: Tree, tokens: torch.Tensor, pool: Tree,
+                       slot_ids: torch.Tensor, clock: int, cfg: ModelConfig, *,
+                       pos_offset=None):
+    """Fused admission: prefill a left-padded (batch, lp) prompt bucket and
+    scatter its KV into slot-pool rows. Returns (first greedy tokens [B, 1],
+    pool). The caller sets each admitted slot's pos_offset to
+    clock - true_prompt_len so decode positions continue from the prompt."""
+    lp = tokens.shape[1]
+    logits, pcache = prefill(params, tokens, cfg, pos_offset=pos_offset, cache_len=lp)
+    pool = scatter_into_slots(pool, pcache, slot_ids, clock, lp)
+    return torch.argmax(logits, -1), pool
