@@ -22,8 +22,33 @@ Phases, each fatal on failure:
    kernels on the service's stream) into the pipelined runtime over
    full-width tinyllama-1.1b in bf16 with seeded weights. Every request
    must be served, its features finite, [98, 80] and equal to the plain
-   CPU pipeline (rtol 1e-3, atol 1e-2); every kernel's launch count in
-   this run must be > 0 and equal the service's launched groups.
+   CPU pipeline (rtol 1e-3, atol 1e-2); every audio kernel's launch count
+   in this run must be > 0 and equal the service's launched groups, and no
+   image kernel may launch.
+5. image kernels — at N in {1, 16} images of 256 x 256 and 512 x 512, and
+   N in {1, 4} of 384 x 512 (the per-FU group of phase 6), holds the IDCT,
+   resize (to 256 x 256) and crop-normalize (224 x 224) kernels against
+   their plain versions and times them as phase 3 does. Resize's library
+   call is F.interpolate (bilinear, align_corners=False, no antialias),
+   checked once against the plain version at each shape. Resize's bound
+   counts the operations the function needs, 2 taps per output in each
+   pass; the dense products the kernel computes are reported beside it as
+   dense_bound_ms.
+6. image serve — PREBA's image serving path: 20 requests carrying JPEG
+   coefficient payloads through an image DPU service into a second
+   pipelined runtime over the same weights: 16 of 512 x 512 sharing the
+   luminance table of ITU-T T.81 Annex K (Table K.1), which take the fused
+   path, and 4 of 384 x 512 whose tables differ (K.1 x 0.5 and x 2), which
+   take the per-functional-unit path. Every request must be served, its
+   features finite, [224, 224] and equal to the plain CPU pipeline (rtol
+   1e-3, atol 1e-2), and no audio kernel may launch. The image kernels'
+   launch counts must equal what the launched groups imply: a group of n
+   requests is padded to a stack of m = next_pow2(n); if every qtable of
+   the stack equals the first it is fused (ops.image_pipeline_batch), else
+   it takes the per-FU path, which decodes request by request. So per group
+       jpeg_idct       += 1 if fused else m
+       image_resize    += 2          (rows pass, then columns pass)
+       image_normalize += 1
 
 Prints one JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. With --out PATH the per-shape
@@ -43,13 +68,32 @@ HBM_BYTES_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_S = 67e12    # H100 SXM data sheet, fp32 on the CUDA cores
 SHAPES = [(1, 48_000), (16, 48_000), (1, 192_000), (16, 192_000)]
 MAIN_SHAPE = (16, 48_000)  # the serve phase: one group of 16 payloads of 1 s
+IMAGE_SHAPES = [(1, 256, 256), (16, 256, 256), (1, 512, 512), (16, 512, 512),
+                (1, 384, 512), (4, 384, 512)]
+IMAGE_MAIN_SHAPE = (16, 512, 512)  # the image serve phase's fused group
+RESIZE_TO, CROP_TO, MEAN, STD = 256, 224, 127.5, 64.0
 TOL = {"audio_resample": (1e-4, 1e-5), "mel_spectrogram": (2e-4, 2e-4),
-       "audio_normalize": (3e-3, 3e-3)}
+       "audio_normalize": (3e-3, 3e-3), "jpeg_idct": (1e-4, 1e-3),
+       "image_resize": (1e-4, 1e-4), "image_normalize": (1e-5, 1e-5)}
 REPLACES = {
     "audio_resample": "src/repro/kernels/audio_resample.py:67",
     "mel_spectrogram": "src/repro/kernels/mel_spectrogram.py:40",
     "audio_normalize": "src/repro/kernels/audio_normalize.py:71",
+    "jpeg_idct": "src/repro/kernels/jpeg_idct.py:39",
+    "image_resize": "src/repro/kernels/image_resize.py:47",
+    "image_normalize": "src/repro/kernels/image_normalize.py:36",
 }
+# ITU-T T.81 Annex K, Table K.1: luminance quantization table
+QTABLE_K1 = [
+    [16, 11, 10, 16, 24, 40, 51, 61],
+    [12, 12, 14, 19, 26, 58, 60, 55],
+    [14, 13, 16, 24, 40, 57, 69, 56],
+    [14, 17, 22, 29, 51, 87, 80, 62],
+    [18, 22, 37, 56, 68, 109, 103, 77],
+    [24, 35, 55, 64, 81, 104, 113, 92],
+    [49, 64, 78, 87, 103, 121, 120, 101],
+    [72, 92, 95, 98, 112, 100, 103, 99],
+]
 
 
 def fail(msg: str) -> None:
@@ -238,9 +282,13 @@ def serve_phase(torch, np):
         toks = np.asarray(r.payload)
         if toks.shape != (8,) or toks.min() < 0 or toks.max() >= cfg.vocab:
             fail(f"request {r.rid}: tokens {toks}")
-    for k, v in launches.items():
-        if v <= 0 or v != groups:
-            fail(f"{k}: {v} launches on the main path, the service launched {groups} groups")
+    for k in kernels.AUDIO_KERNELS:
+        if launches[k] <= 0 or launches[k] != groups:
+            fail(f"{k}: {launches[k]} launches on the audio path, the service "
+                 f"launched {groups} groups")
+    for k in kernels.IMAGE_KERNELS:
+        if launches[k] != 0:
+            fail(f"{k}: {launches[k]} launches on the audio path")
     lat = np.array([r.completed_at - r.arrival for r in done])
     ttft = np.array([r.first_token_at - r.arrival for r in done])
     n_tok = int(sum(len(r.payload) for r in done))
@@ -252,6 +300,223 @@ def serve_phase(torch, np):
                  ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
                  launches=launches, stage_occupancy=rt.stage_occupancy())
     print("serve: " + json.dumps(stats))
+    return stats, rt.engine.model.tree()
+
+
+def jpeg_coeffs(np, rng, by: int, bx: int):
+    """Seeded quantized DCT coefficients [by, bx, 8, 8] whose magnitude
+    falls with frequency, as in a natural image's JPEG stream."""
+    j = np.arange(8)
+    scale = 10.0 / (1.0 + j[:, None] + j[None, :])
+    return np.round(rng.standard_normal((by, bx, 8, 8)) * scale).astype(np.float32)
+
+
+def image_kernel_phase(torch, F, np):
+    from repro_torch.kernels import image_normalize as kin
+    from repro_torch.kernels import image_resize as kz
+    from repro_torch.kernels import jpeg_idct as kj
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4321)
+    qt = torch.tensor(QTABLE_K1, dtype=torch.float32, device=dev)
+    rows = []
+    for n, h, w in IMAGE_SHAPES:
+        coeffs = torch.from_numpy(np.stack([jpeg_coeffs(np, rng, h // 8, w // 8)
+                                            for _ in range(n)])).to(dev)
+        tag = dict(n=n, H=h, W=w)
+        # IDCT, straight into image layout
+        imgs = kj.jpeg_idct_batch_kernel(coeffs, qt)
+        want = kj.jpeg_idct_batch_plain(coeffs, qt)
+        row = dict(name="jpeg_idct", **tag, err=errors(torch, "jpeg_idct", imgs, want))
+        row["ms"] = time_ms(torch, lambda: kj.jpeg_idct_batch_kernel(coeffs, qt))
+        row["plain_ms"] = time_ms(torch, lambda: kj.jpeg_idct_batch_plain(coeffs, qt))
+        row["library_ms"] = None  # no single PyTorch call dequantizes and inverts 8x8 DCT blocks
+        nb = n * (h // 8) * (w // 8)
+        row["bytes"] = 4 * (coeffs.numel() + 64 + 64 + n * h * w)
+        row["flops"] = nb * (64 + 2 * 2 * 8 * 8 * 8 + 64)
+        rows.append(row)
+        # resize to 256 x 256, on the kernel's decoded images
+        ry = ops.resize_matrix(h, RESIZE_TO, dev)
+        rx = ops.resize_matrix(w, RESIZE_TO, dev)
+        z = kz.image_resize_batch_kernel(imgs, ry, rx)
+        want = kz.image_resize_batch_plain(imgs, ry, rx)
+        row = dict(name="image_resize", **tag, err=errors(torch, "image_resize", z, want))
+
+        def interp():
+            return F.interpolate(imgs[:, None], size=(RESIZE_TO, RESIZE_TO), mode="bilinear",
+                                 align_corners=False, antialias=False)[:, 0]
+
+        row["library_err"] = errors(torch, "image_resize", interp(), want)
+        row["ms"] = time_ms(torch, lambda: kz.image_resize_batch_kernel(imgs, ry, rx))
+        row["plain_ms"] = time_ms(torch, lambda: kz.image_resize_batch_plain(imgs, ry, rx))
+        row["library_ms"] = time_ms(torch, interp)
+        row["bytes"] = 4 * (imgs.numel() + ry.numel() + rx.numel() + n * RESIZE_TO * RESIZE_TO)
+        # a bilinear output has 2 taps in each pass; the kernel computes the
+        # dense products, which dense_bound_ms counts
+        row["flops"] = 2 * n * (RESIZE_TO * 2 * w + RESIZE_TO * RESIZE_TO * 2)
+        row["dense_flops"] = 2 * n * (RESIZE_TO * h * w + RESIZE_TO * w * RESIZE_TO)
+        rows.append(row)
+        # crop-normalize, on the kernel's resized images
+        y = kin.image_crop_normalize_batch_kernel(z, CROP_TO, CROP_TO, MEAN, STD)
+        want = kin.image_crop_normalize_batch_plain(z, CROP_TO, CROP_TO, MEAN, STD)
+        row = dict(name="image_normalize", **tag,
+                   err=errors(torch, "image_normalize", y, want))
+        row["ms"] = time_ms(torch, lambda: kin.image_crop_normalize_batch_kernel(
+            z, CROP_TO, CROP_TO, MEAN, STD))
+        row["plain_ms"] = time_ms(torch, lambda: kin.image_crop_normalize_batch_plain(
+            z, CROP_TO, CROP_TO, MEAN, STD))
+        row["library_ms"] = None  # no single PyTorch call crops and normalizes
+        row["bytes"] = 4 * 2 * n * CROP_TO * CROP_TO
+        row["flops"] = 2 * n * CROP_TO * CROP_TO
+        rows.append(row)
+    torch.cuda.synchronize()
+    for row in rows:
+        abs_err, rel_err, ok = row.pop("err")
+        row["max_abs_err"], row["max_rel_err"] = abs_err, rel_err
+        t_bytes, t_ops = row["bytes"] / HBM_BYTES_S, row["flops"] / FP32_FLOPS_S
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        extra = ""
+        if "library_err" in row:
+            lib_abs, _, lib_ok = row.pop("library_err")
+            row["library_max_abs_err"] = lib_abs
+            row["dense_bound_ms"] = 1e3 * max(t_bytes, row["dense_flops"] / FP32_FLOPS_S)
+            extra = f" library_err={lib_abs:.3e} dense_bound_ms={row['dense_bound_ms']:.4f}"
+            if not lib_ok:
+                fail(f"F.interpolate differs from the plain resize at N={row['n']} "
+                     f"{row['H']}x{row['W']} beyond {TOL['image_resize']}")
+        print(f"  {row['name']:16s} N={row['n']:2d} {row['H']}x{row['W']}  "
+              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}) max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e}"
+              + extra)
+        if not ok:
+            fail(f"{row['name']} N={row['n']} {row['H']}x{row['W']} disagrees with its "
+                 f"plain version beyond rtol/atol {TOL[row['name']]}")
+    return rows
+
+
+def image_serve_phase(torch, np, params):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.batching.buckets import next_pow2
+    from repro_torch.core.dpu.runtime import DpuConfig
+    from repro_torch.core.dpu.service import DpuService, DpuServiceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import telemetry as tm
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.requests import WorkloadSpec, generate_requests
+    from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime
+
+    cfg = get_config("tinyllama-1.1b")
+    ec = EngineConfig(max_new_tokens=8, continuous=True, max_slots=8, segment_len=8,
+                      max_prompt_len=128)
+    service = DpuService(DpuServiceConfig(
+        clock="wall", dpu=DpuConfig(modality="image", backend="dpu")), device="cuda")
+    feats = {}
+    poll = service.poll
+
+    def recording_poll(now, n=None):
+        out = poll(now, n)
+        for r in out:
+            feats[r.rid] = np.array(r.payload)
+        return out
+
+    service.poll = recording_poll
+    rt = build_pipelined_runtime(cfg, ec=ec, service=service, device="cuda", params=params,
+                                 rc=RuntimeConfig(clock="wall", max_ingest=64))
+    k1 = np.asarray(QTABLE_K1, np.float32)
+    rng = np.random.default_rng(2024)
+
+    def traffic(n_req, seed, rid0):
+        """n_req requests: the first min(16, n_req) 512 x 512 with Table K.1,
+        the rest 384 x 512 with K.1 x 0.5 or x 2."""
+        reqs = generate_requests(WorkloadSpec(modality="text", rate_qps=50.0, mean_len=48,
+                                              max_len=120, vocab=cfg.vocab, seed=seed), n_req)
+        for i, r in enumerate(reqs):
+            r.rid = rid0 + i
+            if i < 16:
+                r.payload = {"coeffs": jpeg_coeffs(np, rng, 64, 64), "qtable": k1.copy()}
+            else:
+                r.payload = {"coeffs": jpeg_coeffs(np, rng, 48, 64),
+                             "qtable": k1 * (0.5 if i % 2 == 0 else 2.0)}
+        return reqs
+
+    def drive(reqs):
+        t0 = time.monotonic()
+        for r in reqs:
+            r.arrival += t0
+        rt.submit(reqs)
+        done = rt.run_until_idle()
+        torch.cuda.synchronize()
+        return done, time.monotonic() - t0
+
+    drive(traffic(2, 98, 20_000))  # warm-up, other rids
+    rt.reset_metrics()
+    feats.clear()
+
+    reqs = traffic(20, 7, 0)
+    raws = {r.rid: {k: v.copy() for k, v in r.payload.items()} for r in reqs}
+    kernels.reset_launch_counts()              # the image path starts here
+    done, wall = drive(reqs)
+    launches = kernels.launch_counts()         # ... and ends here
+    rt.close()
+
+    if len(done) != 20 or rt.shed or not rt.conservation_ok():
+        fail(f"image path: served {len(done)} of 20, shed {rt.shed_counts()}")
+    for r in done:
+        f = feats.get(r.rid)
+        if f is None or f.shape != (CROP_TO, CROP_TO) or not np.isfinite(f).all():
+            fail(f"image request {r.rid}: features {None if f is None else f.shape} "
+                 f"not finite [{CROP_TO}, {CROP_TO}]")
+        raw = raws[r.rid]
+        plain = ops.image_pipeline_batch(torch.from_numpy(raw["coeffs"][None]),
+                                         torch.from_numpy(raw["qtable"]))[0].numpy()
+        if not np.allclose(f, plain, rtol=1e-3, atol=1e-2):
+            fail(f"image request {r.rid}: features differ from the plain CPU pipeline "
+                 f"(max abs {np.abs(f - plain).max():.3e})")
+        toks = np.asarray(r.payload)
+        if toks.shape != (8,) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            fail(f"image request {r.rid}: tokens {toks}")
+    # the groups the service launched for these requests, and what they imply
+    groups, want = [], {"jpeg_idct": 0, "image_resize": 0, "image_normalize": 0}
+    for e in service.tracer.of(tm.PREPROCESS_LAUNCH):
+        rids = (e.extra or {}).get("rids", [])
+        if not rids or rids[0] not in raws:
+            continue
+        qts = [raws[i]["qtable"] for i in rids]
+        m = next_pow2(len(rids))
+        qts += [qts[-1]] * (m - len(rids))
+        fused = all(np.array_equal(q, qts[0]) for q in qts[1:])
+        groups.append(dict(n=len(rids), stack=m, fused=fused))
+        want["jpeg_idct"] += 1 if fused else m
+        want["image_resize"] += 2
+        want["image_normalize"] += 1
+    if sum(g["n"] for g in groups) != 20:
+        fail(f"image path: the traced groups {groups} do not cover the 20 requests")
+    if not any(g["fused"] for g in groups) or all(g["fused"] for g in groups):
+        fail(f"image path: groups {groups} did not exercise both the fused and "
+             f"the per-FU path")
+    for k in kernels.IMAGE_KERNELS:
+        if launches[k] <= 0 or launches[k] != want[k]:
+            fail(f"{k}: {launches[k]} launches on the image path, its groups "
+                 f"{groups} imply {want[k]}")
+    for k in kernels.AUDIO_KERNELS:
+        if launches[k] != 0:
+            fail(f"{k}: {launches[k]} launches on the image path")
+    lat = np.array([r.completed_at - r.arrival for r in done])
+    ttft = np.array([r.first_token_at - r.arrival for r in done])
+    n_tok = int(sum(len(r.payload) for r in done))
+    stats = dict(served=len(done), shed=rt.shed_counts(), groups=groups, tokens=n_tok,
+                 wall_s=wall, tokens_per_s=n_tok / wall,
+                 latency_p50_ms=1e3 * float(np.percentile(lat, 50)),
+                 latency_p99_ms=1e3 * float(np.percentile(lat, 99)),
+                 ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
+                 ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
+                 launches=launches, launches_implied=want,
+                 stage_occupancy=rt.stage_occupancy())
+    print("image serve: " + json.dumps(stats))
     return stats
 
 
@@ -290,16 +555,32 @@ def main() -> int:
     rows = kernel_phase(torch, F)
 
     # 4. serve
-    stats = serve_phase(torch, np)
+    stats, params = serve_phase(torch, np)
+
+    # 5. image kernels
+    image_rows = image_kernel_phase(torch, F, np)
+
+    # 6. image serve, on the same weights
+    image_stats = image_serve_phase(torch, np, params)
 
     line = []
-    for name in ("audio_resample", "mel_spectrogram", "audio_normalize"):
-        main_row = next(r for r in rows if r["name"] == name and (r["n"], r["L"]) == MAIN_SHAPE)
+    for name, shape_rows, main_of, run in (
+            ("audio_resample", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, stats),
+            ("mel_spectrogram", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, stats),
+            ("audio_normalize", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, stats),
+            ("jpeg_idct", image_rows,
+             lambda r: (r["n"], r["H"], r["W"]) == IMAGE_MAIN_SHAPE, image_stats),
+            ("image_resize", image_rows,
+             lambda r: (r["n"], r["H"], r["W"]) == IMAGE_MAIN_SHAPE, image_stats),
+            ("image_normalize", image_rows,
+             lambda r: (r["n"], r["H"], r["W"]) == IMAGE_MAIN_SHAPE, image_stats)):
+        mine = [r for r in shape_rows if r["name"] == name]
+        main_row = next(r for r in mine if main_of(r))
         line.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=stats["launches"][name],
-            max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
+            replaces=REPLACES[name], launches=run["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"]))
@@ -307,7 +588,8 @@ def main() -> int:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
-            {"card": card, "kernels_by_shape": rows, "serve": stats}, indent=1))
+            {"card": card, "kernels_by_shape": rows + image_rows, "serve": stats,
+             "image_serve": image_stats}, indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

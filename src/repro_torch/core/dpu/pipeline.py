@@ -1,4 +1,4 @@
-"""DPU Compute-Unit pipeline model (paper §4.2, Figs. 11-12), audio half.
+"""DPU Compute-Unit pipeline model (paper §4.2, Figs. 11-12).
 
 A CU is an ordered pipeline of functional units (FUs); within a CU, FUs
 stream block-granular data to each other, so a CU's latency for one request
@@ -9,7 +9,9 @@ Fig. 12(a).
 The audio pipeline is split into TWO CU types (Fig. 11b): `Resample+Mel`
 streams, but `Normalize` needs utterance-global mean/var, so fusing it would
 serialize back-to-back requests exactly as in Fig. 12(b). Keeping it as a
-separate CU restores pipelining across requests (Fig. 12(c)).
+separate CU restores pipelining across requests (Fig. 12(c)). The image
+pipeline (decode -> resize -> crop -> normalize) is one CU: its dataflow is
+sequential and streams cleanly (Fig. 12(a)).
 
 Each FU carries a callable (numpy CPU baseline, or the Hopper kernels of
 `repro_torch.kernels.ops` on a device) and an analytical cost model
@@ -83,6 +85,38 @@ class ComputeUnit:
 _FP32_FLOPS = 67e12 * 0.3
 _HBM_BYTES = 3.35e12
 _FIXED_OVERHEAD = 20e-6     # assumed per-launch overhead
+_IMG_OUT = 256              # the image CU resizes to 256 x 256 ...
+_IMG_CROP = 224             # ... and center-crops 224 x 224
+
+
+def _img_hw(x) -> Tuple[int, int]:
+    """Pixel height and width of a raw JPEG payload ({"coeffs": [H/8, W/8,
+    8, 8], ...}); 256 x 256 for a payload without coefficients."""
+    if isinstance(x, dict) and "coeffs" in x:
+        by, bx = x["coeffs"].shape[:2]
+        return 8 * int(by), 8 * int(bx)
+    return _IMG_OUT, _IMG_OUT
+
+
+def _img_decode_cost(x) -> float:
+    h, w = _img_hw(x)
+    flops = h * w * 2 * 8 * 2          # two 8x8 products per block, 32 a pixel
+    return flops / _FP32_FLOPS + _FIXED_OVERHEAD
+
+
+def _img_resize_cost(x) -> float:
+    # the dense separable products the resize kernel computes
+    h, w = _img_hw(x)
+    flops = 2 * _IMG_OUT * h * w + 2 * _IMG_OUT * w * _IMG_OUT
+    return flops / _FP32_FLOPS + _FIXED_OVERHEAD
+
+
+def _img_crop_cost(x) -> float:
+    return 0.0                         # a view: the normalize kernel reads it in place
+
+
+def _img_norm_cost(x) -> float:
+    return _IMG_CROP * _IMG_CROP * 4 * 2 / _HBM_BYTES + _FIXED_OVERHEAD
 
 
 def _audio_resample_cost(x) -> float:
@@ -114,6 +148,26 @@ def _audio_len(x) -> int:
 # ---------------------------------------------------------------------------
 
 
+def make_image_cu(backend: str = "cpu",
+                  device: Optional[torch.device] = None) -> ComputeUnit:
+    """Single CU integrating all image FUs (sequential dataflow pipelines
+    cleanly — paper Fig. 12a)."""
+    ops = _image_ops(backend, device)
+    return ComputeUnit(
+        "image",
+        [
+            FunctionalUnit("decode", ops["decode"], _img_decode_cost,
+                           batch_fn=ops.get("decode_batch")),
+            FunctionalUnit("resize", ops["resize"], _img_resize_cost,
+                           batch_fn=ops.get("resize_batch")),
+            FunctionalUnit("crop", ops["crop"], _img_crop_cost,
+                           batch_fn=ops.get("crop_batch")),
+            FunctionalUnit("normalize", ops["normalize"], _img_norm_cost,
+                           batch_fn=ops.get("normalize_batch")),
+        ],
+    )
+
+
 def make_audio_cus(backend: str = "cpu",
                    device: Optional[torch.device] = None) -> Tuple[ComputeUnit, ComputeUnit]:
     """Two CU types (paper Fig. 11b): (Resample+Mel) and (Normalize)."""
@@ -133,6 +187,75 @@ def make_audio_cus(backend: str = "cpu",
                         streaming=False, batch_fn=ops.get("normalize_batch"))],
     )
     return cu_a, cu_b
+
+
+def make_audio_fused_cu(backend: str = "cpu",
+                        device: Optional[torch.device] = None) -> ComputeUnit:
+    """Single-CU audio design (paper Fig. 12b strawman; for the ablation)."""
+    ops = _audio_ops(backend, device)
+    return ComputeUnit(
+        "audio_fused",
+        [
+            FunctionalUnit("resample", ops["resample"], _audio_resample_cost),
+            FunctionalUnit("mel", ops["mel"], _audio_mel_cost),
+            FunctionalUnit("normalize", ops["normalize"], _audio_norm_cost, streaming=False),
+        ],
+    )
+
+
+def shared_qtable(payloads: List[Dict[str, Any]]) -> Optional[np.ndarray]:
+    """The qtable every JPEG payload of a stack shares, or None when the
+    tables differ. The IDCT kernel takes one table per launch, so only a
+    stack with a shared table decodes in one launch."""
+    qt = np.asarray(payloads[0]["qtable"])
+    if all(np.array_equal(np.asarray(p["qtable"]), qt) for p in payloads[1:]):
+        return qt
+    return None
+
+
+def _image_ops(backend: str, device: Optional[torch.device]) -> Dict[str, Callable]:
+    """Per-request ops plus `*_batch` variants (DPU backend), as for audio
+    below. A batched decode needs one shared qtable: a stack whose tables
+    differ decodes request by request (one IDCT launch each), and the
+    resize and normalize that follow still run once for the stack."""
+    if backend == "dpu":
+        from repro_torch.kernels import ops as kops
+
+        def one(x):
+            return torch.as_tensor(x).to(device)
+
+        def stack(xs):
+            return torch.stack([one(x) for x in xs])
+
+        def decode_batch(cs):
+            qt = shared_qtable(cs)
+            if qt is None:
+                return [kops.jpeg_decode(one(c["coeffs"]), one(c["qtable"])) for c in cs]
+            return list(kops.jpeg_decode_batch(stack([c["coeffs"] for c in cs]), one(qt)))
+
+        return {
+            "decode": lambda c: kops.jpeg_decode(one(c["coeffs"]), one(c["qtable"])),
+            "resize": lambda x: kops.image_resize(one(x), _IMG_OUT, _IMG_OUT),
+            "crop": lambda x: kops.center_crop(one(x), _IMG_CROP, _IMG_CROP),
+            "normalize": lambda x: kops.image_normalize(one(x), 127.5, 64.0).cpu().numpy(),
+            "decode_batch": decode_batch,
+            "resize_batch": lambda xs: list(
+                kops.image_resize_batch(stack(xs), _IMG_OUT, _IMG_OUT)),
+            "crop_batch": lambda xs: list(
+                kops.center_crop_batch(stack(xs), _IMG_CROP, _IMG_CROP)),
+            "normalize_batch": lambda xs: list(
+                kops.image_normalize_batch(stack(xs), 127.5, 64.0).cpu().numpy()),
+        }
+    if backend != "cpu":
+        raise ValueError(f"unknown DPU backend {backend!r}")
+    from repro_torch.data import preprocess_cpu as pp
+
+    return {
+        "decode": lambda c: pp.decode_blocks(c["coeffs"], c["qtable"]),
+        "resize": lambda x: pp.resize_bilinear(x, _IMG_OUT, _IMG_OUT),
+        "crop": lambda x: pp.center_crop(x, _IMG_CROP, _IMG_CROP),
+        "normalize": lambda x: pp.normalize_image(x, 127.5, 64.0),
+    }
 
 
 def _audio_ops(backend: str, device: Optional[torch.device]) -> Dict[str, Callable]:

@@ -1,5 +1,4 @@
-"""DPU runtime: request-level parallelism over multiple CUs (paper Fig. 10),
-audio half.
+"""DPU runtime: request-level parallelism over multiple CUs (paper Fig. 10).
 
 Design objectives carried over from the paper:
   1. latency-centric — single-input requests are preprocessed immediately on
@@ -20,22 +19,29 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.dpu.pipeline import ComputeUnit, make_audio_cus
+from repro_torch.core.dpu.pipeline import (ComputeUnit, make_audio_cus,
+                                           make_audio_fused_cu, make_image_cu)
 from repro_torch.device import DeviceLike, resolve_device
 
 
 @dataclass(frozen=True)
 class DpuConfig:
-    modality: str = "audio"         # audio (the image front-end is not ported yet)
+    modality: str = "audio"         # audio | image
     n_cus: int = 4                  # CU instances per type
     backend: str = "cpu"            # cpu (numpy baseline) | dpu (CUDA kernels)
+    split_audio_cus: bool = True    # False = Fig.12(b) strawman (ablation)
 
 
 def group_key(x: Any) -> Any:
     """THE grouping key for batched preprocessing (process_batch and the
-    DpuService drain loop both use it — keep them in sync): array payloads
-    group by `.shape` (a same-shape stack is one kernel launch per
-    functional unit); payloads with no `.shape` group together.
+    DpuService drain loop both use it — keep them in sync):
+
+    * array payloads group by `.shape` (a same-shape stack is one kernel
+      launch per functional unit);
+    * dict payloads (JPEG {"coeffs", "qtable"}) group by the sorted
+      (field name, field shape) items, so two requests land in one group
+      iff every field is shape-compatible for stacking;
+    * payloads with no `.shape` group together.
 
     Grouping NEVER changes result order: DPU.process_batch scatters each
     group's outputs back to the input indices, so out[i] always corresponds
@@ -50,10 +56,25 @@ def payload_error(x: Any, modality: str = "audio") -> Optional[str]:
     run per request at ingest: returns a reason string when the payload
     would crash (or poison) a batched CU launch, None when well-formed.
     audio: a non-empty 1-D float array (the waveform the resample/feature
-    CUs expect). The point is to shed garbage with a typed reason at the
-    door instead of killing a whole same-shape group mid-batch."""
-    if modality != "audio":
-        raise NotImplementedError(f"{modality!r} payloads are not served yet")
+    CUs expect). image: the decoded-JPEG dict analogue of a parseable
+    header — `coeffs` a non-empty 4-D numeric block array and an 8x8
+    `qtable`. The point is to shed garbage with a typed reason at the door
+    instead of killing a whole same-shape group mid-batch."""
+    if modality == "image":
+        if not isinstance(x, dict):
+            return "image payload must be a dict with coeffs/qtable"
+        for k in ("coeffs", "qtable"):
+            if k not in x:
+                return f"image payload missing {k!r}"
+            v = x[k]
+            if not isinstance(v, np.ndarray) or v.size == 0 \
+                    or not np.issubdtype(v.dtype, np.number):
+                return f"image {k} must be a non-empty numeric ndarray"
+        if x["coeffs"].ndim != 4:
+            return "image coeffs must be 4-D (blocks_h, blocks_w, 8, 8)"
+        if x["qtable"].shape != (8, 8):
+            return "image qtable must be 8x8"
+        return None
     if not isinstance(x, np.ndarray):
         return "audio payload must be a 1-D float ndarray"
     if x.ndim != 1:
@@ -87,13 +108,17 @@ class DPU:
     versions)."""
 
     def __init__(self, config: DpuConfig, device: DeviceLike = "cuda"):
-        if config.modality != "audio":
-            raise NotImplementedError(
-                f"{config.modality!r} preprocessing is not served yet")
         self.config = config
         self.device = resolve_device(device)
-        cu_a, cu_b = make_audio_cus(config.backend, self.device)
-        self.stages = [_CuPool(cu_a, config.n_cus), _CuPool(cu_b, config.n_cus)]
+        if config.modality == "image":
+            self.stages = [_CuPool(make_image_cu(config.backend, self.device),
+                                   config.n_cus)]
+        elif config.split_audio_cus:
+            cu_a, cu_b = make_audio_cus(config.backend, self.device)
+            self.stages = [_CuPool(cu_a, config.n_cus), _CuPool(cu_b, config.n_cus)]
+        else:
+            self.stages = [_CuPool(make_audio_fused_cu(config.backend, self.device),
+                                   config.n_cus)]
         self.processed = 0
 
     # --- virtual-clock path ------------------------------------------------

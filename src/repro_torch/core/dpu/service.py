@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.batching.buckets import Request, next_pow2
+from repro_torch.core.dpu.pipeline import shared_qtable
 from repro_torch.core.dpu.runtime import DPU, DpuConfig, group_key
 from repro_torch.core.metrics import MetricsRegistry
 from repro_torch.device import DeviceLike
@@ -69,8 +70,8 @@ class DpuServiceConfig:
     # off for the numpy CPU baseline (which loops per request).
     bucket_pow2: Optional[bool] = None
     # Run a group's WHOLE front-end as one launch per kernel
-    # (kernels.ops.audio_pipeline_batch) instead of one pass per functional
-    # unit. None = auto: on for the kernel backend.
+    # (kernels.ops.audio_pipeline_batch / image_pipeline_batch) instead of
+    # one pass per functional unit. None = auto: on for the kernel backend.
     fused_launch: Optional[bool] = None
 
 
@@ -258,8 +259,11 @@ class DpuService:
         stack is padded by repeating the last payload (same shape, so the
         whole stack is still one launch per kernel) and padded outputs are
         dropped. With fused_launch the front-end is one
-        kernels.ops.audio_pipeline_batch call on the service's stream, and
-        the features reach the host in one copy."""
+        kernels.ops.audio_pipeline_batch call (audio) or one
+        kernels.ops.image_pipeline_batch call (JPEG dicts whose qtables all
+        equal the first; a group with mixed tables takes the per-FU batched
+        path) on the service's stream, and the features reach the host in
+        one copy."""
         xs = [r.payload for r in group]
         n = len(xs)
         if self._bucket:
@@ -269,16 +273,28 @@ class DpuService:
         stream = (torch.cuda.stream(self._stream) if self._stream is not None
                   else contextlib.nullcontext())
         with stream:
-            if self._fused:
-                from repro_torch.kernels import ops as kops
-
-                x = torch.from_numpy(np.stack(xs)).to(self.device)
-                out = kops.audio_pipeline_batch(x).cpu().numpy()
+            out = self._fused_pass(xs) if self._fused else None
+            if out is not None:
                 self.dpu.processed += n
                 return [out[i] for i in range(n)]
             outs = self.dpu.process_batch(xs)[:n]
         self.dpu.processed -= len(xs) - n  # padded rows are not requests
         return outs
+
+    def _fused_pass(self, xs: List[Any]) -> Optional[np.ndarray]:
+        """The group's whole front-end as one launch per kernel, features on
+        the host; None when the group cannot fuse (mixed qtables)."""
+        from repro_torch.kernels import ops as kops
+
+        if self.cfg.dpu.modality != "image":
+            x = torch.from_numpy(np.stack(xs)).to(self.device)
+            return kops.audio_pipeline_batch(x).cpu().numpy()
+        qt = shared_qtable(xs)
+        if qt is None:
+            return None
+        coeffs = torch.from_numpy(np.stack([np.asarray(x["coeffs"]) for x in xs]))
+        return kops.image_pipeline_batch(coeffs.to(self.device),
+                                         torch.from_numpy(qt).to(self.device)).cpu().numpy()
 
     def _form_group(self) -> List[Request]:
         """Pop the head-of-line request plus every same-shape SAME-TENANT

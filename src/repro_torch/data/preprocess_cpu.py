@@ -1,9 +1,12 @@
-"""Host-side audio preprocessing in numpy (the paper's CPU baseline, Fig. 4b):
-resample -> mel spectrogram -> normalize.
+"""Host-side preprocessing in numpy (the paper's CPU baseline, Fig. 4):
+
+    image: decode (dequantize + IDCT) -> resize -> center crop -> normalize
+    audio: resample -> mel spectrogram -> normalize
 
 It serves two roles in this package: the constants the DPU kernels take
-(Hann window, DFT bases, mel filterbank, FIR taps) and an independent
-numerical opinion the tests hold the kernels against.
+(IDCT basis, bilinear weights, Hann window, DFT bases, mel filterbank, FIR
+taps) and an independent numerical opinion the tests hold the kernels
+against.
 """
 from __future__ import annotations
 
@@ -18,6 +21,94 @@ def _frozen(a: np.ndarray) -> np.ndarray:
     """Mark an lru_cache'd operator matrix read-only (shared across calls)."""
     a.setflags(write=False)
     return a
+
+
+# ---------------------------------------------------------------------------
+# Image
+# ---------------------------------------------------------------------------
+
+_IDCT_N = 8
+
+
+@lru_cache(maxsize=None)
+def idct_matrix(n: int = _IDCT_N) -> np.ndarray:
+    """Orthonormal DCT-III (inverse DCT-II) matrix M: block = M @ coeff @ M.T"""
+    k = np.arange(n)[None, :]
+    x = np.arange(n)[:, None]
+    m = np.cos((2 * x + 1) * k * np.pi / (2 * n)) * np.sqrt(2.0 / n)
+    m[:, 0] *= 1.0 / np.sqrt(2.0)
+    return _frozen(m.astype(np.float32))
+
+
+def decode_blocks(coeffs: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """JPEG-style block decode backend: dequantize + 8x8 IDCT.
+
+    coeffs: [H/8, W/8, 8, 8] quantized DCT coefficients (int32-ish)
+    qtable: [8, 8] quantization table.
+    Returns pixels [H, W] float32 in [0, 255]-ish range.
+    (Huffman/entropy decode stays on the host, before the DPU.)
+    """
+    m = idct_matrix()
+    deq = coeffs.astype(np.float32) * qtable.astype(np.float32)[None, None]
+    blocks = np.einsum("ij,byjk,lk->byil", m, deq, m)
+    by, bx = coeffs.shape[0], coeffs.shape[1]
+    return (blocks.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8) + 128.0).astype(
+        np.float32
+    )
+
+
+def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Separable bilinear resize (align_corners=False, half-pixel centers).
+    img: [H, W] or [H, W, C] float32."""
+    h, w = img.shape[0], img.shape[1]
+    ry = _resize_matrix(h, out_h)
+    rx = _resize_matrix(w, out_w)
+    out = np.tensordot(ry, img, axes=(1, 0))            # [out_h, W, ...]
+    out = np.moveaxis(np.tensordot(rx, np.moveaxis(out, 1, 0), axes=(1, 0)), 0, 1)
+    return out.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] bilinear interpolation weights (half-pixel centers)."""
+    m = np.zeros((n_out, n_in), np.float32)
+    scale = n_in / n_out
+    for o in range(n_out):
+        c = (o + 0.5) * scale - 0.5
+        lo = int(np.floor(c))
+        frac = c - lo
+        lo_c = min(max(lo, 0), n_in - 1)
+        hi_c = min(max(lo + 1, 0), n_in - 1)
+        m[o, lo_c] += 1.0 - frac
+        m[o, hi_c] += frac
+    return _frozen(m)
+
+
+def center_crop(img: np.ndarray, ch: int, cw: int) -> np.ndarray:
+    h, w = img.shape[0], img.shape[1]
+    y0 = (h - ch) // 2
+    x0 = (w - cw) // 2
+    return img[y0 : y0 + ch, x0 : x0 + cw]
+
+
+def normalize_image(img: np.ndarray, mean, std) -> np.ndarray:
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    return ((img - mean) / std).astype(np.float32)
+
+
+def image_pipeline(coeffs: np.ndarray, qtable: np.ndarray,
+                   resize_to: int = 256, crop_to: int = 224,
+                   mean: float = 127.5, std: float = 64.0) -> np.ndarray:
+    x = decode_blocks(coeffs, qtable)
+    x = resize_bilinear(x, resize_to, resize_to)
+    x = center_crop(x, crop_to, crop_to)
+    return normalize_image(x, mean, std)
+
+
+# ---------------------------------------------------------------------------
+# Audio
+# ---------------------------------------------------------------------------
 
 
 @lru_cache(maxsize=None)

@@ -2,14 +2,20 @@
 version beside it and a count of its launches."""
 from typing import Dict
 
-from repro_torch.kernels import audio_normalize, audio_resample, mel_spectrogram
+from repro_torch.kernels import (audio_normalize, audio_resample, image_normalize,
+                                 image_resize, jpeg_idct, mel_spectrogram)
 
 _MODULES = {
     "audio_resample": audio_resample,
     "mel_spectrogram": mel_spectrogram,
     "audio_normalize": audio_normalize,
+    "jpeg_idct": jpeg_idct,
+    "image_resize": image_resize,
+    "image_normalize": image_normalize,
 }
 KERNELS = tuple(_MODULES)
+AUDIO_KERNELS = ("audio_resample", "mel_spectrogram", "audio_normalize")
+IMAGE_KERNELS = ("jpeg_idct", "image_resize", "image_normalize")
 
 
 def launch_counts() -> Dict[str, int]:

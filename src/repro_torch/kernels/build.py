@@ -20,7 +20,8 @@ from pathlib import Path
 from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("audio_resample.cu", "mel_spectrogram.cu", "audio_normalize.cu")
+SOURCES = ("audio_resample.cu", "mel_spectrogram.cu", "audio_normalize.cu",
+           "jpeg_idct.cu", "image_resize.cu", "image_normalize.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,6 +36,11 @@ _SIGNATURES = {
     "preba_mel_max_mels": ([], _I),
     "preba_normalize": ([_P, _P, _I, _I, _I, ctypes.c_float, _P], _I),
     "preba_normalize_smem_bytes": ([_I], _I),
+    "preba_idct": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    "preba_resize_rows": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "preba_resize_cols": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "preba_crop_normalize": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                              ctypes.c_float, _P], _I),
     "preba_error_string": ([_I], ctypes.c_char_p),
 }
 

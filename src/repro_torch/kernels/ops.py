@@ -1,9 +1,10 @@
-"""Public wrappers for the DPU audio kernels.
+"""Public wrappers for the DPU kernels, audio and image.
 
 The padding, zero-stuffing, framing, Hann window and n_fft zero-pad around
-the kernels are plain torch, as the JAX package does them outside Pallas.
-Each wrapper runs where its input lies: CUDA tensors go through the
-Hopper kernels, CPU tensors through their plain versions.
+the audio kernels, and the center crop outside the fused image pipeline,
+are plain torch, as the JAX package does them outside Pallas. Each wrapper
+runs where its input lies: CUDA tensors go through the Hopper kernels, CPU
+tensors through their plain versions.
 """
 from __future__ import annotations
 
@@ -17,6 +18,10 @@ import torch.nn.functional as F
 from repro_torch.data import preprocess_cpu as pp
 from repro_torch.kernels.audio_normalize import audio_normalize_batch as _normalize
 from repro_torch.kernels.audio_resample import audio_resample_batch as _resample
+from repro_torch.kernels.image_normalize import crop_origin
+from repro_torch.kernels.image_normalize import image_crop_normalize_batch as _crop_normalize
+from repro_torch.kernels.image_resize import image_resize_batch as _resize
+from repro_torch.kernels.jpeg_idct import jpeg_idct_batch as _idct
 from repro_torch.kernels.mel_spectrogram import mel_spectrogram_batch as _mel
 
 
@@ -35,6 +40,13 @@ def resample_taps(up: int, down: int, num_taps: int,
                   device: torch.device) -> torch.Tensor:
     h = pp.fir_lowpass(num_taps * max(up, down), 1.0 / max(up, down)) * up
     return torch.tensor(h, dtype=torch.float32, device=device)
+
+
+@lru_cache(maxsize=None)
+def resize_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """[n_out, n_in] bilinear weights (half-pixel centers) on device."""
+    return torch.tensor(pp._resize_matrix(n_in, n_out), dtype=torch.float32,
+                        device=device)
 
 
 # --- batched audio (one kernel launch per same-shape request stack) ----------
@@ -108,3 +120,66 @@ def mel_spectrogram(x: torch.Tensor, *, sr: int = 16000, n_fft: int = 512,
 
 def audio_normalize(feats: torch.Tensor) -> torch.Tensor:
     return audio_normalize_batch(feats[None])[0]
+
+
+# --- batched image (one launch per kernel per same-shape request stack) ------
+
+
+def jpeg_decode_batch(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+    """coeffs: [N, H/8, W/8, 8, 8] same-shape stack -> pixels [N, H, W]; all
+    N*H/8*W/8 blocks go through one IDCT launch."""
+    return _idct(coeffs.float().contiguous(),
+                 qtable.to(coeffs.device, torch.float32).contiguous())
+
+
+def image_resize_batch(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """imgs: [N, H, W] -> [N, out_h, out_w] in two launches for the stack."""
+    ry = resize_matrix(imgs.shape[1], out_h, imgs.device)
+    rx = resize_matrix(imgs.shape[2], out_w, imgs.device)
+    return _resize(imgs.float().contiguous(), ry, rx)
+
+
+def center_crop_batch(imgs: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
+    """The centered [N, ch, cw] window, as a view (no kernel, no copy)."""
+    y0, x0 = crop_origin(imgs.shape[1], imgs.shape[2], ch, cw)
+    return imgs[:, y0:y0 + ch, x0:x0 + cw]
+
+
+def image_normalize_batch(imgs: torch.Tensor, mean: float, std: float) -> torch.Tensor:
+    """imgs: [N, H, W] -> normalized stack: the crop-normalize kernel with
+    the whole image as its window, one launch."""
+    x = imgs.float().contiguous()
+    return _crop_normalize(x, x.shape[1], x.shape[2], mean, std)
+
+
+def image_pipeline_batch(coeffs: torch.Tensor, qtable: torch.Tensor, *,
+                         resize_to: int = 256, crop_to: int = 224,
+                         mean: float = 127.5, std: float = 64.0) -> torch.Tensor:
+    """The whole JPEG front-end — dequantize+IDCT decode -> resize -> center
+    crop -> normalize — for a same-shape coefficient stack [N, H/8, W/8, 8,
+    8] with one shared qtable: one launch of the IDCT, two of the resize and
+    one of the crop-normalize for the group (the DPU service's fused
+    launch). The crop is read in place by the normalize kernel."""
+    imgs = jpeg_decode_batch(coeffs, qtable)
+    imgs = image_resize_batch(imgs, resize_to, resize_to)
+    return _crop_normalize(imgs, crop_to, crop_to, mean, std)
+
+
+# --- per-request image wrappers (the batched kernels at N = 1) ---------------
+
+
+def jpeg_decode(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+    """coeffs: [H/8, W/8, 8, 8] -> pixels [H, W]."""
+    return jpeg_decode_batch(coeffs[None], qtable)[0]
+
+
+def image_resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    return image_resize_batch(img[None], out_h, out_w)[0]
+
+
+def center_crop(img: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
+    return center_crop_batch(img[None], ch, cw)[0]
+
+
+def image_normalize(img: torch.Tensor, mean: float, std: float) -> torch.Tensor:
+    return image_normalize_batch(img[None], mean, std)[0]

@@ -12,6 +12,7 @@ from numpy.testing import assert_allclose
 
 from repro_torch import kernels
 from repro_torch.kernels import audio_normalize, audio_resample, build, mel_spectrogram, ops
+from repro_torch.kernels import image_normalize, image_resize, jpeg_idct
 
 
 def _signals(n, seed=0, length=48000):
@@ -52,7 +53,9 @@ def test_pipeline_on_card_matches_cpu_and_counts_launches(cuda):
     x = _signals(5, seed=41)
     kernels.reset_launch_counts()
     got = ops.audio_pipeline_batch(torch.from_numpy(x).to(cuda)).cpu().numpy()
-    assert kernels.launch_counts() == {k: 1 for k in kernels.KERNELS}
+    counts = kernels.launch_counts()
+    assert {k: counts[k] for k in kernels.AUDIO_KERNELS} == {k: 1 for k in kernels.AUDIO_KERNELS}
+    assert {k: counts[k] for k in kernels.IMAGE_KERNELS} == {k: 0 for k in kernels.IMAGE_KERNELS}
     want = ops.audio_pipeline_batch(torch.from_numpy(x)).numpy()
     assert got.shape == (5, 98, 80)
     assert_allclose(got, want, rtol=1e-3, atol=1e-2)
@@ -69,3 +72,83 @@ def test_kernel_wrappers_refuse_bad_inputs_on_card(cuda):
     with pytest.raises(ValueError):
         audio_normalize.audio_normalize_batch(torch.zeros(2, 9, 80, device=cuda).transpose(1, 2))
     assert build.library_path().exists()
+
+
+def _coeffs(shape, seed):
+    return np.random.default_rng(seed).integers(-32, 32, shape).astype(np.float32)
+
+
+def _qtable(seed=0):
+    return np.random.default_rng(seed).integers(1, 16, (8, 8)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1, 1, 8, 8), (1, 27, 19, 8, 8), (4, 64, 64, 8, 8)])
+def test_idct_kernel_matches_plain_on_card(cuda, shape):
+    c = torch.from_numpy(_coeffs(shape, sum(shape))).to(cuda)
+    q = torch.from_numpy(_qtable()).to(cuda)
+    assert_allclose(jpeg_idct.jpeg_idct_batch_kernel(c, q).cpu().numpy(),
+                    jpeg_idct.jpeg_idct_batch_plain(c, q).cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,hw,out", [(1, (256, 256), (256, 256)), (3, (320, 200), (112, 96)),
+                                      (2, (512, 512), (256, 256)), (2, (70, 130), (257, 65))])
+def test_resize_kernel_matches_plain_on_card(cuda, n, hw, out):
+    x = torch.from_numpy(np.random.default_rng(n).random((n, *hw), np.float32) * 255).to(cuda)
+    ry, rx = ops.resize_matrix(hw[0], out[0], cuda), ops.resize_matrix(hw[1], out[1], cuda)
+    assert_allclose(image_resize.image_resize_batch_kernel(x, ry, rx).cpu().numpy(),
+                    image_resize.image_resize_batch_plain(x, ry, rx).cpu().numpy(),
+                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,hw,crop", [(2, (256, 256), (224, 224)), (3, (224, 224), (224, 224)),
+                                       (1, (97, 130), (33, 101))])
+def test_crop_normalize_kernel_matches_plain_on_card(cuda, n, hw, crop):
+    x = torch.from_numpy(np.random.default_rng(n).random((n, *hw), np.float32) * 255).to(cuda)
+    for mean, std in ((127.5, 64.0), (110.3, 57.1)):
+        assert_allclose(
+            image_normalize.image_crop_normalize_batch_kernel(x, *crop, mean, std).cpu().numpy(),
+            image_normalize.image_crop_normalize_batch_plain(x, *crop, mean, std).cpu().numpy(),
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_image_pipeline_on_card_matches_cpu_and_counts_launches(cuda):
+    c, q = _coeffs((3, 48, 64, 8, 8), 42), _qtable(1)
+    kernels.reset_launch_counts()
+    got = ops.image_pipeline_batch(torch.from_numpy(c).to(cuda),
+                                   torch.from_numpy(q).to(cuda)).cpu().numpy()
+    assert kernels.launch_counts() == {
+        "audio_resample": 0, "mel_spectrogram": 0, "audio_normalize": 0,
+        "jpeg_idct": 1, "image_resize": 2, "image_normalize": 1}
+    want = ops.image_pipeline_batch(torch.from_numpy(c), torch.from_numpy(q)).numpy()
+    assert got.shape == (3, 224, 224)
+    assert_allclose(got, want, rtol=1e-3, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_image_wrappers_refuse_bad_inputs_on_card(cuda):
+    c = torch.zeros(1, 2, 2, 8, 8, device=cuda)
+    q = torch.ones(8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        jpeg_idct.jpeg_idct_batch(c.double(), q.double())
+    with pytest.raises(ValueError):
+        jpeg_idct.jpeg_idct_batch(c[0], q)                       # rank
+    with pytest.raises(ValueError):
+        jpeg_idct.jpeg_idct_batch(c.transpose(3, 4), q)          # contiguity
+    x = torch.zeros(2, 16, 16, device=cuda)
+    ry = torch.zeros(8, 16, device=cuda)
+    with pytest.raises(TypeError):
+        image_resize.image_resize_batch(x.double(), ry.double(), ry.double())
+    with pytest.raises(ValueError):
+        image_resize.image_resize_batch(x[0], ry, ry)
+    with pytest.raises(ValueError):
+        image_resize.image_resize_batch(x.transpose(1, 2), ry, ry)
+    with pytest.raises(TypeError):
+        image_normalize.image_crop_normalize_batch(x.double(), 8, 8, 127.5, 64.0)
+    with pytest.raises(ValueError):
+        image_normalize.image_crop_normalize_batch(x[0], 8, 8, 127.5, 64.0)
+    with pytest.raises(ValueError):
+        image_normalize.image_crop_normalize_batch(x.transpose(1, 2), 8, 8, 127.5, 64.0)

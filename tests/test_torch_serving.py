@@ -266,6 +266,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(where):
     lambda: build_engine(reduced(ARCH), ec=EngineConfig(continuous=True)),
     lambda: build_pipelined_runtime(reduced(ARCH)),
     lambda: DpuService(DpuServiceConfig(dpu=DpuConfig(backend="dpu"))),
+    lambda: DpuService(DpuServiceConfig(dpu=DpuConfig(backend="dpu", modality="image"))),
     lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main(
         ["--arch", ARCH, "--reduced", "--continuous", "--requests", "1"]),
 ])
