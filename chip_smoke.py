@@ -49,10 +49,40 @@ Phases, each fatal on failure:
        jpeg_idct       += 1 if fused else m
        image_resize    += 2          (rows pass, then columns pass)
        image_normalize += 1
+7. decode kernel — holds the flash-decode attention kernel against its
+   plain version at the JAX package's test shapes (B, H, KH, D, S) =
+   (2, 8, 4, 64, 512), (1, 7, 7, 128, 300), (4, 16, 16, 64, 1024), each at
+   fp32 and bf16, and at the serve shapes (8, 32, 4, 64, 144) and
+   (8, 32, 4, 64, 2048) in bf16, valid_len drawn in [1, S] (tolerance 2e-4
+   at fp32, 3e-2 at bf16), plus one row with valid_len = 0 (the mean of
+   V). Times the kernel, the plain version and
+   F.scaled_dot_product_attention (boolean mask, enable_gqa=True); the
+   bound counts the K and V of the valid positions read once. Then times
+   one full-width decode step (22 layers, 8 slots, a 144-slot ring) with
+   the kernel and with its plain version swapped in, in turns, and
+   profiles five steps (torch.profiler): the device time and kernel
+   launches a step, and the device's busy share of the step.
+8. run-to-completion serve — 16 requests (all submitted at once) through
+   the engine with continuous=False over the same weights: all served,
+   tokens in range; lm.generate must equal the sequential decode loop
+   token for token on the card.
+9. chunked + prefix serve — continuous batching with chunk_lens (32, 64)
+   and a prefix cache over 20 requests of 80-120 prompt tokens, 16 of them
+   sharing one 64-token template (a served system prompt) and 4 cold: all
+   served, prefix_hits > 0, and per request the tokens of the same 20
+   requests served monolithically with no cache. Where they differ, the
+   first diverging step must be a near-tie (top-2 logit gap under 3e-2 in
+   the monolithic path's logits at that step); the count is printed.
 
-Prints one JSON line {"kernels": [...]}, the card's name and power limit,
-and last {"ok": true, "device": {...}}. With --out PATH the per-shape
-kernel numbers and the serve statistics are also written to PATH as JSON.
+In every serve phase (4, 6, 8, 9) the decode kernel's launches must equal
+n_layers x the decode steps the engine executed (its own stats): every
+decode step runs it once per layer.
+
+Prints one JSON line {"kernels": [...]} (seven kernels; decode_attention's
+launches are the sum over the four serve phases), the card's name and power
+limit, and last {"ok": true, "device": {...}}. With --out PATH the
+per-shape kernel numbers and the serve statistics are also written to PATH
+as JSON.
 """
 from __future__ import annotations
 
@@ -71,10 +101,20 @@ MAIN_SHAPE = (16, 48_000)  # the serve phase: one group of 16 payloads of 1 s
 IMAGE_SHAPES = [(1, 256, 256), (16, 256, 256), (1, 512, 512), (16, 512, 512),
                 (1, 384, 512), (4, 384, 512)]
 IMAGE_MAIN_SHAPE = (16, 512, 512)  # the image serve phase's fused group
+# decode attention (B, H, KH, D, S, dtype): the JAX package's test shapes,
+# then the serve shapes of tinyllama-1.1b (8 slots, a 144-slot ring, and a
+# 2,048-slot ring that spans many of the kernel's 64-key tiles)
+DECODE_SHAPES = [(2, 8, 4, 64, 512, d) for d in ("float32", "bfloat16")] \
+    + [(1, 7, 7, 128, 300, d) for d in ("float32", "bfloat16")] \
+    + [(4, 16, 16, 64, 1024, d) for d in ("float32", "bfloat16")] \
+    + [(8, 32, 4, 64, 144, "bfloat16"), (8, 32, 4, 64, 2048, "bfloat16")]
+DECODE_MAIN_SHAPE = (8, 32, 4, 64, 144, "bfloat16")
+NEAR_TIE = 3e-2  # top-2 logit gap under which a bf16 token flip is a near-tie
 RESIZE_TO, CROP_TO, MEAN, STD = 256, 224, 127.5, 64.0
 TOL = {"audio_resample": (1e-4, 1e-5), "mel_spectrogram": (2e-4, 2e-4),
        "audio_normalize": (3e-3, 3e-3), "jpeg_idct": (1e-4, 1e-3),
-       "image_resize": (1e-4, 1e-4), "image_normalize": (1e-5, 1e-5)}
+       "image_resize": (1e-4, 1e-4), "image_normalize": (1e-5, 1e-5),
+       "decode_attention/float32": (2e-4, 2e-4), "decode_attention/bfloat16": (3e-2, 3e-2)}
 REPLACES = {
     "audio_resample": "src/repro/kernels/audio_resample.py:67",
     "mel_spectrogram": "src/repro/kernels/mel_spectrogram.py:40",
@@ -82,6 +122,7 @@ REPLACES = {
     "jpeg_idct": "src/repro/kernels/jpeg_idct.py:39",
     "image_resize": "src/repro/kernels/image_resize.py:47",
     "image_normalize": "src/repro/kernels/image_normalize.py:36",
+    "decode_attention": "src/repro/kernels/decode_attention.py:72",
 }
 # ITU-T T.81 Annex K, Table K.1: luminance quantization table
 QTABLE_K1 = [
@@ -135,6 +176,16 @@ def errors(torch, name, got, want):
     rel = d[big] / want.double().abs()[big]
     ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, rtol=rtol, atol=atol)
     return float(d.max()), float(rel.max()) if rel.numel() else 0.0, ok
+
+
+def check_decode_launches(launches, cfg, engine, where: str) -> int:
+    """The decode kernel ran once per layer on every decode step the engine
+    executed (its own count); returns that step count."""
+    steps = engine.stats["decode_steps"]
+    if steps <= 0 or launches["decode_attention"] != cfg.n_layers * steps:
+        fail(f"decode_attention: {launches['decode_attention']} launches on the {where}, "
+             f"the engine executed {steps} decode steps of {cfg.n_layers} layers")
+    return steps
 
 
 def kernel_phase(torch, F):
@@ -289,6 +340,7 @@ def serve_phase(torch, np):
     for k in kernels.IMAGE_KERNELS:
         if launches[k] != 0:
             fail(f"{k}: {launches[k]} launches on the audio path")
+    steps = check_decode_launches(launches, cfg, rt.engine, "audio path")
     lat = np.array([r.completed_at - r.arrival for r in done])
     ttft = np.array([r.first_token_at - r.arrival for r in done])
     n_tok = int(sum(len(r.payload) for r in done))
@@ -298,7 +350,8 @@ def serve_phase(torch, np):
                  latency_p99_ms=1e3 * float(np.percentile(lat, 99)),
                  ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
                  ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
-                 launches=launches, stage_occupancy=rt.stage_occupancy())
+                 decode_steps=steps, launches=launches,
+                 stage_occupancy=rt.stage_occupancy())
     print("serve: " + json.dumps(stats))
     return stats, rt.engine.model.tree()
 
@@ -505,6 +558,7 @@ def image_serve_phase(torch, np, params):
     for k in kernels.AUDIO_KERNELS:
         if launches[k] != 0:
             fail(f"{k}: {launches[k]} launches on the image path")
+    steps = check_decode_launches(launches, cfg, rt.engine, "image path")
     lat = np.array([r.completed_at - r.arrival for r in done])
     ttft = np.array([r.first_token_at - r.arrival for r in done])
     n_tok = int(sum(len(r.payload) for r in done))
@@ -514,9 +568,310 @@ def image_serve_phase(torch, np, params):
                  latency_p99_ms=1e3 * float(np.percentile(lat, 99)),
                  ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
                  ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
-                 launches=launches, launches_implied=want,
+                 decode_steps=steps, launches=launches, launches_implied=want,
                  stage_occupancy=rt.stage_occupancy())
     print("image serve: " + json.dumps(stats))
+    return stats
+
+
+def decode_kernel_phase(torch, F, np):
+    from repro_torch.kernels import decode_attention as kd
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(777)
+    rows = []
+    for b, h, kh, d, s_len, dt in DECODE_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev, dtype)
+                   for sh in ((b, h, d), (b, s_len, kh, d), (b, s_len, kh, d)))
+        vl_np = rng.integers(1, s_len + 1, b).astype(np.int32)
+        vl = torch.from_numpy(vl_np).to(dev)
+        name = f"decode_attention/{dt}"
+        got = kd.decode_attention_kernel(q, k, v, vl)
+        want = kd.decode_attention_plain(q, k, v, vl)
+        row = dict(name="decode_attention", B=b, H=h, KH=kh, D=d, S=s_len, dtype=dt,
+                   tol=name, err=errors(torch, name, got.float(), want.float()))
+        # the library yardstick: one SDPA call with a boolean prefix mask
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(s_len, device=dev)[None] < vl[:, None].long())[:, None, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  enable_gqa=True)[:, :, 0]
+
+        row["library_err"] = errors(torch, name, sdpa().float(), want.float())
+        row["ms"] = time_ms(torch, lambda: kd.decode_attention_kernel(q, k, v, vl))
+        row["plain_ms"] = time_ms(torch, lambda: kd.decode_attention_plain(q, k, v, vl))
+        row["library_ms"] = time_ms(torch, sdpa)
+        elt = q.element_size()
+        valid = int(vl_np.sum())  # the kernel reads the valid prefix of K and V
+        row["bytes"] = elt * (2 * b * h * d + 2 * valid * kh * d) + 4 * b
+        row["flops"] = 4 * valid * (h // kh) * kh * d
+        rows.append(row)
+    # valid_len = 0: every position weighs the same, the output is mean(V)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
+               for sh in ((2, 8, 64), (2, 300, 4, 64), (2, 300, 4, 64)))
+    vl = torch.tensor([0, 100], dtype=torch.int32, device=dev)
+    got = kd.decode_attention_kernel(q, k, v, vl)
+    zero = dict(err=errors(torch, "decode_attention/float32", got,
+                           kd.decode_attention_plain(q, k, v, vl)),
+                mean_err=errors(torch, "decode_attention/float32", got[0],
+                                v[0].mean(0).repeat_interleave(2, dim=0)))
+    torch.cuda.synchronize()
+    for row in rows:
+        abs_err, rel_err, ok = row.pop("err")
+        lib_abs, _, lib_ok = row.pop("library_err")
+        row["max_abs_err"], row["max_rel_err"] = abs_err, rel_err
+        row["library_max_abs_err"] = lib_abs
+        t_bytes, t_ops = row["bytes"] / HBM_BYTES_S, row["flops"] / FP32_FLOPS_S
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"  decode_attention B={row['B']} H={row['H']} KH={row['KH']} D={row['D']} "
+              f"S={row['S']:4d} {row['dtype']:8s} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+              f"max_abs_err={abs_err:.3e} library_err={lib_abs:.3e}")
+        if not ok:
+            fail(f"decode_attention {row['dtype']} B={row['B']} S={row['S']} disagrees "
+                 f"with its plain version beyond {TOL[row['tol']]}")
+        if not lib_ok:
+            fail(f"scaled_dot_product_attention differs from the plain decode attention "
+                 f"at {row['dtype']} B={row['B']} S={row['S']} beyond {TOL[row['tol']]}")
+    for key, (abs_err, _, ok) in zero.items():
+        print(f"  decode_attention valid_len=0 row: {key}={abs_err:.3e}")
+        if not ok:
+            fail(f"decode_attention at valid_len = 0: {key} {abs_err:.3e}")
+    return rows
+
+
+def decode_step_phase(torch, np, params):
+    """Wall time of one full-width decode step over 8 slots of a 144-slot
+    ring (what a serving segment pays a step, host included), with the
+    decode kernel and with its plain version swapped in for the same call,
+    in turns (kernel, plain, plain, kernel); then a profile of the kernel's
+    steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.api import DenseLM
+
+    cfg = get_config("tinyllama-1.1b")
+    model = DenseLM(cfg, params)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pool = lm.alloc_slot_pool(cfg, 8, 144, torch.device("cuda"))
+    for leaf in lm._kv_leaves(pool):
+        leaf.normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab, (8, 1), generator=gen, device="cuda")
+    clock = 300
+    off = clock - torch.tensor([10, 40, 70, 100, 120, 130, 143, 5], device="cuda")
+    real = ops.decode_attention
+
+    def steps_ms(n=20):
+        for _ in range(3):
+            model.decode(pool, tok, clock, pos_offset=off)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            model.decode(pool, tok, clock, pos_offset=off)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    times = {"kernel": [], "plain": []}
+    try:
+        for which in ("kernel", "plain", "plain", "kernel"):
+            ops.decode_attention = real if which == "kernel" else kd.decode_attention_plain
+            times[which].append(steps_ms())
+    finally:
+        ops.decode_attention = real
+    out = {k: min(v) for k, v in times.items()}
+    print(f"decode step ({cfg.n_layers} layers, 8 slots, ring 144, {cfg.dtype}): "
+          f"kernel {out['kernel']:.3f} ms, "
+          f"plain {out['plain']:.3f} ms (best of two turns each)")
+    return {"decode_step_ms": out, "decode_step_ms_turns": times,
+            "profile": profile_decode_steps(torch, lambda: model.decode(
+                pool, tok, clock, pos_offset=off), out["kernel"])}
+
+
+def profile_decode_steps(torch, step, wall_ms: float, n: int = 5):
+    """torch.profiler over n decode steps: device time a step (the sum of
+    its kernels' times), kernel launches a step, the device's busy share of
+    the unprofiled wall time a step, and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels_ = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels_) / 1e3 / n
+    top = sorted(kernels_, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    res = {"device_ms_per_step": dev_ms,
+           "kernel_launches_per_step": sum(e.count for e in kernels_) / n,
+           "device_busy_share": dev_ms / wall_ms,
+           "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / n,
+                            "ms_per_step": e.self_device_time_total / 1e3 / n}
+                           for e in top]}
+    print("decode step profile: " + json.dumps(res))
+    return res
+
+
+def _burst(torch, engine, reqs):
+    """Submit `reqs` at once on the wall clock and serve them to the end."""
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+    engine.submit_many(reqs)
+    done = engine.run_until_idle()
+    torch.cuda.synchronize()
+    return done, time.monotonic() - t0
+
+
+def _serve_stats(np, done, wall, launches, steps):
+    lat = np.array([r.completed_at - r.arrival for r in done])
+    ttft = np.array([r.first_token_at - r.arrival for r in done])
+    n_tok = int(sum(len(r.payload) for r in done))
+    return dict(served=len(done), shed=0, tokens=n_tok, wall_s=wall,
+                tokens_per_s=n_tok / wall,
+                latency_p50_ms=1e3 * float(np.percentile(lat, 50)),
+                latency_p99_ms=1e3 * float(np.percentile(lat, 99)),
+                ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
+                ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
+                decode_steps=steps, launches=launches)
+
+
+def _check_tokens(np, done, cfg, n, budget, where):
+    if len(done) != n or len({r.rid for r in done}) != n:
+        fail(f"{where}: served {len(done)} of {n}")
+    for r in done:
+        toks = np.asarray(r.payload)
+        if toks.shape != (budget,) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            fail(f"{where}: request {r.rid} tokens {toks}")
+
+
+def rtc_serve_phase(torch, np, params):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig, build_engine
+    from repro_torch.serving.requests import WorkloadSpec, generate_requests
+
+    cfg = get_config("tinyllama-1.1b")
+    ec = EngineConfig(continuous=False, max_new_tokens=8)
+    engine = build_engine(cfg, ec=ec, device="cuda", params=params)
+
+    def traffic(n, seed, rid0):
+        reqs = generate_requests(WorkloadSpec(modality="text", rate_qps=50.0, mean_len=48,
+                                              max_len=120, vocab=cfg.vocab, seed=seed), n)
+        for i, r in enumerate(reqs):
+            r.rid = rid0 + i
+        return reqs
+
+    _burst(torch, engine, traffic(2, 97, 30_000))  # warm-up, other rids
+    engine.reset_metrics()
+    kernels.reset_launch_counts()              # the run-to-completion path starts here
+    done, wall = _burst(torch, engine, traffic(16, 11, 0))
+    launches = kernels.launch_counts()         # ... and ends here
+    _check_tokens(np, done, cfg, 16, 8, "run-to-completion")
+    for k in kernels.AUDIO_KERNELS + kernels.IMAGE_KERNELS:
+        if launches[k] != 0:
+            fail(f"{k}: {launches[k]} launches on the run-to-completion path")
+    steps = check_decode_launches(launches, cfg, engine, "run-to-completion path")
+    stats = _serve_stats(np, done, wall, launches, steps)
+    stats["batches"] = engine.stats["batches"]
+
+    # lm.generate == argmax(prefill) + the sequential decode() loop
+    rng = np.random.default_rng(5)
+    lens, lp, n_new = [100, 37, 64, 9], 128, 8
+    toks = np.zeros((len(lens), lp), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, lp - n:] = rng.integers(0, cfg.vocab, n)
+    toks = torch.from_numpy(toks).cuda()
+    off = torch.tensor([lp - n for n in lens], device="cuda")
+    model = engine.model
+    logits, cache = model.prefill(toks, pos_offset=off, cache_len=lp + n_new)
+    loop_cache = {"body": {"l0": {"mixer": {
+        n: t.clone() for n, t in cache["body"]["l0"]["mixer"].items()}}}}
+    gen, _ = model.generate(cache, logits, lp, steps=n_new, pos_offset=off)
+    tok = torch.argmax(logits, -1)
+    loop = [tok]
+    for i in range(n_new - 1):
+        lg, loop_cache = model.decode(loop_cache, tok, lp + i, pos_offset=off)
+        tok = torch.argmax(lg, -1)
+        loop.append(tok)
+    if not torch.equal(gen, torch.cat(loop, dim=1)):
+        fail("lm.generate differs from the sequential decode loop on the card")
+    stats["generate_equals_decode_loop"] = True
+    print("run-to-completion serve: " + json.dumps(stats))
+    return stats
+
+
+def chunked_prefix_serve_phase(torch, np, params):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.batching.buckets import Request
+    from repro_torch.serving.engine import EngineConfig, build_engine
+
+    cfg = get_config("tinyllama-1.1b")
+    base = dict(continuous=True, max_slots=8, segment_len=8, max_new_tokens=8,
+                max_prompt_len=128)
+    rng = np.random.default_rng(2025)
+    template = rng.integers(0, cfg.vocab, 64)     # the shared system prompt
+    prompts = []
+    for i in range(20):
+        n = int(rng.integers(80, 121))
+        if i % 5 == 4:                             # 4 cold prompts
+            prompts.append(rng.integers(0, cfg.vocab, n))
+        else:
+            prompts.append(np.concatenate([template, rng.integers(0, cfg.vocab, n - 64)]))
+
+    def traffic(rid0=0):
+        return [Request(rid=rid0 + i, arrival=0.0, length=float(len(p)), prompt=p)
+                for i, p in enumerate(prompts)]
+
+    engine = build_engine(cfg, ec=EngineConfig(**base, chunk_lens=(32, 64),
+                                               prefix_cache_bytes=256 << 20),
+                          device="cuda", params=params)
+    warm = [Request(rid=40_000 + i, arrival=0.0, length=float(n))
+            for i, n in enumerate((90, 100))]
+    _burst(torch, engine, warm)                 # warm-up: other prompts
+    engine.reset_metrics()
+    kernels.reset_launch_counts()               # the chunked + prefix path starts here
+    done, wall = _burst(torch, engine, traffic())
+    launches = kernels.launch_counts()          # ... and ends here
+    _check_tokens(np, done, cfg, 20, 8, "chunked + prefix")
+    steps = check_decode_launches(launches, cfg, engine, "chunked + prefix path")
+    stats = _serve_stats(np, done, wall, launches, steps)
+    stats.update({k: engine.stats[k] for k in (
+        "prefix_hits", "prefix_hit_tokens", "prefix_prompt_tokens", "prefix_inserts",
+        "admitted", "segments", "prefill_calls")})
+    if engine.stats["prefix_hits"] <= 0:
+        fail(f"chunked + prefix: no prefix hit on template traffic ({stats})")
+
+    # the same 20 requests, monolithic admission, no cache
+    mono = build_engine(cfg, ec=EngineConfig(**base), device="cuda", params=params)
+    mono_done, _ = _burst(torch, mono, traffic())
+    ref = {r.rid: np.asarray(r.payload) for r in mono_done}
+    near_ties = []
+    for r in done:
+        got, want = np.asarray(r.payload), ref[r.rid]
+        if np.array_equal(got, want):
+            continue
+        k = int(np.flatnonzero(got != want)[0])
+        seq = np.concatenate([prompts[r.rid], want[:k]])
+        logits, _ = mono.model.prefill(torch.from_numpy(seq[None]).cuda())
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        if gap >= NEAR_TIE:
+            fail(f"chunked + prefix: request {r.rid} diverges from monolithic admission "
+                 f"at step {k} with a top-2 logit gap of {gap:.3e} (>= {NEAR_TIE})")
+        near_ties.append(dict(rid=r.rid, step=k, gap=gap))
+    stats["near_ties"] = near_ties
+    stats["tokens_equal_monolithic"] = len(done) - len(near_ties)
+    print(f"chunked + prefix serve: near-ties {len(near_ties)} of {len(done)} requests")
+    print("chunked + prefix serve: " + json.dumps(stats))
     return stats
 
 
@@ -563,6 +918,20 @@ def main() -> int:
     # 6. image serve, on the same weights
     image_stats = image_serve_phase(torch, np, params)
 
+    # 7. decode kernel
+    decode_rows = decode_kernel_phase(torch, F, np)
+
+    decode_step = decode_step_phase(torch, np, params)
+
+    # 8. run-to-completion serve, on the same weights
+    rtc_stats = rtc_serve_phase(torch, np, params)
+
+    # 9. chunked prefill + prefix cache serve, on the same weights
+    chunk_stats = chunked_prefix_serve_phase(torch, np, params)
+    decode_run = {"launches": {"decode_attention": sum(
+        st["launches"]["decode_attention"]
+        for st in (stats, image_stats, rtc_stats, chunk_stats))}}
+
     line = []
     for name, shape_rows, main_of, run in (
             ("audio_resample", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, stats),
@@ -573,7 +942,10 @@ def main() -> int:
             ("image_resize", image_rows,
              lambda r: (r["n"], r["H"], r["W"]) == IMAGE_MAIN_SHAPE, image_stats),
             ("image_normalize", image_rows,
-             lambda r: (r["n"], r["H"], r["W"]) == IMAGE_MAIN_SHAPE, image_stats)):
+             lambda r: (r["n"], r["H"], r["W"]) == IMAGE_MAIN_SHAPE, image_stats),
+            ("decode_attention", decode_rows,
+             lambda r: (r["B"], r["H"], r["KH"], r["D"], r["S"], r["dtype"]) == DECODE_MAIN_SHAPE,
+             decode_run)):
         mine = [r for r in shape_rows if r["name"] == name]
         main_row = next(r for r in mine if main_of(r))
         line.append(dict(
@@ -588,8 +960,9 @@ def main() -> int:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
-            {"card": card, "kernels_by_shape": rows + image_rows, "serve": stats,
-             "image_serve": image_stats}, indent=1))
+            {"card": card, "kernels_by_shape": rows + image_rows + decode_rows,
+             "serve": stats, "image_serve": image_stats, "rtc_serve": rtc_stats,
+             "chunked_prefix_serve": chunk_stats, "decode_step": decode_step}, indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""DPU kernels: hand-written CUDA for Hopper, each with its plain PyTorch
-version beside it and a count of its launches."""
+"""The hand-written CUDA kernels for Hopper (the DPU's functional units and
+decode attention), each with its plain PyTorch version beside it and a
+count of its launches."""
 from typing import Dict
 
-from repro_torch.kernels import (audio_normalize, audio_resample, image_normalize,
-                                 image_resize, jpeg_idct, mel_spectrogram)
+from repro_torch.kernels import (audio_normalize, audio_resample, decode_attention,
+                                 image_normalize, image_resize, jpeg_idct,
+                                 mel_spectrogram)
 
 _MODULES = {
     "audio_resample": audio_resample,
@@ -12,6 +14,7 @@ _MODULES = {
     "jpeg_idct": jpeg_idct,
     "image_resize": image_resize,
     "image_normalize": image_normalize,
+    "decode_attention": decode_attention,
 }
 KERNELS = tuple(_MODULES)
 AUDIO_KERNELS = ("audio_resample", "mel_spectrogram", "audio_normalize")

@@ -1,4 +1,5 @@
-"""Build and load the DPU kernels: nvcc -> one shared library -> ctypes.
+"""Build and load the hand-written kernels (the DPU's and decode attention):
+nvcc -> one shared library -> ctypes.
 
 The CUDA sources under `csrc/` are compiled for Hopper (`sm_90a`) at first
 use, into `build/kernels/` at the root of the checkout: one `nvcc -c` per
@@ -21,7 +22,8 @@ from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("audio_resample.cu", "mel_spectrogram.cu", "audio_normalize.cu",
-           "jpeg_idct.cu", "image_resize.cu", "image_normalize.cu")
+           "jpeg_idct.cu", "image_resize.cu", "image_normalize.cu",
+           "decode_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +43,9 @@ _SIGNATURES = {
     "preba_resize_cols": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "preba_crop_normalize": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                               ctypes.c_float, _P], _I),
+    "preba_decode_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                ctypes.c_float, _P], _I),
+    "preba_decode_attention_smem_bytes": ([_I, _I], _I),
     "preba_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,0 +1,98 @@
+"""Flash-decode GQA attention for one query token per sequence: the decode
+step of serving.
+
+`decode_attention` computes, for q [B, H, D] against k, v [B, S, KH, D]
+with valid_len [B] (positions [0, valid_len) hold keys; G = H / KH query
+heads share a KV head), the softmax of the fp32 scores q.k / sqrt(D) with
+positions at or past valid_len set to -1e30, times V, in fp32, cast to q's
+type. At valid_len == 0 every score is -1e30, so every position weighs the
+same and the output is the mean of V over the S positions. On a CUDA tensor
+it launches the hand-written Hopper kernel (csrc/decode_attention.cu, which
+replaces the TPU kernel
+src/repro/kernels/decode_attention.py::decode_attention_pallas); on a CPU
+tensor it runs the plain PyTorch version below. `LAUNCHES` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+LAUNCHES = 0
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)
+
+
+def _scale(d: int) -> float:
+    return 1.0 / math.sqrt(d)
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           valid_len: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: dense masked softmax over all S positions."""
+    B, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KH, H // KH, D).float()
+    s = torch.einsum("bkgd,bjkd->bkgj", qg, k.float()) * _scale(D)
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < valid_len.to(device=q.device, dtype=torch.int64)[:, None])
+    s = torch.where(valid[:, None, None], s,
+                    torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgj,bjkd->bkgd", p, v.float())
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            valid_len: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+    global LAUNCHES
+    for name, t in (("q", q), ("k", k), ("v", v), ("valid_len", valid_len)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"kernel needs CUDA tensors on one device "
+                             f"({name} is on {t.device})")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"kernel takes float32 or bfloat16 q, k, v of one type "
+                        f"(got {q.dtype}, {k.dtype}, {v.dtype})")
+    if valid_len.dtype != torch.int32:
+        raise TypeError(f"valid_len must be int32 (got {valid_len.dtype})")
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"kernel takes q [B, H, D] and k, v [B, S, KH, D] "
+                         f"(got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)})")
+    B, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or valid_len.shape != (B,):
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"valid_len {tuple(valid_len.shape)}")
+    if D not in HEAD_DIMS or H % KH:
+        raise ValueError(f"kernel takes head size in {HEAD_DIMS} and H a multiple "
+                         f"of KH (got D={D}, H={H}, KH={KH})")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+            and valid_len.is_contiguous()):
+        raise ValueError("kernel takes contiguous tensors")
+    lib = build.library()
+    if lib.preba_decode_attention_smem_bytes(D, H // KH) > 227 * 1024:
+        raise ValueError(f"{H // KH} query heads a KV head exceed the kernel's "
+                         f"shared memory at D={D}")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.preba_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     valid_len.data_ptr(), out.data_ptr(), B, H, KH, S,
+                                     D, int(q.dtype == torch.bfloat16), _scale(D), stream)
+    build.check(err, "decode_attention")
+    LAUNCHES += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: torch.Tensor) -> torch.Tensor:
+    """q: [B, H, D]; k, v: [B, S, KH, D]; valid_len: [B] -> [B, H, D]."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, valid_len)
+    return decode_attention_kernel(q, k, v, valid_len)

@@ -1,4 +1,5 @@
-"""Public wrappers for the DPU kernels, audio and image.
+"""Public wrappers for the hand-written kernels: the DPU's, audio and
+image, and decode attention.
 
 The padding, zero-stuffing, framing, Hann window and n_fft zero-pad around
 the audio kernels, and the center crop outside the fused image pipeline,
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.data import preprocess_cpu as pp
 from repro_torch.kernels.audio_normalize import audio_normalize_batch as _normalize
 from repro_torch.kernels.audio_resample import audio_resample_batch as _resample
+from repro_torch.kernels.decode_attention import decode_attention as _decode_attention
 from repro_torch.kernels.image_normalize import crop_origin
 from repro_torch.kernels.image_normalize import image_crop_normalize_batch as _crop_normalize
 from repro_torch.kernels.image_resize import image_resize_batch as _resize
@@ -183,3 +185,13 @@ def center_crop(img: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
 
 def image_normalize(img: torch.Tensor, mean: float, std: float) -> torch.Tensor:
     return image_normalize_batch(img[None], mean, std)[0]
+
+
+# --- decode attention (one launch per decode step and layer) -----------------
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: torch.Tensor) -> torch.Tensor:
+    """q: [B, H, D]; k, v: [B, S, KH, D]; valid_len: [B] int32 (positions
+    [0, valid_len) hold keys) -> [B, H, D] flash-decode GQA attention."""
+    return _decode_attention(q, k, v, valid_len)

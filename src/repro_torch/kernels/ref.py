@@ -1,7 +1,9 @@
-"""Plain-torch oracles for the DPU kernels; their numerics mirror
-repro_torch.data.preprocess_cpu (two-pass variance, direct gather, the
-IDCT as one three-operand product, division by std)."""
+"""Plain-torch oracles for the hand-written kernels; the DPU's numerics
+mirror repro_torch.data.preprocess_cpu (two-pass variance, direct gather,
+the IDCT as one three-operand product, division by std)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -48,3 +50,17 @@ def image_resize_ref(img: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor) -> t
 
 def image_normalize_ref(img: torch.Tensor, mean: float, std: float) -> torch.Tensor:
     return (img - mean) / std
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid_len: torch.Tensor) -> torch.Tensor:
+    """Flash-decode oracle. q: [B, H, D]; k, v: [B, S, KH, D]; valid_len: [B]
+    (prefix-valid layout). GQA via H = KH * G; fp32 result."""
+    B, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KH, H // KH, D).float()
+    s = torch.einsum("bkgd,bjkd->bkgj", qg, k.float()) / math.sqrt(D)
+    mask = torch.arange(S, device=q.device)[None] < valid_len.to(q.device)[:, None]
+    s = torch.where(mask[:, None, None], s, torch.tensor(-1e30, device=q.device))
+    o = torch.einsum("bkgj,bjkd->bkgd", torch.softmax(s, -1), v.float())
+    return o.reshape(B, H, D)

@@ -6,11 +6,12 @@ kernels, then continuous batching):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --continuous --pipelined --preprocess dpu
 
-Continuous batching alone: --continuous [--max-slots 8 --segment-len 8].
-CPU run of the kernels' plain versions at a reduced size: --device cpu
---reduced. The multi-slice fleet, tenancy, the partition controller,
-chunked prefill and knee calibration are not ported yet; their flags are
-rejected.
+Run-to-completion batches (the engine's default): no --continuous.
+Continuous batching alone: --continuous [--max-slots 8 --segment-len 8];
+chunked prefill on top: --continuous --chunk-lens 16,32. CPU run of the
+kernels' plain versions at a reduced size: --device cpu --reduced. The
+multi-slice fleet, tenancy, the partition controller and knee calibration
+are not ported yet; their flags are rejected.
 """
 from __future__ import annotations
 
@@ -49,6 +50,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="slot-pool continuous batching (in-flight join/leave)")
     ap.add_argument("--max-slots", type=int, default=8)
     ap.add_argument("--segment-len", type=int, default=8)
+    ap.add_argument("--chunk-lens", default="",
+                    help="comma-separated chunked-prefill lengths (pow2, "
+                         "e.g. '32' or '16,64'): prompt buckets longer than "
+                         "the policy-chosen chunk admit chunk-by-chunk, "
+                         "interleaved with decode segments (--continuous; "
+                         "empty = monolithic admission)")
     ap.add_argument("--pipelined", action="store_true",
                     help="stage-pipelined runtime: ingest -> DPU preprocess "
                          "-> admission -> decode with bounded queues")
@@ -72,7 +79,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--slices", type=int, default=1, help=argparse.SUPPRESS)
     ap.add_argument("--tenants", default="", help=argparse.SUPPRESS)
     ap.add_argument("--controller", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--chunk-lens", default="", help=argparse.SUPPRESS)
     ap.add_argument("--calibrate-knee", default="", help=argparse.SUPPRESS)
     return ap
 
@@ -83,12 +89,15 @@ def main(argv=None):
     for flag, given in (("--slices > 1 (multi-slice fleet)", args.slices > 1),
                         ("--tenants (multi-tenant fleet)", bool(args.tenants)),
                         ("--controller (partition controller)", args.controller),
-                        ("--chunk-lens (chunked prefill)", bool(args.chunk_lens)),
                         ("--calibrate-knee (knee calibration)", bool(args.calibrate_knee))):
         if given:
             ap.error(f"{flag} is not ported to the PyTorch package yet")
-    if not (args.continuous or args.pipelined):
-        ap.error("the run-to-completion engine is not ported yet; add --continuous")
+    chunk_lens = tuple(int(c) for c in args.chunk_lens.split(",") if c.strip())
+    for c in chunk_lens:
+        # fail at parse time, not mid-serve: admission asserts pow2
+        # divisibility against pow2 prompt buckets
+        if c <= 0 or c & (c - 1):
+            ap.error(f"--chunk-lens entries must be positive powers of two (got {c})")
 
     import time
 
@@ -100,10 +109,11 @@ def main(argv=None):
 
     cfg = reduced(args.arch) if args.reduced else get_config(args.arch)
     ec = EngineConfig(
-        max_new_tokens=args.max_new, continuous=True,
+        max_new_tokens=args.max_new, continuous=args.continuous,
         max_slots=args.max_slots, segment_len=args.segment_len,
         max_prompt_len=128,  # covers the workload's max_len=120 prompt bucket
         preprocess=args.preprocess if not args.pipelined else "none",
+        chunk_lens=chunk_lens,
     )
     reqs = generate_requests(
         WorkloadSpec(modality="text", rate_qps=args.rate, mean_len=48,
@@ -165,7 +175,9 @@ def main(argv=None):
     engine.submit_many(reqs)
     done = engine.run_until_idle()
     lats = [r.completed_at - r.dispatched_at for r in done]
-    print(f"served {len(done)} requests in {engine.stats['segments']} segments; "
+    work = (f"{engine.stats['segments']} segments, {engine.stats['prefill_calls']} "
+            f"prefill calls" if ec.continuous else f"{engine.stats['batches']} batches")
+    print(f"served {len(done)} requests in {work}; "
           f"exec p50={1e3*np.percentile(lats,50):.1f}ms "
           f"p95={1e3*np.percentile(lats,95):.1f}ms")
     _export(engine.registry, engine.tracer, args.metrics_out, args.trace_out,

@@ -53,9 +53,32 @@ class DenseLM(nn.Module):
         return logits
 
     @torch.no_grad()
+    def prefill(self, tokens, *, pos_offset=None, cache_len=None):
+        return lm.prefill(self.tree(), tokens, self.cfg, pos_offset=pos_offset,
+                          cache_len=cache_len)
+
+    @torch.no_grad()
+    def decode(self, cache, tokens, pos, *, pos_offset=None):
+        return lm.decode(self.tree(), cache, tokens, pos, self.cfg, pos_offset=pos_offset)
+
+    @torch.no_grad()
+    def generate(self, cache, last_logits, pos0, *, steps, pos_offset=None):
+        return lm.generate(self.tree(), cache, last_logits, pos0, self.cfg,
+                           steps=steps, pos_offset=pos_offset)
+
+    @torch.no_grad()
     def prefill_into_slots(self, tokens, pool, slot_ids, clock, *, pos_offset):
         return lm.prefill_into_slots(self.tree(), tokens, pool, slot_ids, clock,
                                      self.cfg, pos_offset=pos_offset)
+
+    @torch.no_grad()
+    def prefill_chunk_into_slots(self, tokens, pool, start, *, pos_offset, lp):
+        return lm.prefill_chunk_into_slots(self.tree(), tokens, pool, start, self.cfg,
+                                           pos_offset=pos_offset, lp=lp)
+
+    @torch.no_grad()
+    def scatter_prefix_into_slots(self, pool, prefix_cache, slot_ids, lp):
+        return lm.scatter_prefix_into_slots(pool, prefix_cache, slot_ids, lp)
 
     @torch.no_grad()
     def decode_segment(self, pool, tok, pos0, *, steps, pos_offset):

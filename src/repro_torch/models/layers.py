@@ -40,14 +40,6 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def ring_slot_positions(pos: torch.Tensor, wc: int) -> torch.Tensor:
-    """Position of the most recent write to each KV ring slot: slot j holds
-    position pos - ((pos - j) mod wc), the largest value <= pos congruent to
-    j (mod wc); negative values (slots not yet written) are invalid."""
-    j = torch.arange(wc, dtype=torch.int64, device=pos.device)
-    return pos - torch.remainder(pos - j, wc)
-
-
 def _pair_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
                window: int) -> torch.Tensor:
     """[Sq, Skv] bool mask (or [B, Sq, Skv] when either pos is per-row

@@ -1,5 +1,6 @@
-"""The dense decoder LM, serving half: prefill, decode, and the KV slot pool
-of continuous batching.
+"""The dense decoder LM, serving half: prefill, decode (every step through
+the flash-decode kernel), run-to-completion generate, chunked prefill, and
+the KV slot pool of continuous batching.
 
 Plain functions over a parameter tree laid out as the JAX package lays it
 out (`models/params.py`): layer-stacked leaves under
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 Tree = Dict[str, Any]
@@ -183,33 +185,36 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _attn_decode(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
-                 pos: int, pos_offset=None) -> torch.Tensor:
+                 pos: int, pos_offset, valid_len: torch.Tensor) -> torch.Tensor:
     """Single-token attention. x: [B, 1, D]; ck/cv: this layer's ring
     buffers [B, ring, kh, hd], written in place.
 
     `pos` is the scalar *padded* write position; with pos_offset [B] the
     cache is TRUE-POSITION indexed per row: row b's step writes ring slot
     (pos - offset_b) mod ring, so slot t always holds the row's token at
-    true position t, exactly like an unpadded per-request cache. Validity
-    needs no slot bookkeeping: within [0, qpos] every slot is the row's own
-    most recent write (a row's live span never exceeds the ring, by pool
-    sizing), and anything past qpos is cut by the causal mask."""
+    true position t, exactly like an unpadded per-request cache.
+
+    The attention itself is one launch of the flash-decode kernel
+    (kernels.ops.decode_attention) over the prefix-valid layout: with no
+    sliding window, slot t of a row at true position qpos holds a key the
+    causal mask would keep exactly when t < min(qpos + 1, ring) (within
+    [0, qpos] every slot is the row's own most recent write, since a row's
+    live span never exceeds the ring by pool sizing; slots past qpos are
+    stale or unwritten). So the ring plus the causal mask is the kernel's
+    `pos < valid_len` with valid_len = min(qpos + 1, ring), which `decode`
+    computes once per step."""
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "decode over a sliding-window ring is not served yet: its ring is "
+            "not prefix-valid")
     B = x.shape[0]
     q, k1, v1 = _qkv(x, p)
     wc = ck.shape[1]
-    wc_idx = torch.arange(wc, device=x.device)
     if pos_offset is None:
-        pos_t = torch.tensor(pos, device=x.device)
-        qpos = pos_t[None]
-        slot_pos = L.ring_slot_positions(pos_t, wc)
-        kpos = torch.where(slot_pos >= 0, slot_pos, torch.full_like(slot_pos, -1))
+        qpos = torch.tensor([pos], device=x.device)
     else:
         off = pos_offset.to(device=x.device, dtype=torch.int64)
         qpos = (pos - off)[:, None]                            # [B, 1] true positions
-        # per-row true-position ring: slot t holds the most recent true
-        # position <= qpos congruent to t (mod ring); negatives are invalid
-        kpos = qpos - torch.remainder(qpos - wc_idx[None, :], wc)
-        kpos = torch.where(kpos >= 0, kpos, torch.full_like(kpos, -1))
     q = _rope4(q, qpos, cfg.rope_theta)
     k1 = L.apply_rope(k1, qpos, cfg.rope_theta).to(ck.dtype)
     v1 = v1.to(cv.dtype)
@@ -219,12 +224,11 @@ def _attn_decode(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
     else:
         # per-row slot write as a dense select, written back in place
         widx = torch.remainder(pos - off, wc)
-        hit = (wc_idx[None, :] == widx[:, None])[:, :, None, None]
+        hit = (torch.arange(wc, device=x.device)[None, :] == widx[:, None])[:, :, None, None]
         ck.copy_(torch.where(hit, k1, ck))
         cv.copy_(torch.where(hit, v1, cv))
     kh, g, hd = q.shape[2:]
-    o = L.attention_dense(q.reshape(B, 1, kh * g, hd), ck, cv, qpos, kpos,
-                          causal=True, window=0)
+    o = ops.decode_attention(q.reshape(B, kh * g, hd), ck, cv, valid_len)
     return _out(o.reshape(B, 1, kh, g, hd), p["wo"])
 
 
@@ -237,14 +241,35 @@ def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
     x = params["embed"][tokens].to(dt)
     body = params["body"]["l0"]
     K, V = _kv_leaves(cache)
+    B, wc = x.shape[0], K.shape[2]
+    if pos_offset is None:
+        qpos = torch.full((B,), pos, dtype=torch.int64, device=x.device)
+    else:
+        qpos = pos - pos_offset.to(device=x.device, dtype=torch.int64)
+    valid_len = torch.clamp(qpos + 1, 0, wc).to(torch.int32)  # the ring's valid prefix
     for i in range(cfg.n_layers):
         sub = _layer(body, i)
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
-        x = x + _attn_decode(h, sub["mixer"], cfg, K[i], V[i], pos, pos_offset)
+        x = x + _attn_decode(h, sub["mixer"], cfg, K[i], V[i], pos, pos_offset, valid_len)
         h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
         x = x + L.mlp(h, sub["ffn"])
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return logits_from_hidden(params, x, cfg), cache
+
+
+def generate(params: Tree, cache: Tree, last_logits: torch.Tensor, pos0: int,
+             cfg: ModelConfig, *, steps: int, pos_offset=None):
+    """Greedy-decode `steps` tokens after a prefill (the run-to-completion
+    batch): argmax(last_logits), then steps - 1 decode steps from the padded
+    write position pos0 (the padded prompt length). Returns (tokens
+    [B, steps], cache); the tokens are those of the sequential decode()
+    loop."""
+    tok0 = torch.argmax(last_logits, -1)
+    if steps == 1:
+        return tok0, cache
+    rest, cache = decode_segment(params, cache, tok0, pos0, cfg, steps=steps - 1,
+                                 pos_offset=pos_offset)
+    return torch.cat([tok0, rest], dim=1), cache
 
 
 def decode_segment(params: Tree, cache: Tree, tok: torch.Tensor, pos0: int,
@@ -308,4 +333,104 @@ def prefill_into_slots(params: Tree, tokens: torch.Tensor, pool: Tree,
     lp = tokens.shape[1]
     logits, pcache = prefill(params, tokens, cfg, pos_offset=pos_offset, cache_len=lp)
     pool = scatter_into_slots(pool, pcache, slot_ids, clock, lp)
+    return torch.argmax(logits, -1), pool
+
+
+def scatter_prefix_into_slots(pool: Tree, prefix_cache: Tree, slot_ids: torch.Tensor,
+                              lp: int) -> Tree:
+    """Admit CACHED prefix K/V (radix prefix-store hits) into pool rows, in
+    place. prefix_cache is shaped like a prefill cache for bucket lp
+    ([L, B, lp, kh, hd]); its rows carry a stored prefix at true positions
+    [0, m) and zeros after. The engine resumes chunked prefill at the row's
+    column off + m, so the suffix chunks overwrite [m, n) and everything
+    past n stays masked. Rows whose slot id is out of range are dropped."""
+    return scatter_into_slots(pool, prefix_cache, slot_ids, 0, lp)
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (continuous batching without long-prompt head-of-line)
+#
+# A prompt bucket's KV construction split into fixed-length column chunks:
+# each chunk runs the model over C padded prompt positions, writes their K/V
+# at TRUE-POSITION ring slots of the pool (the layout of _attn_decode and
+# scatter_into_slots) and attends the chunk's queries over the ring PREFIX
+# [0, lp) (lp = the padded prompt bucket). The engine interleaves decode
+# segments between chunks. The read presents the pool rows as the
+# monolithic prefill presents its keys (column t = true position t, over an
+# axis of length lp), so a chunked admission computes what a monolithic one
+# does.
+# ---------------------------------------------------------------------------
+
+
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """Chunked prefill serves pure attention+MLP stacks with no sliding
+    window (a ring smaller than the prompt cannot hold the chunk history)."""
+    return cfg.sliding_window == 0 and all(
+        m == "attn" and f == "mlp" for m, f in cfg.layer_kinds())
+
+
+def _attn_chunk(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
+                qpos: torch.Tensor, valid: torch.Tensor, lp: int) -> torch.Tensor:
+    """Multi-token cache-extending attention for one prefill chunk.
+
+    x: [B, C, D]; ck/cv: this layer's pool rows [B, ring, kh, hd], written
+    in place; qpos: [B, C] TRUE positions (negative = left-pad, or a row
+    that is not part of this admission); valid = qpos >= 0. Writes the
+    chunk's K/V at ring slots qpos (valid columns only), then attends over
+    the prefix [0, lp): column t is valid up to the row's last query of this
+    chunk, stale or future columns are masked."""
+    B, C, _ = x.shape
+    q, k1, v1 = _qkv(x, p)
+    q = _rope4(q, qpos, cfg.rope_theta)
+    k1 = L.apply_rope(k1, qpos, cfg.rope_theta)
+    rows, cols = torch.nonzero(valid, as_tuple=True)
+    slots = qpos[rows, cols]
+    ck[rows, slots] = k1[rows, cols].to(ck.dtype)
+    cv[rows, slots] = v1[rows, cols].to(cv.dtype)
+    lp_idx = torch.arange(lp, device=x.device)
+    kpos = torch.where(lp_idx[None, :] <= qpos[:, -1:], lp_idx[None, :],
+                       torch.full((), -1, dtype=lp_idx.dtype, device=x.device))
+    kh, g, hd = q.shape[2:]
+    o = L.attention_dense(q.reshape(B, C, kh * g, hd), ck[:, :lp], cv[:, :lp],
+                          qpos, kpos, causal=True, window=0)
+    return _out(o.reshape(B, C, kh, g, hd), p["wo"])
+
+
+def prefill_chunk_into_slots(params: Tree, tokens: torch.Tensor, pool: Tree,
+                             start: torch.Tensor, cfg: ModelConfig, *,
+                             pos_offset: torch.Tensor, lp: int):
+    """Run ONE chunk of a left-padded prompt bucket and extend the slot
+    pool's KV in place.
+
+    tokens: [max_slots, C] — row b IS pool row b; its columns are padded
+    prompt positions start[b] .. start[b] + C - 1 (start is per row, so one
+    call advances every in-flight admission of this (C, lp) class).
+    pos_offset: [max_slots] left-pad amounts; rows not in any admission of
+    the class carry the sentinel lp with start 0, which makes every column's
+    true position negative: embeddings zeroed, K/V writes dropped, attention
+    fully masked.
+
+    Returns (greedy next token [B, 1] from the LAST column's logits —
+    meaningful only for rows on their bucket's final chunk — and the pool)."""
+    if not supports_chunked_prefill(cfg):
+        raise ValueError(f"chunked prefill unsupported for {cfg.name} "
+                         "(see lm.supports_chunked_prefill)")
+    dt = _dtype(cfg)
+    dev = tokens.device
+    C = tokens.shape[1]
+    off = pos_offset.to(device=dev, dtype=torch.int64)
+    qpos = (start.to(device=dev, dtype=torch.int64)[:, None]
+            + torch.arange(C, device=dev)[None, :]) - off[:, None]
+    valid = qpos >= 0
+    x = params["embed"][tokens].to(dt) * valid[..., None].to(dt)
+    body = params["body"]["l0"]
+    K, V = _kv_leaves(pool)
+    for i in range(cfg.n_layers):
+        sub = _layer(body, i)
+        h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
+        x = x + _attn_chunk(h, sub["mixer"], cfg, K[i], V[i], qpos, valid, lp)
+        h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
+        x = x + L.mlp(h, sub["ffn"])
+    x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    logits = logits_from_hidden(params, x[:, -1:], cfg)
     return torch.argmax(logits, -1), pool

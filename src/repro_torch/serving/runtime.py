@@ -47,7 +47,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Union
 
-from repro_torch.core.batching.buckets import Request
+from repro_torch.core.batching.buckets import Request, next_pow2
 from repro_torch.core.dpu.runtime import payload_error
 from repro_torch.core.dpu.service import DpuService
 from repro_torch.core.metrics import Histogram, MetricsRegistry
@@ -299,16 +299,32 @@ class PipelinedRuntime:
         return self.seg_ema * segs * waiting / cap
 
     def request_service_s(self, r: Request) -> float:
-        """Per-request decode-side service estimate: one admission dispatch
-        plus its decode segments, scaled by the per-dispatch EMA (0.0 until
-        calibrated)."""
+        """Per-request decode-side service estimate, prompt-bucket aware:
+        prefill dispatches for THIS request's padded prompt length (chunk
+        calls when the engine chunks, one monolithic admit otherwise) plus
+        its decode segments, scaled by the measured per-dispatch EMA. The
+        prefill term is discounted by the expected prefix hit (the radix
+        store is peeked for this exact prompt and the chunk calls a hit
+        would skip are not charged). 0.0 until calibrated."""
         if self.seg_ema is None:
             return 0.0
         ec = self.engine.ec
         budget = (ec.max_new_tokens if r.max_new_tokens is None
                   else min(r.max_new_tokens, ec.max_new_tokens))
         segs = max(1, -(-budget // max(1, ec.segment_len)))
-        return self.seg_ema * (1 + segs)
+        chunks = 1
+        if self._chunked():
+            n = max(1, int(r.length))
+            lp = max(ec.min_prompt_len, next_pow2(n))
+            q = min(ec.chunk_lens)
+            chunks = max(1, lp // q)
+            if ec.prefix_cache_bytes:
+                chunks = max(1, chunks - self.engine.prefix_peek_req(r) // q)
+        return self.seg_ema * (chunks + segs)
+
+    def _chunked(self) -> bool:
+        """Whether the engine really chunks (family-gated)."""
+        return bool(self.engine._chunk_lens)
 
     def _observe_exec(self) -> None:
         xs = self.engine.batch_exec_s

@@ -1,4 +1,5 @@
-"""The DPU kernels on the card, against their plain PyTorch versions.
+"""The hand-written kernels on the card (the DPU's and decode attention),
+against their plain PyTorch versions.
 
 Marked `gpu`: they skip without a CUDA device. This file imports neither
 JAX nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -12,7 +13,7 @@ from numpy.testing import assert_allclose
 
 from repro_torch import kernels
 from repro_torch.kernels import audio_normalize, audio_resample, build, mel_spectrogram, ops
-from repro_torch.kernels import image_normalize, image_resize, jpeg_idct
+from repro_torch.kernels import decode_attention, image_normalize, image_resize, jpeg_idct
 
 
 def _signals(n, seed=0, length=48000):
@@ -122,7 +123,7 @@ def test_image_pipeline_on_card_matches_cpu_and_counts_launches(cuda):
                                    torch.from_numpy(q).to(cuda)).cpu().numpy()
     assert kernels.launch_counts() == {
         "audio_resample": 0, "mel_spectrogram": 0, "audio_normalize": 0,
-        "jpeg_idct": 1, "image_resize": 2, "image_normalize": 1}
+        "jpeg_idct": 1, "image_resize": 2, "image_normalize": 1, "decode_attention": 0}
     want = ops.image_pipeline_batch(torch.from_numpy(c), torch.from_numpy(q)).numpy()
     assert got.shape == (3, 224, 224)
     assert_allclose(got, want, rtol=1e-3, atol=1e-2)
@@ -152,3 +153,99 @@ def test_image_wrappers_refuse_bad_inputs_on_card(cuda):
         image_normalize.image_crop_normalize_batch(x[0], 8, 8, 127.5, 64.0)
     with pytest.raises(ValueError):
         image_normalize.image_crop_normalize_batch(x.transpose(1, 2), 8, 8, 127.5, 64.0)
+
+
+# --- decode attention ----------------------------------------------------------
+
+DECODE_SHAPES = [(2, 8, 4, 64, 512), (1, 7, 7, 128, 300), (4, 16, 16, 64, 1024),
+                 (8, 32, 4, 64, 144), (8, 32, 4, 64, 2048), (4, 4, 2, 32, 74)]
+
+
+def _decode_inputs(shape, dtype, device, seed, valid=None):
+    b, h, kh, d, s = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(device, dtype)
+               for sh in ((b, h, d), (b, s, kh, d), (b, s, kh, d)))
+    vl = rng.integers(1, s + 1, (b,)) if valid is None else np.asarray(valid)
+    return q, k, v, torch.from_numpy(vl.astype(np.int32)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_attention_matches_plain_on_card(cuda, shape, dtype):
+    q, k, v, vl = _decode_inputs(shape, dtype, cuda, seed=sum(shape))
+    kernels.reset_launch_counts()
+    got = decode_attention.decode_attention_kernel(q, k, v, vl)
+    assert kernels.launch_counts()["decode_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = decode_attention.decode_attention_plain(q, k, v, vl)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_decode_attention_zero_valid_length_on_card(cuda):
+    """valid_len == 0 returns the mean of V over the S positions, as the
+    plain version does; the other rows are unaffected."""
+    shape = (3, 8, 4, 64, 300)
+    q, k, v, vl = _decode_inputs(shape, torch.float32, cuda, seed=5, valid=[0, 17, 300])
+    got = decode_attention.decode_attention_kernel(q, k, v, vl).cpu()
+    want = decode_attention.decode_attention_plain(q, k, v, vl).cpu()
+    assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+    mean_v = v[0].mean(0).repeat_interleave(2, dim=0).cpu()
+    assert_allclose(got[0].numpy(), mean_v.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_decode_attention_ignores_positions_past_valid_length_on_card(cuda):
+    """A row's result depends on its valid prefix only: other values past
+    valid_len, or a longer S, change no bit."""
+    q, k, v, vl = _decode_inputs((2, 32, 4, 64, 144), torch.bfloat16, cuda, seed=6,
+                                 valid=[70, 130])
+    a = decode_attention.decode_attention_kernel(q, k, v, vl)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, 70:], v2[0, 70:] = 7.0, -7.0
+    b = decode_attention.decode_attention_kernel(q, k2, v2, vl)
+    longer = [torch.cat([t, torch.randn_like(t)], dim=1) for t in (k, v)]
+    c = decode_attention.decode_attention_kernel(q, *longer, vl)
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_decode_attention_wrapper_refuses_bad_inputs_on_card(cuda):
+    q, k, v, vl = _decode_inputs((2, 8, 4, 64, 64), torch.float32, cuda, seed=7)
+    with pytest.raises(TypeError):
+        decode_attention.decode_attention(q.half(), k.half(), v.half(), vl)
+    with pytest.raises(TypeError):
+        decode_attention.decode_attention(q, k, v, vl.long())
+    with pytest.raises(ValueError):
+        decode_attention.decode_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                          v[..., :48].contiguous(), vl)   # head size
+    with pytest.raises(ValueError):
+        decode_attention.decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), vl)
+
+
+@pytest.mark.gpu
+def test_engine_decode_launches_once_per_layer_and_step_on_card(cuda):
+    """Every decode step of every engine mode runs the kernel once per
+    layer."""
+    from repro_torch.configs import reduced
+    from repro_torch.core.batching.buckets import Request
+    from repro_torch.serving.engine import EngineConfig, build_engine
+
+    cfg = reduced("tinyllama-1.1b")
+    for ec in (EngineConfig(continuous=False, max_new_tokens=6),
+               EngineConfig(continuous=False, max_new_tokens=6, fused_decode=False,
+                            pad_buckets=False),
+               EngineConfig(continuous=True, max_slots=4, segment_len=4, max_new_tokens=6,
+                            max_prompt_len=64, chunk_lens=(8,),
+                            prefix_cache_bytes=16 << 20)):
+        eng = build_engine(cfg, ec=ec, device=cuda)
+        eng.submit_many([Request(rid=i, arrival=0.0, length=float(n))
+                         for i, n in enumerate((40, 3, 17, 9, 33))])
+        kernels.reset_launch_counts()
+        done = eng.run_until_idle()
+        assert len(done) == 5 and all(len(r.payload) == 6 for r in done)
+        assert kernels.launch_counts()["decode_attention"] == \
+            cfg.n_layers * eng.stats["decode_steps"] > 0

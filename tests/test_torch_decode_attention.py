@@ -1,0 +1,180 @@
+"""The PyTorch package's decode attention on the CPU, against the JAX
+package's flash-decode Pallas kernel (interpret mode) and its oracle.
+
+On a CPU tensor `kernels.decode_attention` runs its plain version, the
+function the CUDA kernel computes; these tests hold that function to the TPU
+kernel at the reference's shapes (2e-4 at fp32, 3e-2 at bf16), prove that
+the model's ring-plus-causal-mask decode attention is the kernel's
+prefix-valid mask with valid_len = min(qpos + 1, ring), and pin what both
+kernels return at valid_len == 0, a row the engine never builds.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.decode_attention import decode_attention_pallas  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import reduced  # noqa: E402
+from repro_torch.core.batching.buckets import Request  # noqa: E402
+from repro_torch.kernels import decode_attention as kda  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.serving.engine import EngineConfig, build_engine  # noqa: E402
+
+torch.set_num_threads(1)
+
+SHAPES = [(2, 8, 4, 64, 512), (1, 7, 7, 128, 300), (4, 16, 16, 64, 1024)]
+TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+def _inputs(shape, seed, valid=None):
+    b, h, kh, d, s = shape
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kh, d)).astype(np.float32)
+    vl = rng.integers(1, s + 1, (b,)).astype(np.int32) if valid is None \
+        else np.asarray(valid, np.int32)
+    return q, k, v, vl
+
+
+def _torch(arrays, dtype):
+    q, k, v, vl = arrays
+    dt = getattr(torch, dtype)
+    return (*(torch.from_numpy(a).to(dt) for a in (q, k, v)), torch.from_numpy(vl))
+
+
+def _jax(arrays, dtype):
+    q, k, v, vl = arrays
+    dt = getattr(jnp, dtype)
+    return (*(jnp.asarray(a, dt) for a in (q, k, v)), jnp.asarray(vl))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_pallas_kernel_and_oracles(shape, dtype):
+    arrays = _inputs(shape, seed=sum(shape))
+    tq, tk, tv, tvl = _torch(arrays, dtype)
+    got = kda.decode_attention_plain(tq, tk, tv, tvl)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    got = got.float().numpy()
+    want = np.asarray(decode_attention_pallas(*_jax(arrays, dtype), interpret=True),
+                      np.float32)
+    tol = TOL[dtype]
+    assert_allclose(got, want, rtol=tol, atol=tol)
+    # both packages' oracles (fp32 results) agree with each
+    port_ref = ref.decode_attention_ref(tq, tk, tv, tvl).numpy()
+    assert_allclose(port_ref, np.asarray(jref.decode_attention_ref(*_jax(arrays, dtype))),
+                    rtol=2e-4, atol=2e-4)
+    assert_allclose(got, port_ref, rtol=tol, atol=tol)
+    # the public entry on a CPU tensor is the plain version, no launch
+    kernels.reset_launch_counts()
+    assert torch.equal(ops.decode_attention(tq, tk, tv, tvl),
+                       kda.decode_attention_plain(tq, tk, tv, tvl))
+    assert kernels.launch_counts()["decode_attention"] == 0
+
+
+def _ring_kpos(qpos, wc):
+    """The model's former decode mask: slot t of a true-position ring holds
+    the most recent position <= qpos congruent to t (mod wc), -1 if none."""
+    t = torch.arange(wc)
+    kpos = qpos[..., None] - torch.remainder(qpos[..., None] - t, wc)
+    return torch.where(kpos >= 0, kpos, torch.full_like(kpos, -1))
+
+
+@pytest.mark.parametrize("per_row", [True, False])
+def test_ring_mask_is_the_kernels_prefix_mask(per_row):
+    """attention_dense over the ring with the causal mask == the kernel's
+    function with valid_len = min(qpos + 1, ring): wrapped rows (150, 1000),
+    a fresh row (0) and rows inside the ring, GQA 32/4, D = 64, fp32."""
+    wc, kh, g, d = 144, 4, 8, 64
+    qpos = torch.tensor([0, 5, 143, 150, 1000]) if per_row else torch.tensor([150])
+    b = 5
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((b, 1, kh * g, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, wc, kh, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, wc, kh, d)).astype(np.float32))
+    if per_row:
+        want = L.attention_dense(q, k, v, qpos[:, None], _ring_kpos(qpos, wc),
+                                 causal=True, window=0)[:, 0]
+        vl = torch.clamp(qpos + 1, max=wc)
+    else:  # the shared ring of run-to-completion decode: one scalar position
+        want = L.attention_dense(q, k, v, qpos, _ring_kpos(qpos[0], wc),
+                                 causal=True, window=0)[:, 0]
+        vl = torch.full((b,), min(int(qpos[0]) + 1, wc))
+    got = kda.decode_attention_plain(q[:, 0], k, v, vl.to(torch.int32))
+    assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [512, 300])
+def test_zero_valid_length_gives_the_mean_of_v(s):
+    """valid_len == 0: every score is -1e30, every position weighs 1, so the
+    port returns the mean of V over its S positions. The Pallas kernel pads
+    S to its 512-key block with zero keys and values that weigh 1 too: it
+    returns sum(V) / 512, equal to the port's mean when S is a multiple of
+    512 (the JAX oracle always averages over S)."""
+    b, h, kh, d = 2, 8, 4, 64
+    arrays = _inputs((b, h, kh, d, s), seed=s, valid=[0, s // 3])
+    tq, tk, tv, tvl = _torch(arrays, "float32")
+    got = kda.decode_attention_plain(tq, tk, tv, tvl).numpy()
+    mean_v = np.repeat(arrays[2][0].mean(0), h // kh, axis=0)   # [H, D]
+    assert_allclose(got[0], mean_v, rtol=1e-5, atol=1e-5)
+    assert_allclose(got, np.asarray(jref.decode_attention_ref(*_jax(arrays, "float32"))),
+                    rtol=2e-4, atol=2e-4)
+    pallas = np.asarray(decode_attention_pallas(*_jax(arrays, "float32"), interpret=True))
+    assert_allclose(pallas[1], got[1], rtol=2e-4, atol=2e-4)
+    padded = -(-s // 512) * 512
+    assert_allclose(pallas[0], mean_v * s / padded, rtol=1e-5, atol=1e-5)
+    if s % 512 == 0:
+        assert_allclose(pallas[0], got[0], rtol=1e-5, atol=1e-5)
+
+
+def test_engine_never_builds_a_zero_valid_length(monkeypatch):
+    """Every decode step of the slot pool — live rows, free rows, mid-prefill
+    rows of a chunked admission — hands the kernel valid_len >= 1, and each
+    step launches it once per layer."""
+    seen = []
+    real = ops.decode_attention
+
+    def recording(q, k, v, valid_len):
+        seen.append(valid_len.clone())
+        return real(q, k, v, valid_len)
+
+    monkeypatch.setattr(lm.ops, "decode_attention", recording)
+    cfg = dataclasses.replace(reduced("tinyllama-1.1b"), dtype="float32")
+    eng = build_engine(cfg, ec=EngineConfig(
+        continuous=True, max_slots=4, segment_len=4, max_new_tokens=6,
+        max_prompt_len=64, chunk_lens=(8,)), device="cpu")
+    eng.submit_many([Request(rid=i, arrival=0.0, length=float(n))
+                     for i, n in enumerate((60, 3, 17, 9, 33, 2))])
+    done = eng.run_until_idle()
+    assert len(done) == 6 and all(len(r.payload) == 6 for r in done)
+    assert len(seen) == cfg.n_layers * eng.stats["decode_steps"] > 0
+    vl = torch.stack(seen)
+    assert vl.dtype == torch.int32 and int(vl.min()) >= 1
+    assert int(vl.max()) <= eng.pool_len
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    tq, tk, tv, tvl = _torch(_inputs(SHAPES[0], seed=1), "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        kda.decode_attention_kernel(tq, tk, tv, tvl)
+
+
+def test_sliding_window_decode_is_refused():
+    cfg = dataclasses.replace(reduced("tinyllama-1.1b"), dtype="float32",
+                              sliding_window=16)
+    pool = lm.alloc_slot_pool(cfg, 1, 16, torch.device("cpu"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", "float32")
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        lm.decode(params, pool, torch.zeros(1, 1, dtype=torch.long), 3, cfg)
+

@@ -154,7 +154,8 @@ def test_cpu_image_path_counts_nothing():
     ops.image_pipeline_batch(torch.from_numpy(_coeffs((2, 4, 4, 8, 8), 7)),
                              torch.from_numpy(_qtable(4)), resize_to=32, crop_to=24)
     assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
-    assert set(kernels.IMAGE_KERNELS) | set(kernels.AUDIO_KERNELS) == set(kernels.KERNELS)
+    assert (set(kernels.IMAGE_KERNELS) | set(kernels.AUDIO_KERNELS)
+            | {"decode_attention"}) == set(kernels.KERNELS)
 
 
 _GOOD = {"coeffs": np.zeros((4, 4, 8, 8), np.float32), "qtable": np.ones((8, 8), np.float32)}

@@ -233,11 +233,16 @@ def test_engine_cancel_frees_slots_and_queue():
 @pytest.mark.parametrize("ec", [
     EngineConfig(continuous=False),
     EngineConfig(continuous=True, chunk_lens=(16,)),
-    EngineConfig(continuous=True, prefix_cache_bytes=1 << 20),
+    EngineConfig(continuous=True, chunk_lens=(16,), prefix_cache_bytes=1 << 20),
 ])
 def test_unported_engine_paths_raise(ec):
+    """Every engine mode is served for the dense family; serving a
+    sliding-window model is not ported yet, and each mode refuses it."""
+    cfg = dataclasses.replace(reduced(ARCH), sliding_window=16)
+    eng = build_engine(cfg, ec=ec, device="cpu")
+    eng.submit_many([Request(rid=0, arrival=0.0, length=20.0)])
     with pytest.raises(NotImplementedError):
-        build_engine(reduced(ARCH), ec=ec, device="cpu")
+        eng.run_until_idle()
 
 
 # --- hygiene -----------------------------------------------------------------
