@@ -30,10 +30,11 @@ Phases, each fatal on failure:
    resize (to 256 x 256) and crop-normalize (224 x 224) kernels against
    their plain versions and times them as phase 3 does. Resize's library
    call is F.interpolate (bilinear, align_corners=False, no antialias),
-   checked once against the plain version at each shape. Resize's bound
-   counts the operations the function needs, 2 taps per output in each
-   pass; the dense products the kernel computes are reported beside it as
-   dense_bound_ms.
+   checked once against the plain version at each shape. The resize kernel
+   (one launch, a two-tap gather) is also held against the dense products
+   Ry @ img @ Rx^T (kernels/ref.py, timed as dense_ms); its bytes count
+   the image, the output and the taps (16 bytes an output row and column),
+   and the dense products' bound is reported beside it as dense_bound_ms.
 6. image serve — PREBA's image serving path: 20 requests carrying JPEG
    coefficient payloads through an image DPU service into a second
    pipelined runtime over the same weights: 16 of 512 x 512 sharing the
@@ -47,7 +48,7 @@ Phases, each fatal on failure:
    the stack equals the first it is fused (ops.image_pipeline_batch), else
    it takes the per-FU path, which decodes request by request. So per group
        jpeg_idct       += 1 if fused else m
-       image_resize    += 2          (rows pass, then columns pass)
+       image_resize    += 1          (one launch for the stack)
        image_normalize += 1
 7. decode kernel — holds the flash-decode attention kernel against its
    plain version at the JAX package's test shapes (B, H, KH, D, S) =
@@ -55,13 +56,18 @@ Phases, each fatal on failure:
    fp32 and bf16, and at the serve shapes (8, 32, 4, 64, 144) and
    (8, 32, 4, 64, 2048) in bf16, valid_len drawn in [1, S] (tolerance 2e-4
    at fp32, 3e-2 at bf16), plus one row with valid_len = 0 (the mean of
-   V). Times the kernel, the plain version and
+   V). The serve shape's output at S = 144 must equal, bit for bit, the
+   same rows' at S = 2,048 with noise past valid_len (a row's bits depend
+   on its valid prefix only). Prints how many of the serve shape's
+   clusters the card holds at once and a launch floor (the time of a
+   1-element fill). Times the kernel, the plain version and
    F.scaled_dot_product_attention (boolean mask, enable_gqa=True); the
    bound counts the K and V of the valid positions read once. Then times
    one full-width decode step (22 layers, 8 slots, a 144-slot ring) with
    the kernel and with its plain version swapped in, in turns, and
    profiles five steps (torch.profiler): the device time and kernel
-   launches a step, and the device's busy share of the step.
+   launches a step, decode attention's share of it, and the device's busy
+   share of the step.
 8. run-to-completion serve — 16 requests (all submitted at once) through
    the engine with continuous=False over the same weights: all served,
    tokens in range; lm.generate must equal the sequential decode loop
@@ -109,6 +115,7 @@ DECODE_SHAPES = [(2, 8, 4, 64, 512, d) for d in ("float32", "bfloat16")] \
     + [(4, 16, 16, 64, 1024, d) for d in ("float32", "bfloat16")] \
     + [(8, 32, 4, 64, 144, "bfloat16"), (8, 32, 4, 64, 2048, "bfloat16")]
 DECODE_MAIN_SHAPE = (8, 32, 4, 64, 144, "bfloat16")
+BITS_S = 2048  # the ring the serve shape's rows are held bit for bit against
 NEAR_TIE = 3e-2  # top-2 logit gap under which a bf16 token flip is a near-tie
 RESIZE_TO, CROP_TO, MEAN, STD = 256, 224, 127.5, 64.0
 TOL = {"audio_resample": (1e-4, 1e-5), "mel_spectrogram": (2e-4, 2e-4),
@@ -368,7 +375,7 @@ def image_kernel_phase(torch, F, np):
     from repro_torch.kernels import image_normalize as kin
     from repro_torch.kernels import image_resize as kz
     from repro_torch.kernels import jpeg_idct as kj
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(4321)
@@ -390,24 +397,32 @@ def image_kernel_phase(torch, F, np):
         row["flops"] = nb * (64 + 2 * 2 * 8 * 8 * 8 + 64)
         rows.append(row)
         # resize to 256 x 256, on the kernel's decoded images
+        yt = ops.resize_taps(h, RESIZE_TO, dev)
+        xt = ops.resize_taps(w, RESIZE_TO, dev)
         ry = ops.resize_matrix(h, RESIZE_TO, dev)
         rx = ops.resize_matrix(w, RESIZE_TO, dev)
-        z = kz.image_resize_batch_kernel(imgs, ry, rx)
-        want = kz.image_resize_batch_plain(imgs, ry, rx)
-        row = dict(name="image_resize", **tag, err=errors(torch, "image_resize", z, want))
+        z = kz.image_resize_batch_kernel(imgs, yt, xt)
+        want = kz.image_resize_batch_plain(imgs, yt, xt)
+        row = dict(name="image_resize", **tag, err=errors(torch, "image_resize", z, want),
+                   dense_err=errors(torch, "image_resize", z, ref.image_resize_ref(imgs, ry, rx)))
 
         def interp():
             return F.interpolate(imgs[:, None], size=(RESIZE_TO, RESIZE_TO), mode="bilinear",
                                  align_corners=False, antialias=False)[:, 0]
 
         row["library_err"] = errors(torch, "image_resize", interp(), want)
-        row["ms"] = time_ms(torch, lambda: kz.image_resize_batch_kernel(imgs, ry, rx))
-        row["plain_ms"] = time_ms(torch, lambda: kz.image_resize_batch_plain(imgs, ry, rx))
+        row["ms"] = time_ms(torch, lambda: kz.image_resize_batch_kernel(imgs, yt, xt))
+        row["plain_ms"] = time_ms(torch, lambda: kz.image_resize_batch_plain(imgs, yt, xt))
         row["library_ms"] = time_ms(torch, interp)
-        row["bytes"] = 4 * (imgs.numel() + ry.numel() + rx.numel() + n * RESIZE_TO * RESIZE_TO)
-        # a bilinear output has 2 taps in each pass; the kernel computes the
-        # dense products, which dense_bound_ms counts
+        row["dense_ms"] = time_ms(torch, lambda: ref.image_resize_ref(imgs, ry, rx))
+        # the image and the output, and 16 bytes of taps (2 int32 columns,
+        # 2 fp32 weights) an output row and column; a bilinear output has 2
+        # taps in each pass. dense_bound_ms counts the dense products
+        # Ry @ img @ Rx^T (and the matrices in place of the taps).
+        row["bytes"] = 4 * (imgs.numel() + n * RESIZE_TO * RESIZE_TO) + 16 * 2 * RESIZE_TO
         row["flops"] = 2 * n * (RESIZE_TO * 2 * w + RESIZE_TO * RESIZE_TO * 2)
+        row["dense_bytes"] = 4 * (imgs.numel() + ry.numel() + rx.numel()
+                                  + n * RESIZE_TO * RESIZE_TO)
         row["dense_flops"] = 2 * n * (RESIZE_TO * h * w + RESIZE_TO * w * RESIZE_TO)
         rows.append(row)
         # crop-normalize, on the kernel's resized images
@@ -433,11 +448,19 @@ def image_kernel_phase(torch, F, np):
         extra = ""
         if "library_err" in row:
             lib_abs, _, lib_ok = row.pop("library_err")
+            dense_abs, _, dense_ok = row.pop("dense_err")
             row["library_max_abs_err"] = lib_abs
-            row["dense_bound_ms"] = 1e3 * max(t_bytes, row["dense_flops"] / FP32_FLOPS_S)
-            extra = f" library_err={lib_abs:.3e} dense_bound_ms={row['dense_bound_ms']:.4f}"
+            row["dense_max_abs_err"] = dense_abs
+            row["dense_bound_ms"] = 1e3 * max(row["dense_bytes"] / HBM_BYTES_S,
+                                              row["dense_flops"] / FP32_FLOPS_S)
+            extra = (f" library_err={lib_abs:.3e} dense_err={dense_abs:.3e} "
+                     f"dense_ms={row['dense_ms']:.4f} "
+                     f"dense_bound_ms={row['dense_bound_ms']:.4f}")
             if not lib_ok:
                 fail(f"F.interpolate differs from the plain resize at N={row['n']} "
+                     f"{row['H']}x{row['W']} beyond {TOL['image_resize']}")
+            if not dense_ok:
+                fail(f"the resize kernel differs from the dense products at N={row['n']} "
                      f"{row['H']}x{row['W']} beyond {TOL['image_resize']}")
         print(f"  {row['name']:16s} N={row['n']:2d} {row['H']}x{row['W']}  "
               f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
@@ -544,7 +567,7 @@ def image_serve_phase(torch, np, params):
         fused = all(np.array_equal(q, qts[0]) for q in qts[1:])
         groups.append(dict(n=len(rids), stack=m, fused=fused))
         want["jpeg_idct"] += 1 if fused else m
-        want["image_resize"] += 2
+        want["image_resize"] += 1
         want["image_normalize"] += 1
     if sum(g["n"] for g in groups) != 20:
         fail(f"image path: the traced groups {groups} do not cover the 20 requests")
@@ -575,6 +598,7 @@ def image_serve_phase(torch, np, params):
 
 
 def decode_kernel_phase(torch, F, np):
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as kd
 
     dev = torch.device("cuda")
@@ -608,6 +632,10 @@ def decode_kernel_phase(torch, F, np):
         row["bytes"] = elt * (2 * b * h * d + 2 * valid * kh * d) + 4 * b
         row["flops"] = 4 * valid * (h // kh) * kh * d
         rows.append(row)
+        if (b, h, kh, d, s_len, dt) == DECODE_MAIN_SHAPE:
+            main_row = row
+            main_row["bits_vs_longer_ring"] = decode_bits_check(
+                torch, np, kd, q, k, v, vl, np.random.default_rng(778))
     # valid_len = 0: every position weighs the same, the output is mean(V)
     q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
                for sh in ((2, 8, 64), (2, 300, 4, 64), (2, 300, 4, 64)))
@@ -641,7 +669,38 @@ def decode_kernel_phase(torch, F, np):
         print(f"  decode_attention valid_len=0 row: {key}={abs_err:.3e}")
         if not ok:
             fail(f"decode_attention at valid_len = 0: {key} {abs_err:.3e}")
+    b, h, kh, d = DECODE_MAIN_SHAPE[:4]
+    clusters = build.library().preba_decode_attention_max_clusters(d, h // kh, 1, kh, b)
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = time_ms(torch, tiny.zero_)
+    main_row.update(max_active_clusters=clusters, clusters=kh * b, launch_floor_ms=floor_ms)
+    print(f"  decode_attention at the serve shape: {kh * b} clusters of 8 blocks, the card "
+          f"holds {clusters} at once; launch floor (a 1-element fill) {floor_ms:.4f} ms")
+    bits = main_row["bits_vs_longer_ring"]
+    print(f"  decode_attention bits at S={DECODE_MAIN_SHAPE[4]} == S={BITS_S} with noise "
+          f"past valid_len: {bits['equal']} (differing elements {bits['differing']})")
+    if not bits["equal"]:
+        fail(f"decode_attention: the serve shape's output at S = {DECODE_MAIN_SHAPE[4]} "
+             f"differs from the same rows at S = {BITS_S} ({bits['differing']} elements)")
     return rows
+
+
+def decode_bits_check(torch, np, kd, q, k, v, vl, rng):
+    """The same rows in a BITS_S-slot ring: K and V equal on each row's valid
+    prefix, noise past it. A row's bits must depend on its prefix only."""
+    b, s_len, kh, d = k.shape
+    longer = []
+    for t in (k, v):
+        t2 = torch.from_numpy(rng.standard_normal((b, BITS_S, kh, d)).astype(np.float32)
+                              ).to(t.device, t.dtype)
+        for i, n in enumerate(vl.tolist()):
+            t2[i, :n] = t[i, :n]
+        longer.append(t2)
+    got = kd.decode_attention_kernel(q, k, v, vl)
+    far = kd.decode_attention_kernel(q, *longer, vl)
+    torch.cuda.synchronize()
+    return {"equal": bool(torch.equal(got, far)), "differing": int((got != far).sum()),
+            "S": BITS_S}
 
 
 def decode_step_phase(torch, np, params):
@@ -709,7 +768,10 @@ def profile_decode_steps(torch, step, wall_ms: float, n: int = 5):
                 if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels_) / 1e3 / n
     top = sorted(kernels_, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    attn = [e for e in kernels_ if "decode_attention" in e.key]
     res = {"device_ms_per_step": dev_ms,
+           "decode_attention_ms_per_step": sum(e.self_device_time_total for e in attn) / 1e3 / n,
+           "decode_attention_calls_per_step": sum(e.count for e in attn) / n,
            "kernel_launches_per_step": sum(e.count for e in kernels_) / n,
            "device_busy_share": dev_ms / wall_ms,
            "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / n,

@@ -105,10 +105,10 @@ def _img_decode_cost(x) -> float:
 
 
 def _img_resize_cost(x) -> float:
-    # the dense separable products the resize kernel computes
+    # the two-tap kernel is bound by bytes: the image read once, the output
+    # written once
     h, w = _img_hw(x)
-    flops = 2 * _IMG_OUT * h * w + 2 * _IMG_OUT * w * _IMG_OUT
-    return flops / _FP32_FLOPS + _FIXED_OVERHEAD
+    return (h * w + _IMG_OUT * _IMG_OUT) * 4 / _HBM_BYTES + _FIXED_OVERHEAD
 
 
 def _img_crop_cost(x) -> float:

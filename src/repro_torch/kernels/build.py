@@ -39,13 +39,13 @@ _SIGNATURES = {
     "preba_normalize": ([_P, _P, _I, _I, _I, ctypes.c_float, _P], _I),
     "preba_normalize_smem_bytes": ([_I], _I),
     "preba_idct": ([_P, _P, _P, _P, _I, _I, _P], _I),
-    "preba_resize_rows": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "preba_resize_cols": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "preba_resize": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "preba_crop_normalize": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                               ctypes.c_float, _P], _I),
     "preba_decode_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 ctypes.c_float, _P], _I),
-    "preba_decode_attention_smem_bytes": ([_I, _I], _I),
+    "preba_decode_attention_smem_bytes": ([_I, _I, _I], _I),
+    "preba_decode_attention_max_clusters": ([_I, _I, _I, _I, _I], _I),
     "preba_error_string": ([_I], ctypes.c_char_p),
 }
 

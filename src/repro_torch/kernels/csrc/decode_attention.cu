@@ -14,37 +14,62 @@
 // the TPU. At valid_len == 0 every score is -1e30, so p = 1 at every
 // position and the output is the mean of V over the S positions.
 //
-// What bounds it on this card: device-memory bytes. A decode step reads the
-// K and V of every valid position once and does 4 flops per element read,
-// far below the ~20 flops a byte at which fp32 arithmetic would bind. At the
-// serve shape (B = 8, H = 32, KH = 4, D = 64, S = 144, bf16) that is about
-// 1.2 MB, 0.4 us at 3.35 TB/s, so one launch costs more than its bytes.
+// What bounds it on this card: device-memory bytes and latency. A decode
+// step reads the K and V of every valid position once and does 4 flops per
+// element read, far below the ~20 flops a byte at which fp32 arithmetic
+// would bind, so the kernel uses no tensor cores. At the serve shape
+// (B = 8, H = 32, KH = 4, D = 64, S = 144, bf16) that is about 1.2 MB,
+// 0.4 us at 3.35 TB/s, so what it pays is launch, load latency and the
+// depth of its dependent steps.
 //
-// Design: one block per (kv head, sequence) holds all G query heads of its
-// KV head, so each K/V element is read from device memory once. Keys are
-// streamed through shared memory in tiles of a FIXED 64 positions, upcast
-// to fp32: first the K tile (each lane scores two keys of one head, fixed
-// summation order over D), then the V tile in the same buffer (each lane
-// accumulates D / 32 output columns). Warp w owns heads w, w + 4, ...; its
-// max and sum are xor-butterfly reductions, which leave bitwise the same
-// value in every lane. Positions past valid_len add exact zeros in fixed
-// places, so a row's result does not depend on S, on B or on where its
-// valid prefix ends inside a tile: tiles wholly past valid_len are skipped
-// (they would leave m, l and the accumulator bit for bit as they are), and
-// masked positions of a partial tile are not read (zero-filled). That keeps
-// the serving engine's bit-exact contracts (padded == unpadded, a request
-// joining a pool == alone, chained segments == sequential decode). Head
-// sizes 32 (the reduced test models), 64 and 128 are compiled. No split
-// of S across blocks, no wgmma, no TMA: at the serve shape the grid is
-// 4 x 8 = 32 blocks on 132 SMs.
+// Design: a thread block cluster of C = 8 blocks per (KV head, sequence)
+// splits S. Keys go in tiles of a FIXED 64 positions; block r of the
+// cluster takes tiles r, r + C, r + 2C, ... in ascending order and keeps
+// the online-softmax partial (m, l, acc) of all G query heads of its KV
+// head, so each K/V element is read from device memory once. Each tile's K
+// and V are copied together with 16-byte cp.async into a two-stage ring in
+// their storage type, rows padded by 16 bytes so the lanes scoring
+// consecutive keys hit distinct banks; the next tile's copy runs under
+// this tile's scores and values, and each value is upcast in registers.
+// The copies of q and of the block's first tile are issued before
+// valid_len is read, so the three device-memory latencies overlap.
+// Eight warps: warp w owns query heads w, w + 8, ... (tinyllama's G = 8: one
+// each) and upcasts their q once; a lane scores two keys of a head (fixed
+// summation order over D), max and sum are xor-butterfly reductions
+// (bitwise the same value in every lane), and a lane accumulates D / 32
+// adjacent output columns over the tile's keys in order. After
+// cluster.sync() the blocks merge the partials through distributed shared
+// memory (mapa + ld.shared::cluster, all of a thread's remote reads in
+// flight at once), each a slice of the G x D outputs, in rank order; ranks
+// that hold no tile below the limit are left out of the merge, not merged
+// as -inf. A second cluster.sync() keeps every block resident until the
+// others have read its shared memory. One launch a call: no combine
+// kernel, no workspace. Registers are capped at 85 a thread (3 blocks an
+// SM): at 128 the card holds fewer clusters of 8 at once than the serve
+// shape's 32, and the launch runs in two waves.
+//
+// A row's result does not depend on S, on B or on what lies past its
+// valid prefix: which block takes a tile and the merge order depend on the
+// tile's position only, tiles wholly past valid_len are skipped, scores
+// past valid_len are replaced by -1e30 whatever the keys there hold, and
+// the value loop stops at the limit, so no value past it is read. That
+// keeps the serving engine's bit-exact contracts (padded == unpadded, a
+// request joining a pool == alone, chained segments == sequential decode).
+// Head sizes 32 (the reduced test models), 64 and 128 are compiled.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kTile = 64;      // keys per shared-memory tile (fixed)
-constexpr int kWarps = 4;
+constexpr int kTile = 64;      // keys per tile (fixed)
+constexpr int kCluster = 8;    // blocks per (KV head, sequence), the portable maximum
+constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;     // tiles in the ring
+constexpr int kMinBlocks = 3;  // blocks an SM (caps registers at 85)
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -62,73 +87,193 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Shared memory, in floats: the K or V tile [kTile, D + 1] (padded so the
-// lanes scoring consecutive keys hit distinct banks), q and the
-// accumulator [G, D] each, the tile's probabilities [G, kTile], and m, l,
-// the tile's rescale factor [G] each.
-__host__ __device__ constexpr int smem_floats(int d, int g) {
-  return kTile * (d + 1) + 2 * g * d + g * kTile + 3 * g;
+// 16 bytes from global to shared; src_bytes = 0 zero-fills without reading.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy positions [t0, t0 + kTile) of one KV head's K or V into the tile,
-// upcast; positions at or past `lim` are zero-filled, never read.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* tile, const T* src, int t0, int lim,
-                                          long long pos_stride) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int j = e / D, d = e % D;
-    const int pos = t0 + j;
-    tile[j * (D + 1) + d] = pos < lim ? to_f32(src[pos * pos_stride + d]) : 0.f;
+// The 32-bit distributed-shared-memory address of p in block `rank` of the
+// cluster, and a load from it.
+__device__ __forceinline__ unsigned map_rank(const void* p, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float ld_cluster(unsigned addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+// n consecutive elements at p (aligned to n elements) upcast to fp32.
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float* out) {
+  if constexpr (N == 1) {
+    out[0] = p[0];
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x, out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      out[i] = v.x, out[i + 1] = v.y, out[i + 2] = v.z, out[i + 3] = v.w;
+    }
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* out) {
+  if constexpr (N == 1) {
+    out[0] = __bfloat162float(p[0]);
+  } else if constexpr (N == 2) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = v.x, out[1] = v.y;
+  } else if constexpr (N == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    out[0] = a.x, out[1] = a.y, out[2] = b.x, out[3] = b.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i += 8) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p + i);
+      const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+        out[i + 2 * k] = f.x, out[i + 2 * k + 1] = f.y;
+      }
+    }
   }
 }
 
+// A tile row: D elements and 16 bytes of padding.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int row_elems() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
+
+// Shared memory, in bytes: the ring [kStages][K, V][kTile][row] and q [G, D]
+// in the storage type, then (bf16 only) q upcast [G, D], the accumulator
+// [G, D], each warp's probabilities [kTile], and m, l [G], fp32.
+template <typename T, int D>
+__host__ __device__ constexpr int smem_bytes(int g) {
+  return static_cast<int>(sizeof(T)) * (kStages * 2 * kTile * row_elems<T, D>() + g * D)
+         + 4 * ((sizeof(T) == 4 ? 1 : 2) * g * D + kWarps * kTile + 2 * g);
+}
+
+template <typename T, int D>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kMinBlocks)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ valid_len,
                         T* __restrict__ out, int h, int kh_n, int s_len, int g_n,
                         float scale) {
-  extern __shared__ float smem[];
-  float* tile = smem;
-  float* qs = tile + kTile * (D + 1);
-  float* acc = qs + g_n * D;
+  constexpr int kRow = row_elems<T, D>();
+  constexpr int kTileElems = kTile * kRow;
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte copy
+  constexpr int kChunks = D / kPer;                        // 16-byte copies a row
+  constexpr int kCols = D / 32;                            // output columns a lane
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+  T* qs = ring + kStages * 2 * kTileElems;
+  float* after_q = reinterpret_cast<float*>(qs + g_n * D);
+  float* qf = sizeof(T) == 2 ? after_q : reinterpret_cast<float*>(qs);  // q in fp32
+  float* acc = sizeof(T) == 2 ? after_q + g_n * D : after_q;
   float* ps = acc + g_n * D;
-  float* ms = ps + g_n * kTile;
+  float* ms = ps + kWarps * kTile;
   float* ls = ms + g_n;
-  float* cs = ls + g_n;
 
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int kh = blockIdx.x / kCluster, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long pos_stride = static_cast<long long>(kh_n) * D;
+  const long long base = (static_cast<long long>(b) * s_len * kh_n + kh) * D;
+  const T* kb = k + base;
+  const T* vb = v + base;
+
+  // copy K and V of tile `tile` into the ring; rows at or past `end` are
+  // zero-filled, not read
+  auto issue = [&](int tile, int end) {
+    T* kd = ring + (tile / kCluster % kStages) * 2 * kTileElems;
+    T* vd = kd + kTileElems;
+    for (int e = tid; e < kTile * kChunks; e += kThreads) {
+      const int j = e / kChunks, c = e % kChunks;
+      const int pos = tile * kTile + j;
+      const bool ok = pos < end;
+      const long long off = ok ? pos * pos_stride + c * kPer : 0;
+      cp_async16(kd + j * kRow + c * kPer, kb + off, ok ? 16 : 0);
+      cp_async16(vd + j * kRow + c * kPer, vb + off, ok ? 16 : 0);
+    }
+  };
+
+  // q and this block's first tile fly while valid_len is read: the first
+  // copy is bounded by S, not by valid_len, so positions past valid_len may
+  // land in it; their scores are replaced by -1e30 and their values are
+  // never read (the value loop stops at the limit).
   const T* qb = q + (static_cast<long long>(b) * h + static_cast<long long>(kh) * g_n) * D;
-  for (int e = threadIdx.x; e < g_n * D; e += kThreads) {
-    qs[e] = to_f32(qb[e]);
-    acc[e] = 0.f;
-  }
-  for (int g = threadIdx.x; g < g_n; g += kThreads) {
-    ms[g] = kNegInf;
-    ls[g] = 0.f;
-  }
+  for (int e = tid; e < g_n * kChunks; e += kThreads)
+    cp_async16(qs + e * kPer, qb + e * kPer, 16);
+  if (rank * kTile < s_len) issue(rank, s_len);
+  cp_async_commit();
+
   const int vl = min(max(valid_len[b], 0), s_len);
   // positions that can carry weight: the valid prefix, or all S when none
   // is valid (then every score is -1e30 and every position weighs 1)
   const int lim = vl > 0 ? vl : s_len;
-  const long long pos_stride = static_cast<long long>(kh_n) * D;
-  const long long base = (static_cast<long long>(b) * s_len * kh_n + kh) * D;
-
-  for (int t0 = 0; t0 < lim; t0 += kTile) {
-    __syncthreads();  // the previous V tile is consumed; q, m, l are set
-    load_tile<T, D>(tile, k + base, t0, lim, pos_stride);
-    __syncthreads();
+  const int n_tiles = (lim + kTile - 1) / kTile;
+  const int my_tiles = n_tiles > rank ? (n_tiles - rank + kCluster - 1) / kCluster : 0;
+  for (int e = tid; e < g_n * D; e += kThreads) acc[e] = 0.f;
+  for (int g = tid; g < g_n; g += kThreads) {
+    ms[g] = kNegInf;
+    ls[g] = 0.f;
+  }
+  // one commit group a tile (empty past the last): the next tile's copy is
+  // in flight while this one is used
+  for (int i = 0; i < my_tiles; ++i) {
+    if (i + 1 < my_tiles) issue(rank + (i + 1) * kCluster, lim);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile i and q have landed for every thread; m, l are set
+    const T* kt = ring + (i % kStages) * 2 * kTileElems;
+    const T* vt = kt + kTileElems;
+    const int t0 = (rank + i * kCluster) * kTile;
+    const int nk = min(kTile, lim - t0);  // keys of this tile that carry weight
+    float* pw = ps + warp * kTile;
+    if constexpr (sizeof(T) == 2) {
+      if (i == 0) {  // each warp upcasts the q rows of its own heads, once
+        for (int g = warp; g < g_n; g += kWarps)
+          for (int d = lane; d < D; d += 32) qf[g * D + d] = to_f32(qs[g * D + d]);
+        __syncwarp();
+      }
+    }
     for (int g = warp; g < g_n; g += kWarps) {
-      const float* qg = qs + g * D;
-      const float* k0 = tile + lane * (D + 1);
-      const float* k1 = tile + (lane + 32) * (D + 1);
+      const float* qg = qf + g * D;
+      const T* k0 = kt + lane * kRow;
+      const T* k1 = k0 + 32 * kRow;
       float s0 = 0.f, s1 = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        const float qd = qg[d];
-        s0 = fmaf(qd, k0[d], s0);
-        s1 = fmaf(qd, k1[d], s1);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        float a[kPer], bb[kPer], qd[kPer];
+        load_f32<kPer>(k0 + c * kPer, a);
+        load_f32<kPer>(k1 + c * kPer, bb);
+        load_f32<kPer>(qg + c * kPer, qd);
+#pragma unroll
+        for (int x = 0; x < kPer; ++x) {
+          s0 = fmaf(qd[x], a[x], s0);
+          s1 = fmaf(qd[x], bb[x], s1);
+        }
       }
       const int p0 = t0 + lane, p1 = t0 + lane + 32;
       s0 = p0 < vl ? s0 * scale : kNegInf;
@@ -139,50 +284,108 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float e1 = p1 < lim ? expf(s1 - m_new) : 0.f;
       const float corr = expf(m_old - m_new);
       const float l_new = ls[g] * corr + warp_sum(e0 + e1);
-      ps[g * kTile + lane] = e0;
-      ps[g * kTile + lane + 32] = e1;
+      pw[lane] = e0;
+      pw[lane + 32] = e1;
       __syncwarp();
+      float t[kCols] = {};
+      const int d0 = lane * kCols;
+      int j = 0;
+#pragma unroll 4
+      for (; j + 4 <= nk; j += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(pw + j);
+        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float vv[kCols];
+          load_f32<kCols>(vt + (j + jj) * kRow + d0, vv);
+#pragma unroll
+          for (int x = 0; x < kCols; ++x) t[x] = fmaf(pj[jj], vv[x], t[x]);
+        }
+      }
+      for (; j < nk; ++j) {
+        float vv[kCols];
+        load_f32<kCols>(vt + j * kRow + d0, vv);
+#pragma unroll
+        for (int x = 0; x < kCols; ++x) t[x] = fmaf(pw[j], vv[x], t[x]);
+      }
+      float* ag = acc + g * D + d0;
+#pragma unroll
+      for (int x = 0; x < kCols; ++x) ag[x] = ag[x] * corr + t[x];
+      __syncwarp();  // every lane has read m, l and its probabilities
       if (lane == 0) {
         ms[g] = m_new;
         ls[g] = l_new;
-        cs[g] = corr;
       }
     }
-    __syncthreads();  // scores are done with the K tile
-    load_tile<T, D>(tile, v + base, t0, lim, pos_stride);
-    __syncthreads();
-    for (int g = warp; g < g_n; g += kWarps) {
-      const float corr = cs[g];
-      const float* pg = ps + g * kTile;
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) {
-        const int d = lane + 32 * i;
-        float t = 0.f;
-#pragma unroll 16
-        for (int j = 0; j < kTile; ++j) t = fmaf(pg[j], tile[j * (D + 1) + d], t);
-        acc[g * D + d] = acc[g * D + d] * corr + t;
-      }
-    }
+    __syncthreads();  // this stage is free for the copy issued next round
   }
-  __syncthreads();
+  cp_async_wait<0>();  // no copy may land after the block has left
+
+  // merge the partials of ranks [0, parts) in rank order; each block
+  // writes a slice of the G x D outputs
+  cluster.sync();
+  const int parts = min(n_tiles, kCluster);
+  const int gd = g_n * D, slice = (gd + kCluster - 1) / kCluster;
+  const int e_end = min(gd, (rank + 1) * slice);
   T* ob = out + (static_cast<long long>(b) * h + static_cast<long long>(kh) * g_n) * D;
-  for (int e = threadIdx.x; e < g_n * D; e += kThreads) {
-    store(ob + e, acc[e] / fmaxf(ls[e / D], 1e-30f));
+  for (int e = rank * slice + tid; e < e_end; e += kThreads) {
+    const int g = e / D;
+    float mr[kCluster], ar[kCluster], lr[kCluster];
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {  // all remote reads in flight at once
+      if (r < parts) {
+        mr[r] = ld_cluster(map_rank(ms + g, r));
+        ar[r] = ld_cluster(map_rank(acc + e, r));
+        lr[r] = ld_cluster(map_rank(ls + g, r));
+      }
+    }
+    float m = kNegInf;  // every partial's m is at least -1e30
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r)
+      if (r < parts) m = fmaxf(m, mr[r]);
+    float a = 0.f, l = 0.f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      if (r < parts) {
+        const float f = expf(mr[r] - m);
+        a = fmaf(ar[r], f, a);
+        l = fmaf(lr[r], f, l);
+      }
+    }
+    store(ob + e, a / fmaxf(l, 1e-30f));
   }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// Allow the kernel its dynamic shared memory; returns the cudaError_t.
+template <typename T, int D>
+int configure(int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      decode_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+template <typename T, int D>
+int max_clusters(int g, int kh, int b) {
+  const int bytes = smem_bytes<T, D>(g);
+  if (int err = configure<T, D>(bytes)) return -err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * kh, b);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, decode_attention_kernel<T, D>, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* valid_len, void* out,
            int b, int h, int kh, int s, float scale, cudaStream_t stream) {
   const int g = h / kh;
-  const int bytes = static_cast<int>(sizeof(float)) * smem_floats(D, g);
+  const int bytes = smem_bytes<T, D>(g);
   auto kernel = decode_attention_kernel<T, D>;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<dim3(kh, b), kThreads, bytes, stream>>>(
+  if (int err = configure<T, D>(bytes)) return err;
+  kernel<<<dim3(kCluster * kh, b), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       valid_len, static_cast<T*>(out), h, kh, s, g, scale);
   return static_cast<int>(cudaGetLastError());
@@ -190,20 +393,38 @@ int launch(const void* q, const void* k, const void* v, const int* valid_len, vo
 
 }  // namespace
 
-// Shared-memory bytes one block needs for head size d and g query heads
-// per KV head (the wrapper refuses more than a block can have).
-extern "C" int preba_decode_attention_smem_bytes(int d, int g) {
-  return static_cast<int>(sizeof(float)) * smem_floats(d, g);
+// Shared-memory bytes one block needs for head size d, g query heads per
+// KV head and bf16 != 0 for bfloat16 (the wrapper refuses more than a
+// block can have); -1 for a head size that is not compiled.
+extern "C" int preba_decode_attention_smem_bytes(int d, int g, int bf16) {
+  if (d == 32) return bf16 ? smem_bytes<__nv_bfloat16, 32>(g) : smem_bytes<float, 32>(g);
+  if (d == 64) return bf16 ? smem_bytes<__nv_bfloat16, 64>(g) : smem_bytes<float, 64>(g);
+  if (d == 128) return bf16 ? smem_bytes<__nv_bfloat16, 128>(g) : smem_bytes<float, 128>(g);
+  return -1;
+}
+
+// Clusters of 8 blocks the card holds at once for that launch (a diagnostic:
+// fewer than kh * b means the launch runs in more than one wave); a
+// negative cudaError_t on failure.
+extern "C" int preba_decode_attention_max_clusters(int d, int g, int bf16, int kh, int b) {
+  if (d == 32)
+    return bf16 ? max_clusters<__nv_bfloat16, 32>(g, kh, b) : max_clusters<float, 32>(g, kh, b);
+  if (d == 64)
+    return bf16 ? max_clusters<__nv_bfloat16, 64>(g, kh, b) : max_clusters<float, 64>(g, kh, b);
+  if (d == 128)
+    return bf16 ? max_clusters<__nv_bfloat16, 128>(g, kh, b) : max_clusters<float, 128>(g, kh, b);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // q [b, h, d], k/v [b, s, kh, d], valid_len [b] int32 -> out [b, h, d];
-// bf16 != 0 for bfloat16 tensors, else float32; all contiguous, h % kh == 0,
-// d in {32, 64, 128}. Returns the cudaError_t of the launch.
+// bf16 != 0 for bfloat16 tensors, else float32; all contiguous and 16-byte
+// aligned, h % kh == 0, d in {32, 64, 128}. Launches a grid of (8 kh, b)
+// blocks in clusters of 8. Returns the cudaError_t of the launch.
 extern "C" int preba_decode_attention(const void* q, const void* k, const void* v,
                                       const int* valid_len, void* out, int b, int h,
                                       int kh, int s, int d, int bf16, float scale,
                                       void* stream) {
-  if (b <= 0 || kh <= 0 || h % kh != 0 || b > 65535)
+  if (b <= 0 || kh <= 0 || h % kh != 0 || b > 65535 || kh > 0x7fffffff / kCluster)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 32)

@@ -1,132 +1,147 @@
 // Separable bilinear resize for the DPU 'Resize' functional unit, on Hopper
-// (sm_90a).
+// (sm_90a): one launch for a stack of same-shape images.
 //
 // Replaces the TPU kernels src/repro/kernels/image_resize.py,
 // image_resize_batch_pallas (_rows_kernel_b, then _cols_kernel; the single
-// image_resize_pallas is the same two passes at N = 1):
+// image_resize_pallas is the same two passes at N = 1), which compute
 //
-//     tmp[n] = Ry @ img[n]                 rows pass,    Ry [H_out, H]
-//     out    = tmp.reshape(N H_out, W) @ Rx^T   cols pass, Rx [W_out, W]
+//     out[n] = Ry @ img[n] @ Rx^T          Ry [H_out, H], Rx [W_out, W]
 //
-// over a stack img [N, H, W] of same-shape images, all fp32.
+// as two dense MXU products over a stack img [N, H, W], all fp32. A
+// bilinear row of Ry or Rx has at most two non-zeros, so this kernel takes
+// the matrices as taps (ops.resize_taps): for each output row o, the two
+// columns idx[o] and their weights w[o], the matrix's own entries (a row
+// with one non-zero names its column twice, the second weight 0). It keeps
+// the reference's order of operations:
 //
-// What bounds it on this card: the function needs 2 taps an output in each
-// pass, so bytes bound it (N = 16, 512 x 512 -> 256 x 256: ~22 MB, ~6.6 us
-// at 3.35 TB/s). Written as dense products, as the TPU kernel does them, it
-// is 2 H_out H W + 2 H_out W W_out flops an image (~3.2 GFLOP at that
-// shape), so this kernel is bound by fp32 operations, ~7x above the bytes
-// bound. TF32 is out: its 10-bit mantissa cannot meet the 1e-4
-// tolerance on pixel values of ~255. Both passes run one shared-memory
-// tiled fp32 GEMM on the CUDA cores: a 256-thread block computes a 64 x 64
-// tile of C, each thread a 4 x 4 register tile (rows ty + 16 i, columns
-// tx + 16 j, so a warp's stores are coalesced), walking K in steps of 16
-// staged through padded shared tiles. The rows pass batches over blockIdx.z
-// with Ry shared (stride 0); the cols pass reads Rx in place as the
-// transposed B operand, so no transpose is materialised. Ragged edges are
-// masked: Ry is not padded to 128 rows as on the TPU. A bilinear row has
-// only two non-zero taps, so almost all of these flops multiply zeros;
-// a two-tap gather would bring it down to the bytes bound.
+//     t[y, x]   = wy0 img[y0, x] + wy1 img[y1, x]     vertical taps, first
+//     out[y, x] = wx0 t[y, x0]   + wx1 t[y, x1]       then horizontal taps
+//
+// so every output is within a few ulps of the dense products.
+//
+// What bounds it on this card: device-memory bytes. An output costs about
+// 4 flops against 4-16 bytes read, far below the ~20 flops a byte at which
+// fp32 arithmetic would bind, so the kernel uses no tensor cores (TF32
+// could not meet the 1e-4 tolerance on pixels of ~255 anyway). At N = 16,
+// 512 x 512 -> 256 x 256 the image and output are ~21 MB, ~6.3 us at
+// 3.35 TB/s.
+//
+// Design: one block per (image, band of output rows). The block stages the
+// x taps in shared memory, computes the vertical taps of its band straight
+// from device memory into shared memory (t [band, W], never written to
+// device memory), then the horizontal taps out of shared memory. Where W % 4
+// == 0 the vertical pass reads and writes 16 bytes a thread (float4); a
+// stack whose rows do not start on 16 bytes (W % 4 != 0) takes the scalar
+// path. The horizontal pass gives consecutive outputs to consecutive
+// threads, so each warp store fills whole 128-byte lines and the shared
+// reads of t stride by the scale factor (2-way bank conflicts at scale 2,
+// where a float4 of outputs a thread would make them 8-way). The band is 8
+// rows, halved down to 1 until the grid has two blocks an SM or the shared
+// memory fits 48 KB; each output is computed the same way whatever the band,
+// so the result does not depend on N, the band or the launch.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-constexpr int kThreads = 256;   // 16 x 16, a 4 x 4 tile of C each
-constexpr int kPad = 4;         // spreads the transposed tile stores over banks
+constexpr int kThreads = 256;
+constexpr int kMaxBand = 8;
+constexpr int kMinBlocks = 2 * 132;          // two blocks an SM
+constexpr long long kSmemDefault = 48 * 1024;
+constexpr long long kSmemMax = 227 * 1024;
 
-// C[z] = A[z] @ B[z] with A [M, K]; B [K, N], or [N, K] read transposed
-// when kTransB; C [M, N]; all row-major, batch strides in elements.
-template <bool kTransB>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-            float* __restrict__ c, int m, int n, int k, long long stride_a,
-            long long stride_b, long long stride_c) {
-  __shared__ float a_s[kBK][kBM + kPad];
-  __shared__ float b_s[kBK][kBN + kPad];
-
-  a += blockIdx.z * stride_a;
-  b += blockIdx.z * stride_b;
-  c += blockIdx.z * stride_c;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-#pragma unroll
-    for (int r = 0; r < kBM * kBK / kThreads; ++r) {
-      const int idx = tid + r * kThreads;
-      const int mm = idx / kBK, kk = idx % kBK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      a_s[kk][mm] = (gm < m && gk < k) ? a[static_cast<long long>(gm) * k + gk] : 0.0f;
-    }
-#pragma unroll
-    for (int r = 0; r < kBN * kBK / kThreads; ++r) {
-      const int idx = tid + r * kThreads;
-      if (kTransB) {
-        const int nn = idx / kBK, kk = idx % kBK;
-        const int gn = n0 + nn, gk = k0 + kk;
-        b_s[kk][nn] = (gn < n && gk < k) ? b[static_cast<long long>(gn) * k + gk] : 0.0f;
-      } else {
-        const int kk = idx / kBN, nn = idx % kBN;
-        const int gn = n0 + nn, gk = k0 + kk;
-        b_s[kk][nn] = (gn < n && gk < k) ? b[static_cast<long long>(gk) * n + gn] : 0.0f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = b_s[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < n) c[static_cast<long long>(gm) * n + gn] = acc[i][j];
-    }
-  }
+// Shared bytes: the x taps (weights float2, columns int2) [w_out], then the
+// vertical taps t [band, w] (16-byte aligned: 16 w_out bytes precede it).
+long long smem_bytes(int band, int w, int w_out) {
+  return 16LL * w_out + 4LL * band * w;
 }
 
-int launch_error(long long grid_x, long long grid_y, long long grid_z) {
-  if (grid_x > 0x7fffffffLL || grid_y > 65535 || grid_z > 65535)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  return 0;
+// Tap columns are clamped into [0, n): a tap outside the image reads its
+// edge, never memory past it (ops.resize_taps builds none).
+__device__ __forceinline__ int2 clamp_taps(int2 i, int n) {
+  return make_int2(min(max(i.x, 0), n - 1), min(max(i.y, 0), n - 1));
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+resize_kernel(const float* __restrict__ img, const int2* __restrict__ yidx,
+              const float2* __restrict__ yw, const int2* __restrict__ xidx,
+              const float2* __restrict__ xw, float* __restrict__ out, int h, int w,
+              int h_out, int w_out, int band) {
+  extern __shared__ float4 smem[];
+  float2* xw_s = reinterpret_cast<float2*>(smem);
+  int2* xi_s = reinterpret_cast<int2*>(xw_s + w_out);
+  float* t = reinterpret_cast<float*>(xi_s + w_out);
+
+  const int n = blockIdx.y, o0 = blockIdx.x * band;
+  const int rows = min(band, h_out - o0);
+  for (int e = threadIdx.x; e < w_out; e += kThreads) {
+    xw_s[e] = xw[e];
+    xi_s[e] = clamp_taps(xidx[e], w);
+  }
+  const float* src = img + static_cast<long long>(n) * h * w;
+  if (kVec) {
+    const int w4 = w / 4;
+    for (int e = threadIdx.x; e < rows * w4; e += kThreads) {
+      const int r = e / w4, x = e - r * w4;
+      const int2 yi = clamp_taps(yidx[o0 + r], h);
+      const float2 wy = yw[o0 + r];
+      const float4 a = reinterpret_cast<const float4*>(src + static_cast<long long>(yi.x) * w)[x];
+      const float4 b = reinterpret_cast<const float4*>(src + static_cast<long long>(yi.y) * w)[x];
+      float4 v;
+      v.x = fmaf(wy.y, b.x, wy.x * a.x);
+      v.y = fmaf(wy.y, b.y, wy.x * a.y);
+      v.z = fmaf(wy.y, b.z, wy.x * a.z);
+      v.w = fmaf(wy.y, b.w, wy.x * a.w);
+      reinterpret_cast<float4*>(t + r * w)[x] = v;
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * w; e += kThreads) {
+      const int r = e / w, x = e - r * w;
+      const int2 yi = clamp_taps(yidx[o0 + r], h);
+      const float2 wy = yw[o0 + r];
+      t[e] = fmaf(wy.y, src[static_cast<long long>(yi.y) * w + x],
+                  wy.x * src[static_cast<long long>(yi.x) * w + x]);
+    }
+  }
+  __syncthreads();
+  float* dst = out + (static_cast<long long>(n) * h_out + o0) * w_out;
+  for (int e = threadIdx.x; e < rows * w_out; e += kThreads) {
+    const int r = e / w_out, x = e - r * w_out;
+    const int2 xi = xi_s[x];
+    const float2 wx = xw_s[x];
+    const float* tr = t + r * w;
+    dst[e] = fmaf(wx.y, tr[xi.y], wx.x * tr[xi.x]);
+  }
 }
 
 }  // namespace
 
-// Rows pass: img [n_img, h, w], ry [h_out, h] -> tmp [n_img, h_out, w].
-// Returns the cudaError_t of the launch.
-extern "C" int preba_resize_rows(const float* img, const float* ry, float* tmp,
-                                 int n_img, int h, int w, int h_out,
-                                 void* stream) {
-  const dim3 grid((w + kBN - 1) / kBN, (h_out + kBM - 1) / kBM, n_img);
-  if (int err = launch_error(grid.x, grid.y, grid.z)) return err;
-  gemm_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      ry, img, tmp, h_out, w, h, 0LL, static_cast<long long>(h) * w,
-      static_cast<long long>(h_out) * w);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Cols pass: tmp [rows, w] (rows = n_img * h_out), rx [w_out, w] ->
-// out [rows, w_out]. Returns the cudaError_t of the launch.
-extern "C" int preba_resize_cols(const float* tmp, const float* rx, float* out,
-                                 int rows, int w, int w_out, void* stream) {
-  const dim3 grid((w_out + kBN - 1) / kBN, (rows + kBM - 1) / kBM, 1);
-  if (int err = launch_error(grid.x, grid.y, grid.z)) return err;
-  gemm_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tmp, rx, out, rows, w_out, w, 0LL, 0LL, 0LL);
+// img [n_img, h, w] -> out [n_img, h_out, w_out]; yidx/yw [h_out, 2] (int32,
+// float32) and xidx/xw [w_out, 2] are the taps of ops.resize_taps, columns in
+// [0, h) and [0, w) (others are clamped). All contiguous. Returns the
+// cudaError_t of the launch.
+extern "C" int preba_resize(const float* img, const int* yidx, const float* yw,
+                            const int* xidx, const float* xw, float* out, int n_img,
+                            int h, int w, int h_out, int w_out, void* stream) {
+  if (n_img <= 0 || h <= 0 || w <= 0 || h_out <= 0 || w_out <= 0 || n_img > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  int band = kMaxBand;
+  while (band > 1 && (static_cast<long long>((h_out + band - 1) / band) * n_img < kMinBlocks
+                      || smem_bytes(band, w, w_out) > kSmemDefault))
+    band /= 2;
+  const long long bytes = smem_bytes(band, w, w_out);
+  if (bytes > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = w % 4 == 0 && reinterpret_cast<unsigned long long>(img) % 16 == 0;
+  auto kernel = vec ? resize_kernel<true> : resize_kernel<false>;
+  if (bytes > kSmemDefault) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((h_out + band - 1) / band, n_img);
+  kernel<<<grid, kThreads, static_cast<size_t>(bytes), static_cast<cudaStream_t>(stream)>>>(
+      img, reinterpret_cast<const int2*>(yidx), reinterpret_cast<const float2*>(yw),
+      reinterpret_cast<const int2*>(xidx), reinterpret_cast<const float2*>(xw), out, h, w,
+      h_out, w_out, band);
   return static_cast<int>(cudaGetLastError());
 }

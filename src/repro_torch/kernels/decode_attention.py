@@ -7,11 +7,12 @@ heads share a KV head), the softmax of the fp32 scores q.k / sqrt(D) with
 positions at or past valid_len set to -1e30, times V, in fp32, cast to q's
 type. At valid_len == 0 every score is -1e30, so every position weighs the
 same and the output is the mean of V over the S positions. On a CUDA tensor
-it launches the hand-written Hopper kernel (csrc/decode_attention.cu, which
-replaces the TPU kernel
-src/repro/kernels/decode_attention.py::decode_attention_pallas); on a CPU
-tensor it runs the plain PyTorch version below. `LAUNCHES` counts kernel
-launches.
+it launches the hand-written Hopper kernel once (csrc/decode_attention.cu,
+which replaces the TPU kernel
+src/repro/kernels/decode_attention.py::decode_attention_pallas: a cluster
+of 8 blocks per KV head and sequence splits S and merges in one launch); on
+a CPU tensor it runs the plain PyTorch version below. `LAUNCHES` counts
+kernel launches.
 """
 from __future__ import annotations
 
@@ -74,17 +75,21 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and valid_len.is_contiguous()):
         raise ValueError("kernel takes contiguous tensors")
+    out = torch.empty_like(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("kernel takes q, k and v starting on 16 bytes (its "
+                         "16-byte copies read K and V rows in place)")
+    bf16 = int(q.dtype == torch.bfloat16)
     lib = build.library()
-    if lib.preba_decode_attention_smem_bytes(D, H // KH) > 227 * 1024:
+    if lib.preba_decode_attention_smem_bytes(D, H // KH, bf16) > 227 * 1024:
         raise ValueError(f"{H // KH} query heads a KV head exceed the kernel's "
                          f"shared memory at D={D}")
-    out = torch.empty_like(q)
     if B == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.preba_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      valid_len.data_ptr(), out.data_ptr(), B, H, KH, S,
-                                     D, int(q.dtype == torch.bfloat16), _scale(D), stream)
+                                     D, bf16, _scale(D), stream)
     build.check(err, "decode_attention")
     LAUNCHES += 1
     return out

@@ -13,6 +13,7 @@ import math
 from functools import lru_cache
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,6 +50,29 @@ def resize_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     """[n_out, n_in] bilinear weights (half-pixel centers) on device."""
     return torch.tensor(pp._resize_matrix(n_in, n_out), dtype=torch.float32,
                         device=device)
+
+
+@lru_cache(maxsize=None)
+def resize_taps(n_in: int, n_out: int,
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The taps of `resize_matrix`, built once per shape on the host: idx
+    [n_out, 2] int32, the columns of each row's non-zeros in ascending
+    order, and w [n_out, 2] float32, the matrix's entries there. A row with
+    one non-zero names its column twice, the second weight 0, so the taps
+    encode the matrix exactly. A row with more than two non-zeros raises."""
+    m = pp._resize_matrix(n_in, n_out)
+    idx = np.zeros((n_out, 2), np.int32)
+    w = np.zeros((n_out, 2), np.float32)
+    for o, row in enumerate(m):
+        cols = np.flatnonzero(row)
+        if len(cols) > 2:
+            raise ValueError(f"row {o} of the {n_in} -> {n_out} resize matrix has "
+                             f"{len(cols)} non-zeros; bilinear taps hold two")
+        if len(cols):
+            idx[o] = (cols[0], cols[-1])
+            w[o, 0] = row[cols[0]]
+            w[o, 1] = row[cols[1]] if len(cols) == 2 else 0.0
+    return (torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device))
 
 
 # --- batched audio (one kernel launch per same-shape request stack) ----------
@@ -135,10 +159,10 @@ def jpeg_decode_batch(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.Tenso
 
 
 def image_resize_batch(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """imgs: [N, H, W] -> [N, out_h, out_w] in two launches for the stack."""
-    ry = resize_matrix(imgs.shape[1], out_h, imgs.device)
-    rx = resize_matrix(imgs.shape[2], out_w, imgs.device)
-    return _resize(imgs.float().contiguous(), ry, rx)
+    """imgs: [N, H, W] -> [N, out_h, out_w] in one launch for the stack."""
+    ytaps = resize_taps(imgs.shape[1], out_h, imgs.device)
+    xtaps = resize_taps(imgs.shape[2], out_w, imgs.device)
+    return _resize(imgs.float().contiguous(), ytaps, xtaps)
 
 
 def center_crop_batch(imgs: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
@@ -159,8 +183,8 @@ def image_pipeline_batch(coeffs: torch.Tensor, qtable: torch.Tensor, *,
                          mean: float = 127.5, std: float = 64.0) -> torch.Tensor:
     """The whole JPEG front-end — dequantize+IDCT decode -> resize -> center
     crop -> normalize — for a same-shape coefficient stack [N, H/8, W/8, 8,
-    8] with one shared qtable: one launch of the IDCT, two of the resize and
-    one of the crop-normalize for the group (the DPU service's fused
+    8] with one shared qtable: one launch each of the IDCT, the resize and
+    the crop-normalize for the group (the DPU service's fused
     launch). The crop is read in place by the normalize kernel."""
     imgs = jpeg_decode_batch(coeffs, qtable)
     imgs = image_resize_batch(imgs, resize_to, resize_to)

@@ -12,7 +12,7 @@ import torch
 from numpy.testing import assert_allclose
 
 from repro_torch import kernels
-from repro_torch.kernels import audio_normalize, audio_resample, build, mel_spectrogram, ops
+from repro_torch.kernels import audio_normalize, audio_resample, build, mel_spectrogram, ops, ref
 from repro_torch.kernels import decode_attention, image_normalize, image_resize, jpeg_idct
 
 
@@ -96,11 +96,23 @@ def test_idct_kernel_matches_plain_on_card(cuda, shape):
 @pytest.mark.parametrize("n,hw,out", [(1, (256, 256), (256, 256)), (3, (320, 200), (112, 96)),
                                       (2, (512, 512), (256, 256)), (2, (70, 130), (257, 65))])
 def test_resize_kernel_matches_plain_on_card(cuda, n, hw, out):
+    """One launch for the stack, within 1e-4 of the plain two-tap gather
+    and of the dense products (ref.image_resize_ref): ragged rows (W % 4 !=
+    0) and upscaling with clamped edge taps in (70, 130) -> (257, 65)."""
     x = torch.from_numpy(np.random.default_rng(n).random((n, *hw), np.float32) * 255).to(cuda)
-    ry, rx = ops.resize_matrix(hw[0], out[0], cuda), ops.resize_matrix(hw[1], out[1], cuda)
-    assert_allclose(image_resize.image_resize_batch_kernel(x, ry, rx).cpu().numpy(),
-                    image_resize.image_resize_batch_plain(x, ry, rx).cpu().numpy(),
+    yt, xt = ops.resize_taps(hw[0], out[0], cuda), ops.resize_taps(hw[1], out[1], cuda)
+    kernels.reset_launch_counts()
+    got = image_resize.image_resize_batch_kernel(x, yt, xt)
+    assert kernels.launch_counts()["image_resize"] == 1
+    assert got.shape == (n, *out)
+    assert_allclose(got.cpu().numpy(),
+                    image_resize.image_resize_batch_plain(x, yt, xt).cpu().numpy(),
                     rtol=1e-4, atol=1e-4)
+    dense = ref.image_resize_ref(x, ops.resize_matrix(hw[0], out[0], cuda),
+                                 ops.resize_matrix(hw[1], out[1], cuda))
+    assert_allclose(got.cpu().numpy(), dense.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    one = image_resize.image_resize_batch_kernel(x[-1:].contiguous(), yt, xt)
+    assert torch.equal(one[0], got[-1])  # an image's result does not depend on N
 
 
 @pytest.mark.gpu
@@ -123,7 +135,7 @@ def test_image_pipeline_on_card_matches_cpu_and_counts_launches(cuda):
                                    torch.from_numpy(q).to(cuda)).cpu().numpy()
     assert kernels.launch_counts() == {
         "audio_resample": 0, "mel_spectrogram": 0, "audio_normalize": 0,
-        "jpeg_idct": 1, "image_resize": 2, "image_normalize": 1, "decode_attention": 0}
+        "jpeg_idct": 1, "image_resize": 1, "image_normalize": 1, "decode_attention": 0}
     want = ops.image_pipeline_batch(torch.from_numpy(c), torch.from_numpy(q)).numpy()
     assert got.shape == (3, 224, 224)
     assert_allclose(got, want, rtol=1e-3, atol=1e-2)
@@ -140,13 +152,17 @@ def test_image_wrappers_refuse_bad_inputs_on_card(cuda):
     with pytest.raises(ValueError):
         jpeg_idct.jpeg_idct_batch(c.transpose(3, 4), q)          # contiguity
     x = torch.zeros(2, 16, 16, device=cuda)
-    ry = torch.zeros(8, 16, device=cuda)
+    taps = ops.resize_taps(16, 8, cuda)
     with pytest.raises(TypeError):
-        image_resize.image_resize_batch(x.double(), ry.double(), ry.double())
+        image_resize.image_resize_batch(x.double(), taps, taps)
+    with pytest.raises(TypeError):
+        image_resize.image_resize_batch(x, (taps[0].long(), taps[1]), taps)
     with pytest.raises(ValueError):
-        image_resize.image_resize_batch(x[0], ry, ry)
+        image_resize.image_resize_batch(x[0], taps, taps)
     with pytest.raises(ValueError):
-        image_resize.image_resize_batch(x.transpose(1, 2), ry, ry)
+        image_resize.image_resize_batch(x.transpose(1, 2), taps, taps)
+    with pytest.raises(ValueError):
+        image_resize.image_resize_batch(x, (taps[0][:, :1], taps[1][:, :1]), taps)  # rank of taps
     with pytest.raises(TypeError):
         image_normalize.image_crop_normalize_batch(x.double(), 8, 8, 127.5, 64.0)
     with pytest.raises(ValueError):
@@ -212,6 +228,53 @@ def test_decode_attention_ignores_positions_past_valid_length_on_card(cuda):
     assert torch.equal(a, b) and torch.equal(a, c)
 
 
+BOUNDARY_VALID = (1, 63, 64, 65, 511, 512, 513)  # tiles of 64, cluster rounds of 8 x 64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [74, 2049])
+def test_decode_attention_at_tile_and_cluster_boundaries_on_card(cuda, s, d, dtype):
+    """valid_len on both sides of a 64-key tile and of a round of the 8-block
+    cluster (512 keys), and the whole ring, one row each; G = 8 as in
+    tinyllama."""
+    valid = [x for x in BOUNDARY_VALID if x < s] + [s]
+    q, k, v, vl = _decode_inputs((len(valid), 16, 2, d, s), dtype, cuda, seed=s + d,
+                                 valid=valid)
+    kernels.reset_launch_counts()
+    got = decode_attention.decode_attention_kernel(q, k, v, vl)
+    assert kernels.launch_counts()["decode_attention"] == 1
+    want = decode_attention.decode_attention_plain(q, k, v, vl)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_decode_attention_rows_spanning_the_cluster_ignore_S_and_B_on_card(cuda):
+    """Rows whose valid prefix spans several blocks of the cluster (300 keys:
+    5 blocks; 1,300: all 8, three of them twice) give the same bits at S =
+    1,536 and at S = 4,096 with noise past valid_len (NaN keys and infinite
+    values in row 0: the kernel never uses them), and alone as in a
+    batch."""
+    q, k, v, vl = _decode_inputs((2, 32, 4, 64, 1536), torch.bfloat16, cuda, seed=8,
+                                 valid=[300, 1300])
+    a = decode_attention.decode_attention_kernel(q, k, v, vl)
+    noise = torch.Generator(device=cuda).manual_seed(9)
+    longer = []
+    for t in (k, v):
+        t2 = torch.randn((2, 4096, 4, 64), generator=noise, device=cuda).to(t.dtype)
+        t2[:, :1536] = t
+        t2[0, 300:] = float("nan") if t is k else float("inf")
+        t2[1, 1300:] = 5.0
+        longer.append(t2)
+    b = decode_attention.decode_attention_kernel(q, *longer, vl)
+    c = torch.cat([decode_attention.decode_attention_kernel(
+        q[i:i + 1].contiguous(), k[i:i + 1].contiguous(), v[i:i + 1].contiguous(), vl[i:i + 1])
+        for i in range(2)])
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
 @pytest.mark.gpu
 def test_decode_attention_wrapper_refuses_bad_inputs_on_card(cuda):
     q, k, v, vl = _decode_inputs((2, 8, 4, 64, 64), torch.float32, cuda, seed=7)
@@ -224,6 +287,9 @@ def test_decode_attention_wrapper_refuses_bad_inputs_on_card(cuda):
                                           v[..., :48].contiguous(), vl)   # head size
     with pytest.raises(ValueError):
         decode_attention.decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), vl)
+    flat = torch.zeros(k.numel() + 1, dtype=k.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        decode_attention.decode_attention(q, flat[1:].view(k.shape), v, vl)  # misaligned
 
 
 @pytest.mark.gpu

@@ -41,7 +41,7 @@ from repro_torch.configs import reduced  # noqa: E402
 from repro_torch.core.dpu.runtime import DPU, DpuConfig, payload_error  # noqa: E402
 from repro_torch.core.dpu.service import DpuService, DpuServiceConfig  # noqa: E402
 from repro_torch.data import preprocess_cpu as pp  # noqa: E402
-from repro_torch.kernels import image_normalize, ops, ref  # noqa: E402
+from repro_torch.kernels import image_normalize, image_resize, ops, ref  # noqa: E402
 from repro_torch.models.params import from_reference  # noqa: E402
 from repro_torch.serving import requests as trequests  # noqa: E402
 from repro_torch.serving.engine import EngineConfig  # noqa: E402
@@ -98,6 +98,58 @@ def test_image_resize_batch_matches_reference(hw, out):
         assert_allclose(got[i], rpp.resize_bilinear(x[i], *out), rtol=1e-4, atol=1e-4)
         assert_allclose(got[i], ref.image_resize_ref(torch.from_numpy(x[i]), ry, rx).numpy(),
                         rtol=1e-4, atol=1e-4)
+
+
+# every (n_in, n_out) the port resizes (serve phases, the slice, the
+# pipeline tests) and the card tests use
+RESIZE_PAIRS = [(256, 256), (512, 256), (384, 256), (192, 256), (32, 256), (32, 32),
+                (320, 112), (200, 96), (70, 257), (130, 65), (7, 19)]
+
+
+@pytest.mark.parametrize("n_in,n_out", RESIZE_PAIRS)
+def test_resize_taps_rebuild_the_matrix_bit_for_bit(n_in, n_out):
+    idx, w = ops.resize_taps(n_in, n_out, torch.device("cpu"))
+    assert idx.dtype == torch.int32 and w.dtype == torch.float32
+    assert idx.shape == w.shape == (n_out, 2)
+    idx, w = idx.numpy(), w.numpy()
+    assert (idx[:, 0] <= idx[:, 1]).all() and (idx >= 0).all() and (idx < n_in).all()
+    assert (w[idx[:, 0] == idx[:, 1], 1] == 0).all()  # one non-zero: named twice, weight 0
+    dense = np.zeros((n_out, n_in), np.float32)
+    np.add.at(dense, (np.repeat(np.arange(n_out), 2), idx.ravel()), w.ravel())
+    m = pp._resize_matrix(n_in, n_out)
+    assert np.array_equal(dense, m)
+    assert np.array_equal(w[:, 0], m[np.arange(n_out), idx[:, 0]])
+
+
+def test_resize_taps_refuse_a_row_with_three_nonzeros(monkeypatch):
+    m = np.zeros((3, 5), np.float32)
+    m[0, :2] = 0.5
+    m[1, 1:4] = 1.0 / 3.0
+    m[2, 4] = 1.0
+    monkeypatch.setattr(pp, "_resize_matrix", lambda n_in, n_out: m)
+    with pytest.raises(ValueError, match="row 1"):
+        ops.resize_taps(5, 3, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("n,hw,out", [(1, (256, 256), (256, 256)), (3, (320, 200), (112, 96)),
+                                      (2, (512, 512), (256, 256)), (2, (70, 130), (257, 65)),
+                                      (2, (384, 512), (256, 256))])
+def test_resize_tap_plain_matches_dense_products_and_reference(n, hw, out):
+    """The plain two-tap gather (what the CPU path runs and what the kernel
+    computes) against the dense products of ref.image_resize_ref and the
+    JAX package's batched resize, at the card tests' and serve shapes:
+    upscaling with clamped edge taps (70 -> 257), ragged rows (W % 4 != 0)
+    and the non-integer scale 384 -> 256."""
+    x = _pixels((n, *hw), n + hw[0])
+    xt = torch.from_numpy(x)
+    got = image_resize.image_resize_batch_plain(
+        xt, ops.resize_taps(hw[0], out[0], xt.device), ops.resize_taps(hw[1], out[1], xt.device))
+    assert got.shape == (n, *out) and got.dtype == torch.float32
+    dense = ref.image_resize_ref(xt, ops.resize_matrix(hw[0], out[0], xt.device),
+                                 ops.resize_matrix(hw[1], out[1], xt.device))
+    assert_allclose(got.numpy(), dense.numpy(), rtol=1e-4, atol=1e-4)
+    want = np.asarray(rops.image_resize_batch(jnp.asarray(x), *out))
+    assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("mean,std", [(127.5, 64.0), (110.3, 57.1)])

@@ -138,7 +138,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     lambda t: mel_spectrogram.mel_spectrogram_batch(t(4, 512), t(512, 257), t(512, 257), t(257, 80)),
     lambda t: audio_normalize.audio_normalize_batch(t(2, 9, 80)),
     lambda t: jpeg_idct.jpeg_idct_batch(t(1, 2, 2, 8, 8), t(8, 8)),
-    lambda t: image_resize.image_resize_batch(t(2, 16, 16), t(8, 16), t(8, 16)),
+    lambda t: image_resize.image_resize_batch(t(2, 16, 16), (t(8, 2),) * 2, (t(8, 2),) * 2),
     lambda t: image_normalize.image_crop_normalize_batch(t(2, 16, 16), 8, 8, 127.5, 64.0),
 ])
 def test_non_cpu_tensor_never_falls_back(call):
