@@ -142,7 +142,7 @@ class BucketedBatcher:
             while len(bucket.queue) >= bmax:
                 out.append(self._form(key, bmax, now))
             t0 = bucket.oldest_ready_time()
-            if t0 is not None and now - t0 >= pol.time_queue:
+            if t0 is not None and now >= t0 + pol.time_queue:  # next_deadline, exactly
                 out.append(self._form(key, bmax, now))
         return [b for b in out if b is not None]
 

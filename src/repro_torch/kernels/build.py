@@ -34,7 +34,7 @@ _SIGNATURES = {
     # name: (argtypes, restype)
     "preba_resample": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "preba_resample_smem_bytes": ([_I, _I], _I),
-    "preba_mel": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "preba_mel": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "preba_mel_max_mels": ([], _I),
     "preba_normalize": ([_P, _P, _I, _I, _I, ctypes.c_float, _P], _I),
     "preba_normalize_smem_bytes": ([_I], _I),

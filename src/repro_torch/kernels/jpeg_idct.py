@@ -5,7 +5,9 @@
 + 128 over a same-shape coefficient stack: on a CUDA tensor it launches the
 hand-written Hopper kernel (csrc/jpeg_idct.cu, which replaces the TPU
 kernel src/repro/kernels/jpeg_idct.py::jpeg_idct_pallas and writes straight
-into image layout), on a CPU tensor it runs the plain PyTorch version below.
+into image layout, 16 bytes at a time: a coefficient stack that does not
+start on 16 bytes is refused), on a CPU tensor it runs the plain PyTorch
+version below.
 `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
@@ -53,6 +55,9 @@ def jpeg_idct_batch_kernel(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.
     out = torch.empty((n, 8 * by, 8 * bx), dtype=torch.float32, device=coeffs.device)
     if out.numel() == 0:
         return out
+    if coeffs.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("kernel reads and writes 16 bytes at a time: coeffs and out "
+                         "must start on 16 bytes")
     lib = build.library()
     basis = idct_basis(coeffs.device)
     stream = torch.cuda.current_stream(coeffs.device).cuda_stream

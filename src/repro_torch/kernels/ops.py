@@ -1,11 +1,11 @@
 """Public wrappers for the hand-written kernels: the DPU's, audio and
 image, and decode attention.
 
-The padding, zero-stuffing, framing, Hann window and n_fft zero-pad around
-the audio kernels, and the center crop outside the fused image pipeline,
-are plain torch, as the JAX package does them outside Pallas. Each wrapper
-runs where its input lies: CUDA tensors go through the Hopper kernels, CPU
-tensors through their plain versions.
+The padding and zero-stuffing around the resample kernel, and the center
+crop outside the fused image pipeline, are plain torch, as the JAX package
+does them outside Pallas; the mel kernel frames, windows and zero-pads the
+signal itself. Each wrapper runs where its input lies: CUDA tensors go
+through the Hopper kernels, CPU tensors through their plain versions.
 """
 from __future__ import annotations
 
@@ -25,17 +25,20 @@ from repro_torch.kernels.image_normalize import crop_origin
 from repro_torch.kernels.image_normalize import image_crop_normalize_batch as _crop_normalize
 from repro_torch.kernels.image_resize import image_resize_batch as _resize
 from repro_torch.kernels.jpeg_idct import jpeg_idct_batch as _idct
+from repro_torch.kernels.mel_spectrogram import fft_twiddles, mel_bands
 from repro_torch.kernels.mel_spectrogram import mel_spectrogram_batch as _mel
 
 
 @lru_cache(maxsize=None)
 def mel_constants(n_fft: int, frame: int, n_mels: int, sr: int,
                   device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """(hann [frame], cr [n_fft, F], ci [n_fft, F], fb [F, n_mels]) on device."""
-    cr, ci = pp.dft_matrices(n_fft)
-    fb = pp.mel_filterbank(n_mels, n_fft, sr).T
-    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
-                 for a in (pp.hann(frame), cr, ci, fb.copy()))
+    """(hann [frame], twiddles [n_fft, 2], weights [W], bands [n_mels, 3]
+    int32) on device: the mel kernel's window, FFT table and filterbank
+    bands, built once per configuration on the host."""
+    weights, bands = mel_bands(pp.mel_filterbank(n_mels, n_fft, sr))
+    return (torch.tensor(pp.hann(frame), dtype=torch.float32, device=device),
+            torch.from_numpy(fft_twiddles(n_fft)).to(device),
+            torch.from_numpy(weights).to(device), torch.from_numpy(bands).to(device))
 
 
 @lru_cache(maxsize=None)
@@ -101,19 +104,11 @@ def audio_resample_batch(x: torch.Tensor, up: int, down: int,
 def mel_spectrogram_batch(x: torch.Tensor, *, sr: int = 16000, n_fft: int = 512,
                           frame: int = 400, hop: int = 160,
                           n_mels: int = 80) -> torch.Tensor:
-    """x: [N, L] same-length mono stack -> log-mel [N, n_frames, n_mels]; the
-    framed stack flattens to [N*n_frames, n_fft], one launch for the batch."""
-    nsig, length = x.shape
-    if length < frame:
-        raise ValueError(f"signal of {length} samples is shorter than a {frame}-sample frame")
-    n = 1 + (length - frame) // hop
-    win, cr, ci, fb = mel_constants(n_fft, frame, n_mels, sr, x.device)
-    idx = (torch.arange(frame, device=x.device)[None, :]
-           + hop * torch.arange(n, device=x.device)[:, None])
-    frames = x.float()[:, idx] * win[None, None, :]
-    frames = F.pad(frames, (0, n_fft - frame))
-    out = _mel(frames.reshape(nsig * n, n_fft).contiguous(), cr, ci, fb)
-    return out.reshape(nsig, n, n_mels)
+    """x: [N, L] same-length mono stack -> log-mel [N, n_frames, n_mels]:
+    framing, window and zero-pad happen in the kernel, one launch for the
+    batch. n_fft is a power of two in [64, 2048]."""
+    win, tw, weights, bands = mel_constants(n_fft, frame, n_mels, sr, x.device)
+    return _mel(x.float().contiguous(), win, tw, weights, bands, hop)
 
 
 def audio_normalize_batch(feats: torch.Tensor) -> torch.Tensor:

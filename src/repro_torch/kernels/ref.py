@@ -4,10 +4,22 @@ the IDCT as one three-operand product, division by std)."""
 from __future__ import annotations
 
 import math
+from functools import lru_cache
+from typing import Tuple
 
 import torch
 
 from repro_torch.data import preprocess_cpu as pp
+
+
+@lru_cache(maxsize=None)
+def mel_dense_operands(n_fft: int, n_mels: int, sr: int,
+                       device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """(cr [n_fft, F], ci [n_fft, F], fb [F, n_mels]) on device: the dense
+    DFT bases and filterbank of the reference's three products."""
+    cr, ci = pp.dft_matrices(n_fft)
+    fb = pp.mel_filterbank(n_mels, n_fft, sr).T
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device) for a in (cr, ci, fb))
 
 
 def mel_spectrogram_ref(frames: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor,

@@ -37,11 +37,9 @@ def test_kernels_match_plain_on_card(cuda):
                     audio_resample.audio_resample_batch_plain(xp, h, 3).cpu().numpy(),
                     rtol=1e-4, atol=1e-5)
     y = ops.audio_resample_batch(x, 1, 3)
-    win, cr, ci, fb = ops.mel_constants(512, 400, 80, 16000, x.device)
-    idx = torch.arange(400, device=x.device)[None] + 160 * torch.arange(98, device=x.device)[:, None]
-    frames = torch.nn.functional.pad(y[:, idx] * win, (0, 112)).reshape(-1, 512).contiguous()
-    assert_allclose(mel_spectrogram.mel_spectrogram_batch_kernel(frames, cr, ci, fb).cpu().numpy(),
-                    mel_spectrogram.mel_spectrogram_batch_plain(frames, cr, ci, fb).cpu().numpy(),
+    consts = ops.mel_constants(512, 400, 80, 16000, x.device)
+    assert_allclose(mel_spectrogram.mel_spectrogram_batch_kernel(y, *consts, 160).cpu().numpy(),
+                    mel_spectrogram.mel_spectrogram_batch_plain(y, *consts, 160).cpu().numpy(),
                     rtol=2e-4, atol=2e-4)
     feats = ops.mel_spectrogram_batch(y)
     assert_allclose(audio_normalize.audio_normalize_batch_kernel(feats).cpu().numpy(),
@@ -75,6 +73,56 @@ def test_kernel_wrappers_refuse_bad_inputs_on_card(cuda):
     assert build.library_path().exists()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,length,n_fft,frame,hop,n_mels", [
+    (1, 16000, 512, 400, 160, 80), (16, 16000, 512, 400, 160, 80),      # chip_smoke's shapes
+    (1, 64000, 512, 400, 160, 80), (16, 64000, 512, 400, 160, 80),
+    (4, 16000, 512, 400, 160, 40), (3, 1360, 512, 400, 160, 80),        # n_mels 40; exact end
+    (5, 9000, 256, 200, 80, 40), (2, 12000, 1024, 1000, 256, 80),
+    (3, 3000, 64, 64, 32, 20), (2, 20000, 2048, 2048, 512, 128),        # the range's ends
+    (7, 4000, 128, 100, 50, 30)])
+def test_mel_kernel_matches_plain_on_card(cuda, n, length, n_fft, frame, hop, n_mels):
+    """One launch frames, transforms and filters the stack, within 2e-4 of
+    the plain version and of the dense products (ref.mel_spectrogram_ref,
+    in float64: in fp32 they are off the exact log-mel by more than 2e-4
+    where a band's power nears 0, as the DC bin's does in some frames)."""
+    y = torch.from_numpy(_signals(n, seed=n_fft + n, length=length)).to(cuda)
+    consts = ops.mel_constants(n_fft, frame, n_mels, 16000, cuda)
+    kernels.reset_launch_counts()
+    got = mel_spectrogram.mel_spectrogram_batch_kernel(y, *consts, hop)
+    assert kernels.launch_counts()["mel_spectrogram"] == 1
+    assert got.shape == (n, 1 + (length - frame) // hop, n_mels)
+    assert_allclose(got.cpu().numpy(),
+                    mel_spectrogram.mel_spectrogram_batch_plain(y, *consts, hop).cpu().numpy(),
+                    rtol=2e-4, atol=2e-4)
+    cr, ci, fb = ref.mel_dense_operands(n_fft, n_mels, 16000, cuda)
+    frames = mel_spectrogram.frames(y, consts[0], hop, n_fft).double()
+    dense = ref.mel_spectrogram_ref(frames, cr.double(), ci.double(), fb.double())
+    assert_allclose(got.reshape(-1, n_mels).cpu().numpy(), dense.cpu().numpy(),
+                    rtol=2e-4, atol=2e-4)
+    one = mel_spectrogram.mel_spectrogram_batch_kernel(y[-1:].contiguous(), *consts, hop)
+    assert torch.equal(one[0], got[-1])  # a signal's result does not depend on N
+
+
+@pytest.mark.gpu
+def test_mel_wrapper_refuses_bad_inputs_on_card(cuda):
+    y = torch.zeros(2, 4000, device=cuda)
+    win, tw, w, bands = ops.mel_constants(512, 400, 80, 16000, cuda)
+    with pytest.raises(ValueError, match="power of two"):
+        mel_spectrogram.mel_spectrogram_batch(y, win, tw[:500].contiguous(), w, bands, 160)
+    with pytest.raises(ValueError, match="power of two"):
+        mel_spectrogram.mel_spectrogram_batch(y, win, torch.zeros(4096, 2, device=cuda), w,
+                                              bands, 160)
+    with pytest.raises(TypeError):
+        mel_spectrogram.mel_spectrogram_batch(y.double(), win, tw, w, bands, 160)
+    with pytest.raises(ValueError):
+        mel_spectrogram.mel_spectrogram_batch(y[:, ::2], win, tw, w, bands, 160)   # layout
+    with pytest.raises(ValueError):
+        mel_spectrogram.mel_spectrogram_batch(y, torch.zeros(600, device=cuda), tw, w, bands, 160)
+    with pytest.raises(ValueError):
+        mel_spectrogram.mel_spectrogram_batch(y[:, :300].contiguous(), win, tw, w, bands, 160)
+
+
 def _coeffs(shape, seed):
     return np.random.default_rng(seed).integers(-32, 32, shape).astype(np.float32)
 
@@ -84,12 +132,27 @@ def _qtable(seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 1, 1, 8, 8), (1, 27, 19, 8, 8), (4, 64, 64, 8, 8)])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 8, 8), (1, 27, 19, 8, 8), (4, 64, 64, 8, 8),
+                                   (3, 7, 5, 8, 8)])
 def test_idct_kernel_matches_plain_on_card(cuda, shape):
     c = torch.from_numpy(_coeffs(shape, sum(shape))).to(cuda)
     q = torch.from_numpy(_qtable()).to(cuda)
     assert_allclose(jpeg_idct.jpeg_idct_batch_kernel(c, q).cpu().numpy(),
                     jpeg_idct.jpeg_idct_batch_plain(c, q).cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_idct_refuses_misaligned_coefficients_on_card(cuda):
+    """The kernel reads 16 bytes at a time: a coefficient view 4 bytes off
+    a 16-byte boundary is refused, never decoded by another path."""
+    flat = torch.zeros(2 * 3 * 64 + 1, device=cuda)
+    c = flat[1:].view(1, 2, 3, 8, 8)
+    assert c.is_contiguous() and c.data_ptr() % 16 == 4
+    q = torch.ones(8, 8, device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        jpeg_idct.jpeg_idct_batch(c, q)
+    assert kernels.launch_counts()["jpeg_idct"] == 0
 
 
 @pytest.mark.gpu

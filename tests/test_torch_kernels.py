@@ -89,13 +89,69 @@ def test_mel_batch_matches_reference(n):
 
 @pytest.mark.parametrize("n_mels", [40, 80])
 def test_mel_plain_matches_oracle(n_mels):
+    """The plain version (framing, Stockham FFT, split, band sums) against
+    the dense three products on the same frames (ref.mel_spectrogram_ref)."""
     rng = np.random.default_rng(n_mels)
-    frames = torch.from_numpy(rng.standard_normal((37, 512)).astype(np.float32))
-    cr, ci = (torch.tensor(a) for a in pp.dft_matrices(512))
-    fb = torch.from_numpy(pp.mel_filterbank(n_mels, 512, 16000).T.copy())
-    got = mel_spectrogram.mel_spectrogram_batch(frames, cr, ci, fb)
-    assert_allclose(got.numpy(), ref.mel_spectrogram_ref(frames, cr, ci, fb).numpy(),
-                    rtol=2e-4, atol=2e-4)
+    y = torch.from_numpy(rng.standard_normal((3, 1700)).astype(np.float32))
+    for n_fft, frame in ((256, 200), (512, 400)):
+        win, tw, w, bands = ops.mel_constants(n_fft, frame, n_mels, 16000, torch.device("cpu"))
+        got = mel_spectrogram.mel_spectrogram_batch(y, win, tw, w, bands, 160)
+        assert got.shape == (3, 1 + (1700 - frame) // 160, n_mels)
+        cr, ci, fb = ref.mel_dense_operands(n_fft, n_mels, 16000, torch.device("cpu"))
+        want = ref.mel_spectrogram_ref(mel_spectrogram.frames(y, win, 160, n_fft), cr, ci, fb)
+        assert_allclose(got.reshape(-1, n_mels).numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("n_mels", [40, 80])
+@pytest.mark.parametrize("n_fft,frame,hop", [(256, 200, 80), (512, 400, 160)])
+@pytest.mark.parametrize("n", [1, 3])
+def test_mel_sweep_matches_jax(n, n_fft, frame, hop, n_mels):
+    """ops.mel_spectrogram_batch against the JAX package's (Pallas in
+    interpret mode) across N, n_mels and n_fft; at N = 1 the last frame
+    ends exactly at the signal's end."""
+    length = frame + 7 * hop + (0 if n == 1 else 37)
+    y = _signals(n, seed=n_fft + n_mels + n, length=length)
+    kw = dict(n_fft=n_fft, frame=frame, hop=hop, n_mels=n_mels)
+    got = ops.mel_spectrogram_batch(torch.from_numpy(y), **kw).numpy()
+    want = np.asarray(rops.mel_spectrogram_batch(jnp.asarray(y), **kw))
+    assert got.shape == want.shape == (n, 8, n_mels)
+    assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024, 2048])
+def test_mel_fft_passes_match_torch_fft(n_fft):
+    """The plain version's Stockham passes (radix 8, then 4 or 2) are an
+    FFT of n_fft / 2 points."""
+    z = torch.from_numpy(np.random.default_rng(n_fft).standard_normal((3, n_fft // 2, 2))
+                         .astype(np.float32))
+    z = torch.complex(z[..., 0], z[..., 1])
+    tw = torch.from_numpy(mel_spectrogram.fft_twiddles(n_fft))
+    got = mel_spectrogram._stockham(z, torch.complex(tw[:, 0], tw[:, 1]))
+    assert np.prod(mel_spectrogram.fft_radices(n_fft // 2)) == n_fft // 2
+    assert_allclose(got.numpy(), torch.fft.fft(z).numpy(), rtol=1e-4, atol=1e-4 * np.sqrt(n_fft))
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(64, 20), (256, 40), (512, 80), (2048, 128)])
+def test_mel_constants_reproduce_dense_matrices(n_fft, n_mels):
+    """The twiddle table is row 1 of the DFT bases, bit for bit, and the
+    band weights scattered back are the filterbank, bit for bit."""
+    tw = mel_spectrogram.fft_twiddles(n_fft)
+    cr, ci = pp.dft_matrices(n_fft)
+    assert np.array_equal(tw[:n_fft // 2 + 1, 0], cr[1]) and np.array_equal(tw[:n_fft // 2 + 1, 1], ci[1])
+    fb = pp.mel_filterbank(n_mels, n_fft, 16000)
+    w, bands = mel_spectrogram.mel_bands(fb)
+    dense = np.zeros_like(fb)
+    for m, (lo, hi, off) in enumerate(bands):
+        assert lo <= hi <= n_fft // 2 + 1
+        dense[m, lo:hi] = w[off:off + hi - lo]
+    assert np.array_equal(dense, fb)
+    assert bands[-1, 2] + bands[-1, 1] - bands[-1, 0] == len(w)
+
+
+@pytest.mark.parametrize("n_fft", [32, 500, 4096])
+def test_mel_refuses_unsupported_n_fft(n_fft):
+    with pytest.raises(ValueError, match="power of two"):
+        ops.mel_spectrogram_batch(torch.zeros(1, 4096), n_fft=n_fft, frame=32, hop=16)
 
 
 @pytest.mark.parametrize("n", [1, 3])
@@ -135,7 +191,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 @pytest.mark.parametrize("call", [
     lambda t: audio_resample.audio_resample_batch(t(2, 400), t(144), 3),
-    lambda t: mel_spectrogram.mel_spectrogram_batch(t(4, 512), t(512, 257), t(512, 257), t(257, 80)),
+    lambda t: mel_spectrogram.mel_spectrogram_batch(t(2, 1000), t(400), t(512, 2), t(425),
+                                                    t(80, 3), 160),
     lambda t: audio_normalize.audio_normalize_batch(t(2, 9, 80)),
     lambda t: jpeg_idct.jpeg_idct_batch(t(1, 2, 2, 8, 8), t(8, 8)),
     lambda t: image_resize.image_resize_batch(t(2, 16, 16), (t(8, 2),) * 2, (t(8, 2),) * 2),
