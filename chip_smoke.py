@@ -16,7 +16,12 @@ Phases, each fatal on failure:
    call (CUDA events; each sample is one call queued behind a spin kernel,
    so host overhead is not timed; median of 25 after warm-up). bound_ms is
    the larger of bytes / 3.35 TB/s and fp32 operations / 67 TFLOP/s (H100
-   SXM data-sheet peaks). The mel kernel takes the resampled signal and
+   SXM data-sheet peaks). The resample kernel reads the unpadded stack and
+   zero-pads it itself (pad_left = 72); its library call, F.conv1d with
+   padding 72 on the same stack, is checked once against the plain
+   version; it is also timed cold (cold_ms, as mel's below) and through
+   the serve path's whole call, ops.audio_resample_batch on the unpadded
+   stack (path_ms). Its bound counts the unpadded signal. The mel kernel takes the resampled signal and
    frames it itself (one launch: a shared-memory FFT, then each filter's
    band of bins); it is also held against the reference's dense products
    (kernels/ref.py) evaluated in float64, and the fp32 dense products'
@@ -40,8 +45,10 @@ Phases, each fatal on failure:
 5. image kernels — at N in {1, 16} images of 256 x 256 and 512 x 512, and
    N in {1, 4} of 384 x 512 (the per-FU group of phase 6), holds the IDCT,
    resize (to 256 x 256) and crop-normalize (224 x 224) kernels against
-   their plain versions and times them as phase 3 does; the IDCT also
-   cold (cold_ms, as mel's). Resize's library
+   their plain versions and times them as phase 3 does; the IDCT and
+   crop-normalize also cold (cold_ms, as mel's). Crop-normalize must equal
+   its plain version bit for bit (a subtract, then a multiply, each rounded
+   in fp32). Resize's library
    call is F.interpolate (bilinear, align_corners=False, no antialias),
    checked once against the plain version at each shape. The resize kernel
    (one launch, a two-tap gather) is also held against the dense products
@@ -229,18 +236,26 @@ def kernel_phase(torch, F):
     rows = []
     for n, length in SHAPES:
         x = torch.randn((n, length), generator=gen, device=dev)
-        xp = F.pad(x, (taps // 2, taps)).contiguous()
+        pad = taps // 2
         n_out = (length + 2) // 3
-        # resample
-        y = kr.audio_resample_batch_kernel(xp, h, 3, n_out)
-        want = kr.audio_resample_batch_plain(xp, h, 3, n_out)
+        # resample: the kernel reads the unpadded stack and pads it itself
+        y = kr.audio_resample_batch_kernel(x, h, 3, n_out, pad)
+        want = kr.audio_resample_batch_plain(x, h, 3, n_out, pad)
+
+        def conv():
+            return F.conv1d(x[:, None], h[None, None], stride=3, padding=pad)[:, 0, :n_out]
+
         row = dict(name="audio_resample", n=n, L=length,
-                   err=errors(torch, "audio_resample", y, want))
-        row["ms"] = time_ms(torch, lambda: kr.audio_resample_batch_kernel(xp, h, 3, n_out))
-        row["plain_ms"] = time_ms(torch, lambda: kr.audio_resample_batch_plain(xp, h, 3, n_out))
-        row["library_ms"] = time_ms(
-            torch, lambda: F.conv1d(xp[:, None], h[None, None], stride=3)[:, 0, :n_out])
-        row["bytes"] = 4 * (xp.numel() + taps + n * n_out)
+                   err=errors(torch, "audio_resample", y, want),
+                   library_err=errors(torch, "audio_resample", conv(), want))
+        row["ms"] = time_ms(torch, lambda: kr.audio_resample_batch_kernel(x, h, 3, n_out, pad))
+        row["cold_ms"] = time_ms(
+            torch, lambda: kr.audio_resample_batch_kernel(x, h, 3, n_out, pad), flush=flush)
+        row["path_ms"] = time_ms(torch, lambda: ops.audio_resample_batch(x, 1, 3))
+        row["plain_ms"] = time_ms(
+            torch, lambda: kr.audio_resample_batch_plain(x, h, 3, n_out, pad))
+        row["library_ms"] = time_ms(torch, conv)
+        row["bytes"] = 4 * (x.numel() + taps + n * n_out)
         row["flops"] = 2 * taps * n * n_out
         rows.append(row)
         # mel, on the kernel's resampled signal (the kernel frames it)
@@ -307,6 +322,14 @@ def kernel_phase(torch, F):
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         extra = ""
+        if "path_ms" in row:
+            lib_abs, _, lib_ok = row.pop("library_err")
+            row["library_max_abs_err"] = lib_abs
+            extra = (f" cold_ms={row['cold_ms']:.4f} path_ms={row['path_ms']:.4f} "
+                     f"library_err={lib_abs:.3e}")
+            if not lib_ok:
+                fail(f"F.conv1d differs from the plain resample at N={row['n']} "
+                     f"L={row['L']} beyond {TOL['audio_resample']}")
         if "dense_err" in row:
             dense_abs, _, dense_ok = row.pop("dense_err")
             row["dense_max_abs_err"] = dense_abs
@@ -489,13 +512,16 @@ def image_kernel_phase(torch, F, np):
                                   + n * RESIZE_TO * RESIZE_TO)
         row["dense_flops"] = 2 * n * (RESIZE_TO * h * w + RESIZE_TO * w * RESIZE_TO)
         rows.append(row)
-        # crop-normalize, on the kernel's resized images
+        # crop-normalize, on the kernel's resized images: bit for bit
         y = kin.image_crop_normalize_batch_kernel(z, CROP_TO, CROP_TO, MEAN, STD)
         want = kin.image_crop_normalize_batch_plain(z, CROP_TO, CROP_TO, MEAN, STD)
         row = dict(name="image_normalize", **tag,
-                   err=errors(torch, "image_normalize", y, want))
+                   err=errors(torch, "image_normalize", y, want),
+                   bits_equal=bool(torch.equal(y, want)))
         row["ms"] = time_ms(torch, lambda: kin.image_crop_normalize_batch_kernel(
             z, CROP_TO, CROP_TO, MEAN, STD))
+        row["cold_ms"] = time_ms(torch, lambda: kin.image_crop_normalize_batch_kernel(
+            z, CROP_TO, CROP_TO, MEAN, STD), flush=flush)
         row["plain_ms"] = time_ms(torch, lambda: kin.image_crop_normalize_batch_plain(
             z, CROP_TO, CROP_TO, MEAN, STD))
         row["library_ms"] = None  # no single PyTorch call crops and normalizes
@@ -511,6 +537,8 @@ def image_kernel_phase(torch, F, np):
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         extra = f" cold_ms={row['cold_ms']:.4f}" if "cold_ms" in row else ""
+        if "bits_equal" in row:
+            extra += f" bits_equal={row['bits_equal']}"
         if "library_err" in row:
             lib_abs, _, lib_ok = row.pop("library_err")
             dense_abs, _, dense_ok = row.pop("dense_err")
@@ -535,6 +563,9 @@ def image_kernel_phase(torch, F, np):
         if not ok:
             fail(f"{row['name']} N={row['n']} {row['H']}x{row['W']} disagrees with its "
                  f"plain version beyond rtol/atol {TOL[row['name']]}")
+        if not row.get("bits_equal", True):
+            fail(f"{row['name']} N={row['n']} {row['H']}x{row['W']} is not bit for bit "
+                 f"equal to its plain version")
     return rows
 
 

@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "preba_resample": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "preba_resample_smem_bytes": ([_I, _I], _I),
+    "preba_resample": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    "preba_resample_smem_bytes": ([_I, _I, _I, _I], _I),
     "preba_mel": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "preba_mel_max_mels": ([], _I),
     "preba_normalize": ([_P, _P, _I, _I, _I, ctypes.c_float, _P], _I),
@@ -42,6 +42,7 @@ _SIGNATURES = {
     "preba_resize": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "preba_crop_normalize": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                               ctypes.c_float, _P], _I),
+    "preba_crop_normalize_vectorized": ([_P, _P, _I, _I, _I], _I),
     "preba_decode_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 ctypes.c_float, _P], _I),
     "preba_decode_attention_smem_bytes": ([_I, _I, _I], _I),

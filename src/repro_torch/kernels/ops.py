@@ -1,10 +1,11 @@
 """Public wrappers for the hand-written kernels: the DPU's, audio and
 image, and decode attention.
 
-The padding and zero-stuffing around the resample kernel, and the center
-crop outside the fused image pipeline, are plain torch, as the JAX package
-does them outside Pallas; the mel kernel frames, windows and zero-pads the
-signal itself. Each wrapper runs where its input lies: CUDA tensors go
+The zero-stuffing before the resample kernel (up > 1, not on the served
+1:3 path) and the center crop outside the fused image pipeline are plain
+torch, as the JAX package does them outside Pallas; the resample kernel
+zero-pads the signal itself, and the mel kernel frames, windows and
+zero-pads it. Each wrapper runs where its input lies: CUDA tensors go
 through the Hopper kernels, CPU tensors through their plain versions.
 """
 from __future__ import annotations
@@ -15,7 +16,6 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.data import preprocess_cpu as pp
 from repro_torch.kernels.audio_normalize import audio_normalize_batch as _normalize
@@ -83,7 +83,9 @@ def resize_taps(n_in: int, n_out: int,
 
 def audio_resample_batch(x: torch.Tensor, up: int, down: int,
                          num_taps: int = 48) -> torch.Tensor:
-    """x: [N, L] same-length stack; rational resample in one kernel launch."""
+    """x: [N, L] same-length stack; rational resample in one kernel launch,
+    which reads the signal as padded by taps // 2 zeros on the left (and
+    zeros past its end), as the reference pads it."""
     g = math.gcd(up, down)
     up, down = up // g, down // g
     if up == 1 and down == 1:
@@ -95,10 +97,8 @@ def audio_resample_batch(x: torch.Tensor, up: int, down: int,
         xu[:, ::up] = x
     else:
         xu = x.float()
-    taps = h.shape[0]
-    xp = F.pad(xu, (taps // 2, taps)).contiguous()
     n_out = (xu.shape[1] + down - 1) // down
-    return _resample(xp, h, down, n_out)
+    return _resample(xu.contiguous(), h, down, n_out, pad_left=h.shape[0] // 2)
 
 
 def mel_spectrogram_batch(x: torch.Tensor, *, sr: int = 16000, n_fft: int = 512,

@@ -73,6 +73,70 @@ def test_kernel_wrappers_refuse_bad_inputs_on_card(cuda):
     assert build.library_path().exists()
 
 
+def _taps(n, seed):
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32) / n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps", [48, 144, 192])
+@pytest.mark.parametrize("down", [2, 3, 4])
+@pytest.mark.parametrize("pad_left", [0, 72])
+@pytest.mark.parametrize("n", [1, 3, 16])
+def test_resample_kernel_matches_plain_on_card(cuda, n, pad_left, down, taps):
+    """One launch, within 1e-4 of the plain version, at a length whose last
+    tile is partial at every down and tile size; a signal's result does not
+    depend on N (nor on the tile plan N selects)."""
+    length = 9601
+    x = torch.from_numpy(_signals(n, seed=n * down + taps, length=length)).to(cuda)
+    h = torch.from_numpy(_taps(taps, down)).to(cuda)
+    n_out = (length + down - 1) // down
+    kernels.reset_launch_counts()
+    got = audio_resample.audio_resample_batch_kernel(x, h, down, n_out, pad_left)
+    assert kernels.launch_counts()["audio_resample"] == 1
+    assert got.shape == (n, n_out)
+    want = audio_resample.audio_resample_batch_plain(x, h, down, n_out, pad_left)
+    assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    one = audio_resample.audio_resample_batch_kernel(x[-1:].contiguous(), h, down, n_out,
+                                                     pad_left)
+    assert torch.equal(one[0], got[-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,length,down,taps", [
+    (1, 48000, 3, 144), (16, 48001, 3, 144), (16, 96001, 3, 144), (1, 192000, 3, 144),
+    (16, 192001, 3, 144), (16, 48001, 1, 48), (16, 192001, 2, 96), (16, 192001, 4, 192),
+    (3, 4801, 1, 48), (2, 4801, 5, 240)])
+def test_resample_kernel_tile_plans_on_card(cuda, n, length, down, taps):
+    """The serve rate at the sizes that select each tile plan (R = 3 or 9
+    outputs a thread, 32-128 threads a block), down = 1, and a down the
+    kernel does not compile (one output a thread), all padding themselves
+    by taps // 2, against the plain version; n_out up to (L + pad) // down
+    + 1, whose last windows read zeros past the end."""
+    x = torch.from_numpy(_signals(n, seed=length + down, length=length)).to(cuda)
+    h = torch.from_numpy(_taps(taps, taps)).to(cuda)
+    pad = taps // 2
+    got = audio_resample.audio_resample_batch_kernel(x, h, down, pad_left=pad)
+    assert got.shape == (n, (length + pad) // down + 1)
+    want = audio_resample.audio_resample_batch_plain(x, h, down, pad_left=pad)
+    assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_resample_path_launches_only_the_kernel_on_card(cuda):
+    """ops.audio_resample_batch hands the unpadded stack to the kernel: one
+    resample launch and nothing else the counters see, equal bit for bit to
+    the kernel with pad_left = 72 and within 1e-4 of the CPU path."""
+    x = _signals(16, seed=43)
+    xc = torch.from_numpy(x).to(cuda)
+    kernels.reset_launch_counts()
+    got = ops.audio_resample_batch(xc, 1, 3)
+    assert kernels.launch_counts() == {k: int(k == "audio_resample") for k in kernels.KERNELS}
+    h = ops.resample_taps(1, 3, 48, cuda)
+    assert torch.equal(got, audio_resample.audio_resample_batch_kernel(xc, h, 3, 16000, 72))
+    assert_allclose(got.cpu().numpy(), ops.audio_resample_batch(torch.from_numpy(x), 1, 3).numpy(),
+                    rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,length,n_fft,frame,hop,n_mels", [
     (1, 16000, 512, 400, 160, 80), (16, 16000, 512, 400, 160, 80),      # chip_smoke's shapes
@@ -179,15 +243,41 @@ def test_resize_kernel_matches_plain_on_card(cuda, n, hw, out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,hw,crop", [(2, (256, 256), (224, 224)), (3, (224, 224), (224, 224)),
-                                       (1, (97, 130), (33, 101))])
-def test_crop_normalize_kernel_matches_plain_on_card(cuda, n, hw, crop):
+@pytest.mark.parametrize("n,hw,crop,vector", [
+    (2, (256, 256), (224, 224), True), (16, (256, 256), (224, 224), True),
+    (3, (224, 224), (224, 224), True), (1, (97, 130), (33, 101), False)])
+def test_crop_normalize_kernel_matches_plain_on_card(cuda, n, hw, crop, vector):
+    """One launch, equal to the plain version bit for bit (a subtract, then
+    a multiply, each rounded in fp32), on the 16-byte path (256 -> 224, the
+    serve shape; the uncropped stack) and on the scalar path (an odd crop
+    origin and width)."""
     x = torch.from_numpy(np.random.default_rng(n).random((n, *hw), np.float32) * 255).to(cuda)
+    x0 = image_normalize.crop_origin(*hw, *crop)[1]
     for mean, std in ((127.5, 64.0), (110.3, 57.1)):
-        assert_allclose(
-            image_normalize.image_crop_normalize_batch_kernel(x, *crop, mean, std).cpu().numpy(),
-            image_normalize.image_crop_normalize_batch_plain(x, *crop, mean, std).cpu().numpy(),
-            rtol=1e-5, atol=1e-5)
+        kernels.reset_launch_counts()
+        got = image_normalize.image_crop_normalize_batch_kernel(x, *crop, mean, std)
+        assert kernels.launch_counts()["image_normalize"] == 1
+        assert torch.equal(got, image_normalize.image_crop_normalize_batch_plain(
+            x, *crop, mean, std))
+        assert build.library().preba_crop_normalize_vectorized(
+            x.data_ptr(), got.data_ptr(), hw[1], x0, crop[1]) == vector
+
+
+@pytest.mark.gpu
+def test_crop_normalize_off_16_bytes_takes_the_scalar_path_on_card(cuda):
+    """A contiguous stack whose storage starts one float past a 16-byte
+    boundary: the same launch, scalar, still bit for bit."""
+    flat = torch.from_numpy(np.random.default_rng(5).random(2 * 256 * 256 + 1, np.float32)
+                            * 255).to(cuda)
+    x = flat[1:].view(2, 256, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    kernels.reset_launch_counts()
+    got = image_normalize.image_crop_normalize_batch_kernel(x, 224, 224, 127.5, 64.0)
+    assert kernels.launch_counts()["image_normalize"] == 1
+    assert not build.library().preba_crop_normalize_vectorized(
+        x.data_ptr(), got.data_ptr(), 256, 16, 224)
+    assert torch.equal(got, image_normalize.image_crop_normalize_batch_plain(
+        x, 224, 224, 127.5, 64.0))
 
 
 @pytest.mark.gpu

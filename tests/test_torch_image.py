@@ -174,6 +174,26 @@ def test_crop_normalize_reads_the_centered_window():
         image_normalize.crop_origin(200, 200, 224, 224)
 
 
+@pytest.mark.parametrize("n,hw,crop", [(1, (97, 130), (33, 101)), (3, (30, 37), (21, 22))])
+def test_crop_normalize_plain_at_an_unaligned_crop(n, hw, crop):
+    """Crops whose origin and width are not multiples of 4 (the card
+    kernel's scalar path): the plain version still reads the centered
+    window, as the reference's numpy chain does, and equals the slice then
+    subtract then multiply in fp32 bit for bit."""
+    x = _pixels((n, *hw), 7 + n)
+    got = image_normalize.image_crop_normalize_batch(torch.from_numpy(x), *crop, 110.3, 57.1)
+    assert got.shape == (n, *crop)
+    y0, x0 = image_normalize.crop_origin(*hw, *crop)
+    assert x0 % 4 or crop[1] % 4
+    win = x[:, y0:y0 + crop[0], x0:x0 + crop[1]]
+    want = (win - np.float32(110.3)) * np.float32(1.0 / 57.1)
+    assert np.array_equal(got.numpy(), want)
+    for i in range(n):
+        assert_allclose(got[i].numpy(),
+                        rpp.normalize_image(rpp.center_crop(x[i], *crop), 110.3, 57.1),
+                        rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("n,by,bx", [(1, 32, 32), (3, 24, 32)])
 def test_image_pipeline_batch_matches_reference(n, by, bx):
     c, q = _coeffs((n, by, bx, 8, 8), 40 + n), _qtable(2)

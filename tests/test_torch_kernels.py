@@ -77,6 +77,45 @@ def test_resample_single_matches_numpy(down):
 
 
 @pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("length", [97, 1000, 48001])
+def test_resample_plain_pads_the_signal_itself(n, length):
+    """pad_left = taps // 2 on the unpadded stack is the reference's padding
+    (72 zeros left, 144 right) then its plain oracle, at lengths that leave
+    the kernel's tiles partial."""
+    x = _signals(n, seed=length + n, length=length)
+    h = torch.tensor(rpp.fir_lowpass(48 * 3, 1.0 / 3), dtype=torch.float32)
+    n_out = (length + 2) // 3
+    got = audio_resample.audio_resample_batch_plain(torch.from_numpy(x), h, 3, n_out,
+                                                    pad_left=72)
+    assert got.shape == (n, n_out)
+    assert_allclose(got.numpy(), _ref_resample(x), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("down,taps", [(2, 48), (3, 144), (4, 192)])
+def test_resample_plain_without_pad_left_is_the_plain_fir(down, taps):
+    """pad_left = 0 on a pre-padded stack is y[i] = sum_k h[k] xp[i*down + k]
+    exactly, for every output whose window lies in the stack; n_out may
+    reach (L + pad_left) // down + 1, the windows past the end reading
+    zeros."""
+    xp = torch.from_numpy(_signals(3, seed=taps, length=1301))
+    h = torch.from_numpy(np.random.default_rng(down).standard_normal(taps).astype(np.float32))
+    n = (xp.shape[1] - taps) // down + 1
+    want = (xp.unfold(1, taps, down)[:, :n] * h).sum(-1)
+    assert torch.equal(audio_resample.audio_resample_batch_plain(xp, h, down, n), want)
+    full = audio_resample.audio_resample_batch(xp, h, down)
+    assert full.shape == (3, xp.shape[1] // down + 1)
+    assert torch.equal(full[:, :n], want)
+    last = (full.shape[1] - 1) * down  # the last window starts here and runs past the end
+    tail = xp[:, last:]
+    assert_allclose(full[:, -1].numpy(), (tail * h[:tail.shape[1]]).sum(-1).numpy(),
+                    rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="n_out"):
+        audio_resample.audio_resample_batch(xp, h, down, xp.shape[1] // down + 2)
+    with pytest.raises(ValueError, match="pad_left"):
+        audio_resample.audio_resample_batch(xp, h, down, pad_left=-1)
+
+
+@pytest.mark.parametrize("n", [1, 3])
 def test_mel_batch_matches_reference(n):
     y = _signals(n, seed=10 + n, length=L // 3)
     got = ops.mel_spectrogram_batch(torch.from_numpy(y)).numpy()
