@@ -10,7 +10,8 @@ Phases, each fatal on failure:
 2. build   — compiles the DPU kernels from src/repro_torch/kernels/csrc
    with nvcc (sm_90a) and loads them.
 3. kernels — at the main path's shapes (N in {1, 16} signals of
-   L in {48,000, 192,000} samples) holds each kernel against its plain
+   L in {48,000, 192,000, 1,440,000} samples: 1, 4 and 30 s at 48 kHz,
+   T = 98, 398 and 2,998 feature frames) holds each kernel against its plain
    PyTorch version on the same inputs, and times the kernel, the plain
    version and, where one PyTorch call computes the same function, that
    call (CUDA events; each sample is one call queued behind a spin kernel,
@@ -33,7 +34,14 @@ Phases, each fatal on failure:
    weights, output) and its own work (window, a real FFT of 5 n/2 log2 n
    operations a frame, power, band sums, log). Its cold_ms is timed with
    each sample preceded by a write of a 128 MB buffer, which flushes the
-   50 MB L2.
+   50 MB L2. The normalize kernel (a thread block cluster an utterance)
+   takes the mel kernel's features, whose band 2 is empty (a constant
+   column: its exact output is 0); it reports that band's error apart
+   (band2_max_abs_err against the plain version, band2_max_abs against 0),
+   cold_ms, path_ms (ops.audio_normalize_batch) and its plan (cluster size,
+   staged); its library call, F.instance_norm, is checked once against the
+   plain version; and every row of the N = 16 stack must equal, bit for
+   bit, the same utterance normalized alone.
 4. serve   — PREBA's audio serving path through the package's entry points:
    16 requests carrying 48 kHz audio through the DPU service (wall clock,
    kernels on the service's stream) into the pipelined runtime over
@@ -105,8 +113,10 @@ n_layers x the decode steps the engine executed (its own stats): every
 decode step runs it once per layer.
 
 Prints one JSON line {"kernels": [...]} (seven kernels; decode_attention's
-launches are the sum over the four serve phases), the card's name and power
-limit, and last {"ok": true, "device": {...}}. With --out PATH the
+launches are the sum over the four serve phases; worst_library_ratio is the
+largest ms / library_ms over a kernel's shapes and worst_library_shape
+where it falls, so a kernel that loses off its main shape shows), the
+card's name and power limit, and last {"ok": true, "device": {...}}. With --out PATH the
 per-shape kernel numbers and the serve statistics are also written to PATH
 as JSON.
 """
@@ -122,7 +132,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_S = 67e12    # H100 SXM data sheet, fp32 on the CUDA cores
-SHAPES = [(1, 48_000), (16, 48_000), (1, 192_000), (16, 192_000)]
+# audio (N, L) at 48 kHz: 1 s, 4 s and 30 s utterances (T = 98, 398, 2,998 frames)
+SHAPES = [(1, 48_000), (16, 48_000), (1, 192_000), (16, 192_000), (1, 1_440_000),
+          (16, 1_440_000)]
 MAIN_SHAPE = (16, 48_000)  # the serve phase: one group of 16 payloads of 1 s
 IMAGE_SHAPES = [(1, 256, 256), (16, 256, 256), (1, 512, 512), (16, 512, 512),
                 (1, 384, 512), (4, 384, 512)]
@@ -139,6 +151,8 @@ L2_FLUSH_FLOATS = 32 << 20  # 128 MB, written before each cold sample (the L2 ho
 BITS_S = 2048  # the ring the serve shape's rows are held bit for bit against
 NEAR_TIE = 3e-2  # top-2 logit gap under which a bf16 token flip is a near-tie
 RESIZE_TO, CROP_TO, MEAN, STD = 256, 224, 127.5, 64.0
+SHAPE_KEYS = ("n", "L", "H", "W", "B", "KH", "D", "S", "dtype")  # a row's shape, in its order
+LIBRARY_CALL = {"audio_resample": "F.conv1d", "audio_normalize": "F.instance_norm"}
 TOL = {"audio_resample": (1e-4, 1e-5), "mel_spectrogram": (2e-4, 2e-4),
        "audio_normalize": (3e-3, 3e-3), "jpeg_idct": (1e-4, 1e-3),
        "image_resize": (1e-4, 1e-4), "image_normalize": (1e-5, 1e-5),
@@ -300,16 +314,32 @@ def kernel_phase(torch, F):
                                   + m * nm)
         row["dense_flops"] = 2 * 2 * m * 512 * nb + 3 * m * nb + 2 * m * nb * nm + m * nm
         rows.append(row)
-        # normalize, on the kernel's log-mel features
+        # normalize, on the kernel's log-mel features: mel band 2 is empty,
+        # so column 2 is the constant log(1e-6) and its exact output is 0
         feats = mel
         z = kn.audio_normalize_batch_kernel(feats)
         want = kn.audio_normalize_batch_plain(feats)
-        row = dict(name="audio_normalize", n=n, L=length,
-                   err=errors(torch, "audio_normalize", z, want))
-        row["ms"] = time_ms(torch, lambda: kn.audio_normalize_batch_kernel(feats))
-        row["plain_ms"] = time_ms(torch, lambda: kn.audio_normalize_batch_plain(feats))
         ft = feats.transpose(1, 2)
-        row["library_ms"] = time_ms(torch, lambda: F.instance_norm(ft, eps=1e-5))
+
+        def inorm():
+            return F.instance_norm(ft, eps=1e-5)
+
+        plan = kn.plan(feats.shape[1], feats.shape[2])
+        # an utterance's bits do not depend on the stack it arrives in
+        bits = all(torch.equal(kn.audio_normalize_batch_kernel(feats[i:i + 1].clone())[0], z[i])
+                   for i in range(n))
+        row = dict(name="audio_normalize", n=n, L=length, T=feats.shape[1],
+                   err=errors(torch, "audio_normalize", z, want),
+                   library_err=errors(torch, "audio_normalize", inorm().transpose(1, 2), want),
+                   band2_max_abs_err=float((z[..., 2] - want[..., 2]).abs().max()),
+                   band2_max_abs=float(z[..., 2].abs().max()), bits_equal_n1=bits,
+                   cluster=plan.cluster, staged=plan.staged)
+        row["ms"] = time_ms(torch, lambda: kn.audio_normalize_batch_kernel(feats))
+        row["cold_ms"] = time_ms(torch, lambda: kn.audio_normalize_batch_kernel(feats),
+                                 flush=flush)
+        row["path_ms"] = time_ms(torch, lambda: ops.audio_normalize_batch(feats))
+        row["plain_ms"] = time_ms(torch, lambda: kn.audio_normalize_batch_plain(feats))
+        row["library_ms"] = time_ms(torch, inorm)
         row["bytes"] = 4 * 2 * feats.numel()
         row["flops"] = 5 * feats.numel()
         rows.append(row)
@@ -322,14 +352,21 @@ def kernel_phase(torch, F):
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         extra = ""
-        if "path_ms" in row:
+        if "library_err" in row:
             lib_abs, _, lib_ok = row.pop("library_err")
             row["library_max_abs_err"] = lib_abs
             extra = (f" cold_ms={row['cold_ms']:.4f} path_ms={row['path_ms']:.4f} "
                      f"library_err={lib_abs:.3e}")
             if not lib_ok:
-                fail(f"F.conv1d differs from the plain resample at N={row['n']} "
-                     f"L={row['L']} beyond {TOL['audio_resample']}")
+                fail(f"{LIBRARY_CALL[row['name']]} differs from the plain {row['name']} at "
+                     f"N={row['n']} L={row['L']} beyond {TOL[row['name']]}")
+        if "bits_equal_n1" in row:
+            extra += (f" T={row['T']} cluster={row['cluster']} staged={row['staged']} "
+                      f"band2_err={row['band2_max_abs_err']:.3e} "
+                      f"band2_abs={row['band2_max_abs']:.3e} bits_n1={row['bits_equal_n1']}")
+            if not row["bits_equal_n1"]:
+                fail(f"audio_normalize N={row['n']} L={row['L']}: a row of the stack differs "
+                     f"from the same utterance normalized alone")
         if "dense_err" in row:
             dense_abs, _, dense_ok = row.pop("dense_err")
             row["dense_max_abs_err"] = dense_abs
@@ -1060,9 +1097,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f}s -> {build.library_path().name}")
+    entry = ""
     for line in build.ptxas_log.splitlines():
-        if "Used" in line or "spill" in line:
-            print("  " + line.strip())
+        if "Compiling entry function" in line:  # the mangled name, past its file's hash
+            entry = line.split("'")[1].split("_cu_")[-1][8:].lstrip("0123456789")
+        elif "Used" in line or "spill" in line:
+            print(f"  {entry}: {line.split(':', 1)[-1].strip()}")
 
     # 3. kernels
     rows = kernel_phase(torch, F)
@@ -1106,6 +1146,9 @@ def main() -> int:
              decode_run)):
         mine = [r for r in shape_rows if r["name"] == name]
         main_row = next(r for r in mine if main_of(r))
+        # the shape where the kernel does worst against its library call
+        worst = max((r for r in mine if r["library_ms"]),
+                    key=lambda r: r["ms"] / r["library_ms"], default=None)
         line.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1113,7 +1156,10 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"]))
+            library_ms=main_row["library_ms"],
+            worst_library_ratio=worst and worst["ms"] / worst["library_ms"],
+            worst_library_shape=worst and " ".join(
+                f"{k}={v}" for k, v in worst.items() if k in SHAPE_KEYS)))
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

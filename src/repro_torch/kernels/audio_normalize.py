@@ -5,11 +5,17 @@ unit.
 mu = sum(x)/T, var = max(sum(x^2)/T - mu^2, 0), (x - mu) * rsqrt(var + eps):
 on a CUDA tensor it launches the hand-written Hopper kernel
 (csrc/audio_normalize.cu, which replaces the TPU kernels
-src/repro/kernels/audio_normalize.py::audio_normalize_batch_pallas), on a CPU
-tensor it runs the plain PyTorch version below. `LAUNCHES` counts kernel
-launches.
+src/repro/kernels/audio_normalize.py::audio_normalize_batch_pallas: a
+thread block cluster of C blocks an utterance, each staging its span of
+rows in shared memory once), on a CPU tensor it runs the plain PyTorch
+version below. `plan` is the kernel's launch plan for a shape, which
+depends on (T, F) only. `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +33,24 @@ def audio_normalize_batch_plain(feats: torch.Tensor, eps: float = 1e-5) -> torch
     return (x - mu) * torch.rsqrt(var + eps)
 
 
+class Plan(NamedTuple):
+    cluster: int  # blocks an utterance (a thread block cluster)
+    rows: int     # rows a block at most
+    staged: bool  # each block's span is read once, into shared memory
+
+
+@lru_cache(maxsize=None)
+def plan(t: int, f: int) -> Plan:
+    """The kernel's launch plan for T rows of F features. Raises ValueError
+    for a shape the kernel does not take."""
+    out = [ctypes.c_int() for _ in range(3)]
+    err = build.library().preba_normalize_plan(t, f, *map(ctypes.byref, out))
+    if err:
+        raise ValueError(f"audio_normalize takes no plan for T={t}, F={f}")
+    c, rows, staged = (v.value for v in out)
+    return Plan(c, rows, bool(staged))
+
+
 def audio_normalize_batch_kernel(feats: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
     global LAUNCHES
@@ -40,15 +64,13 @@ def audio_normalize_batch_kernel(feats: torch.Tensor, eps: float = 1e-5) -> torc
     n, t, f = feats.shape
     if t < 1 or f < 1:
         raise ValueError(f"empty utterances {tuple(feats.shape)}")
-    lib = build.library()
-    if lib.preba_normalize_smem_bytes(f) > 48 * 1024:
-        raise ValueError(f"{f} features exceed the kernel's shared memory")
+    plan(t, f)
     out = torch.empty_like(feats)
     if n == 0:
         return out
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    err = lib.preba_normalize(feats.data_ptr(), out.data_ptr(), n, t, f,
-                              float(eps), stream)
+    err = build.library().preba_normalize(feats.data_ptr(), out.data_ptr(), n, t, f,
+                                          float(eps), stream)
     build.check(err, "audio_normalize")
     LAUNCHES += 1
     return out

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: (argtypes, restype)
     "preba_resample": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
@@ -37,7 +38,8 @@ _SIGNATURES = {
     "preba_mel": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "preba_mel_max_mels": ([], _I),
     "preba_normalize": ([_P, _P, _I, _I, _I, ctypes.c_float, _P], _I),
-    "preba_normalize_smem_bytes": ([_I], _I),
+    "preba_normalize_plan": ([_I, _I, _IP, _IP, _IP], _I),
+    "preba_normalize_vectorized": ([_P, _P, _I], _I),
     "preba_idct": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "preba_resize": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "preba_crop_normalize": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,

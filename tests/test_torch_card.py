@@ -187,6 +187,79 @@ def test_mel_wrapper_refuses_bad_inputs_on_card(cuda):
         mel_spectrogram.mel_spectrogram_batch(y[:, :300].contiguous(), win, tw, w, bands, 160)
 
 
+_MEL_FEATS = {}
+
+
+def _mel_feats(device, t, f):
+    """[16, t, f] log-mel features of seeded noise from the port's mel
+    kernel (made once per shape): band 2 of the 80-band filterbank is empty,
+    so column 2 is the constant log(1e-6) and its exact output 0; the last
+    utterance is silence (every column constant)."""
+    if (t, f) not in _MEL_FEATS:
+        y = np.random.default_rng(t + f).standard_normal((16, (t - 1) * 160 + 400)) * 0.1
+        y[-1] = 0.0
+        feats = ops.mel_spectrogram_batch(torch.from_numpy(y.astype(np.float32)).to(device),
+                                          n_mels=f)
+        assert feats.shape == (16, t, f)
+        _MEL_FEATS[(t, f)] = feats
+    return _MEL_FEATS[(t, f)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [80, 81, 128])
+@pytest.mark.parametrize("t", [1, 7, 98, 398, 2998, 6000])
+def test_normalize_kernel_matches_plain_on_card(cuda, t, f):
+    """One launch of a cluster an utterance, at 3e-3 from the plain version
+    at N in {1, 3, 16}: F = 81 takes the scalar path, T = 6,000 at F = 80
+    the path that rereads its span from device memory. An utterance's
+    output is the same bits in a stack of 1 and of 16."""
+    feats = _mel_feats(cuda, t, f)
+    plan = audio_normalize.plan(t, f)
+    assert plan.cluster == min(4 if t < 998 else 8, 1 << (t.bit_length() - 1))
+    assert plan.rows == -(-t // plan.cluster)
+    if f == 80:
+        assert plan.staged == (t < 6000)
+    got = {}
+    for n in (1, 3, 16):
+        x = feats[16 - n:].clone()
+        kernels.reset_launch_counts()
+        y = audio_normalize.audio_normalize_batch_kernel(x)
+        assert kernels.launch_counts()["audio_normalize"] == 1
+        assert bool(build.library().preba_normalize_vectorized(
+            x.data_ptr(), y.data_ptr(), f)) == (f % 4 == 0)
+        assert_allclose(y.cpu().numpy(),
+                        audio_normalize.audio_normalize_batch_plain(x).cpu().numpy(),
+                        rtol=3e-3, atol=3e-3)
+        got[n] = y
+    assert torch.equal(got[1][0], got[16][-1])
+    assert torch.equal(got[3], got[16][-3:])
+    if f == 80:  # the empty band's exact output is 0
+        assert float(got[16][..., 2].abs().max()) <= 3e-3
+    assert float(got[16][-1].abs().max()) <= 3e-3  # silence
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [398, 2998, 6000])
+def test_normalize_off_16_bytes_takes_the_scalar_path_on_card(cuda, t):
+    """A contiguous stack whose storage starts one float past a 16-byte
+    boundary: the same single launch, scalar, the same bits as the same
+    utterances on the 16-byte path (staged, and at T = 6,000 reread)."""
+    feats = _mel_feats(cuda, t, 80)[-3:]
+    flat = torch.empty(feats.numel() + 1, device=cuda)
+    flat[1:] = feats.flatten()
+    x = flat[1:].view(feats.shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    kernels.reset_launch_counts()
+    got = audio_normalize.audio_normalize_batch_kernel(x)
+    assert kernels.launch_counts()["audio_normalize"] == 1
+    assert not build.library().preba_normalize_vectorized(x.data_ptr(), got.data_ptr(), 80)
+    aligned = audio_normalize.audio_normalize_batch_kernel(feats.clone())
+    assert torch.equal(got, aligned)
+    assert_allclose(got.cpu().numpy(),
+                    audio_normalize.audio_normalize_batch_plain(x).cpu().numpy(),
+                    rtol=3e-3, atol=3e-3)
+
+
 def _coeffs(shape, seed):
     return np.random.default_rng(seed).integers(-32, 32, shape).astype(np.float32)
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the resample path and crop-normalize of source trees in turns on one
-NVIDIA GPU, so that two versions of the kernels are compared on one card.
+"""Time the resample path, audio normalize and crop-normalize of source trees
+in turns on one NVIDIA GPU, so that two versions of the kernels are
+compared on one card.
 
     python3 tools/kernel_ab.py [--out PATH] LABEL=TREE [LABEL=TREE ...]
 
@@ -17,6 +18,11 @@ flushes the 50 MB L2):
 - kernel_ms, kernel_cold_ms: the resample kernel alone on what that tree's
   path hands it: the unpadded stack with pad_left where the tree's kernel
   takes one, else the stack padded beforehand (72 zeros left, 144 right);
+- audio normalize on that tree's log-mel features of the same stacks
+  (T = 98, 398, 2,998 frames) and of 10, 12.5, 15 and 20 s stacks at
+  N in {1, 16} (T = 998, 1,248, 1,498, 1,998): the kernel warm and cold,
+  with its cluster size where the tree's kernel has a plan, and path_ms,
+  the serve path's `ops.audio_normalize_batch`;
 - crop-normalize warm and cold, 256 x 256 -> 224 x 224 at N in {1, 4, 16}
   (the stacks of chip_smoke.py's image phase: every image row crops a
   resized 256 x 256 stack);
@@ -24,6 +30,12 @@ flushes the 50 MB L2):
 
 Each run prints one JSON line; with --out all runs are written to PATH.
 Exits non-zero without a CUDA device.
+
+To compare normalize's cluster sizes, give trees whose
+`src/repro_torch/kernels/csrc/audio_normalize.cu` differ only in
+`kLongRows`, the T from which 8 blocks take an utterance instead of 4
+(1: 8 blocks at every T >= 8; a large value: 4 blocks at every T >= 4):
+copy the tree's `src/` into `build/c8/src/` and edit it there.
 """
 from __future__ import annotations
 
@@ -36,6 +48,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CROP_N = (1, 4, 16)
+NORM_SHAPES = ((1, 480_000), (16, 480_000), (1, 600_000), (16, 600_000),
+               (1, 720_000), (16, 720_000), (1, 960_000), (16, 960_000))
 
 
 def measure(tree: Path) -> dict:
@@ -46,6 +60,7 @@ def measure(tree: Path) -> dict:
 
     import chip_smoke as cs
     import repro_torch
+    from repro_torch.kernels import audio_normalize as kn
     from repro_torch.kernels import audio_resample as kr
     from repro_torch.kernels import image_normalize as kin
     from repro_torch.kernels import ops
@@ -79,6 +94,12 @@ def measure(tree: Path) -> dict:
             path_ms=cs.time_ms(torch, lambda: ops.audio_resample_batch(x, 1, 3)),
             kernel_ms=cs.time_ms(torch, kernel),
             kernel_cold_ms=cs.time_ms(torch, kernel, flush=flush)))
+        feats = ops.mel_spectrogram_batch(path)
+        rows.append(normalize_row(torch, cs, kn, ops, feats, n, length, flush))
+    for n, length in NORM_SHAPES:
+        x = torch.randn((n, length), generator=gen, device=dev)
+        feats = ops.mel_spectrogram_batch(ops.audio_resample_batch(x, 1, 3))
+        rows.append(normalize_row(torch, cs, kn, ops, feats, n, length, flush))
     for n in CROP_N:
         z = torch.rand((n, 256, 256), generator=gen, device=dev) * 255
 
@@ -93,6 +114,26 @@ def measure(tree: Path) -> dict:
     tiny = torch.zeros(1, device=dev)
     return {"tree": str(tree), "card": cs.card_line(), "kernel_takes_pad_left": takes_pad,
             "floor_ms": cs.time_ms(torch, tiny.zero_), "rows": rows}
+
+
+def normalize_row(torch, cs, kn, ops, feats, n: int, length: int, flush) -> dict:
+    """Audio normalize on one stack of features: the serve path's call and
+    the kernel, warm and cold."""
+    t = feats.shape[1]
+    row = dict(name="audio_normalize", n=n, L=length, T=t)
+    if hasattr(kn, "plan"):
+        row["cluster"] = kn.plan(t, feats.shape[2]).cluster
+
+    def kernel():
+        return kn.audio_normalize_batch_kernel(feats)
+
+    err = float((kernel() - ops.audio_normalize_batch(feats)).abs().max())
+    if err > 3e-3:
+        raise SystemExit(f"normalize at N={n} L={length}: {err} from the path")
+    row["path_ms"] = cs.time_ms(torch, lambda: ops.audio_normalize_batch(feats))
+    row["kernel_ms"] = cs.time_ms(torch, kernel)
+    row["kernel_cold_ms"] = cs.time_ms(torch, kernel, flush=flush)
+    return row
 
 
 def main() -> int:
