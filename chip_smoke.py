@@ -108,12 +108,38 @@ Phases, each fatal on failure:
    first diverging step must be a near-tie (top-2 logit gap under 3e-2 in
    the monolithic path's logits at that step); the count is printed.
 
-In every serve phase (4, 6, 8, 9) the decode kernel's launches must equal
-n_layers x the decode steps the engine executed (its own stats): every
-decode step runs it once per layer.
+10. fleet — PREBA's multi-slice system shape: 4 slices, each an engine
+   with 8 KV slots on its own CUDA stream, all serving one DenseLM, behind
+   the pipelined runtime and one wall-clock DpuService. 32 requests carry
+   48 kHz audio (1 s) and prompts of 33-63 tokens (mean 48; one prompt
+   bucket, so every admission has one shape), 8 new tokens each,
+   hedge_factor 3.0. Every request completes exactly once, its features
+   are finite [98, 80] and equal the plain CPU pipeline, and its tokens
+   equal, bit for bit, a single-slice engine's on the same weights;
+   conservation holds, 0 shed, 0 dead, breaker_trips 0, cpu_fallback 0;
+   the audio kernels' launches equal the service's groups, and decode
+   attention's equal n_layers x the decode steps of every engine built
+   (MultiSliceEngine.decode_steps_total).
+11. chaos — the same fleet (a virtual-clock DpuService) under
+   faults.replay_virtual with a fixed FaultPlan: a dpu_fail of 3 launches
+   (breaker_threshold 2), a slice_fail with a heal window (its in-flight
+   requests requeued), stragglers, and a resize_abort to 2 slices after
+   the slice is readmitted. The
+   breaker must trip, serve requests on its CPU path (cpu_fallback > 0),
+   and close; the audio kernels must launch again after it closes; the
+   failed slice is quarantined, probed and readmitted; every completed
+   request's tokens equal the single-slice engine's; conservation holds
+   over completed, shed and dead; the injector's log is printed, with the
+   bytes of slot pools the warm partition cache holds.
 
-Prints one JSON line {"kernels": [...]} (seven kernels; decode_attention's
-launches are the sum over the four serve phases; worst_library_ratio is the
+In every serve phase (4, 6, 8-11) the decode kernel's launches must equal
+n_layers x the decode steps the engines executed (their own stats): every
+decode step runs it once per layer. Any serve phase that injected no
+failure fails on a breaker trip or a request served on the CPU path.
+
+Prints one JSON line {"kernels": [...]} (seven kernels; a kernel's launches
+are the sum over the serve phases that run it — decode_attention's over
+all six, the audio kernels' over phases 4, 10 and 11; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
 where it falls, so a kernel that loses off its main shape shows), the
 card's name and power limit, and last {"ok": true, "device": {...}}. With --out PATH the
@@ -224,10 +250,19 @@ def errors(torch, name, got, want):
     return float(d.max()), float(rel.max()) if rel.numel() else 0.0, ok
 
 
+def check_no_fallback(rt, where: str) -> None:
+    """A phase that injected no failure ran every payload through the
+    kernels: no breaker trip, no request on the CPU path."""
+    if rt.stats["breaker_trips"] or rt.stats["cpu_fallback"]:
+        fail(f"{where}: breaker_trips {rt.stats['breaker_trips']}, cpu_fallback "
+             f"{rt.stats['cpu_fallback']} with no failure injected")
+
+
 def check_decode_launches(launches, cfg, engine, where: str) -> int:
     """The decode kernel ran once per layer on every decode step the engine
-    executed (its own count); returns that step count."""
-    steps = engine.stats["decode_steps"]
+    (a fleet: every engine it built) executed; returns that step count."""
+    total = getattr(engine, "decode_steps_total", None)
+    steps = total() if total is not None else engine.stats["decode_steps"]
     if steps <= 0 or launches["decode_attention"] != cfg.n_layers * steps:
         fail(f"decode_attention: {launches['decode_attention']} launches on the {where}, "
              f"the engine executed {steps} decode steps of {cfg.n_layers} layers")
@@ -468,6 +503,7 @@ def serve_phase(torch, np):
     for k in kernels.IMAGE_KERNELS:
         if launches[k] != 0:
             fail(f"{k}: {launches[k]} launches on the audio path")
+    check_no_fallback(rt, "audio path")
     steps = check_decode_launches(launches, cfg, rt.engine, "audio path")
     lat = np.array([r.completed_at - r.arrival for r in done])
     ttft = np.array([r.first_token_at - r.arrival for r in done])
@@ -714,6 +750,7 @@ def image_serve_phase(torch, np, params):
     for k in kernels.AUDIO_KERNELS:
         if launches[k] != 0:
             fail(f"{k}: {launches[k]} launches on the image path")
+    check_no_fallback(rt, "image path")
     steps = check_decode_launches(launches, cfg, rt.engine, "image path")
     lat = np.array([r.completed_at - r.arrival for r in done])
     ttft = np.array([r.first_token_at - r.arrival for r in done])
@@ -880,9 +917,32 @@ def decode_step_phase(torch, np, params):
     print(f"decode step ({cfg.n_layers} layers, 8 slots, ring 144, {cfg.dtype}): "
           f"kernel {out['kernel']:.3f} ms, "
           f"plain {out['plain']:.3f} ms (best of two turns each)")
-    return {"decode_step_ms": out, "decode_step_ms_turns": times,
-            "profile": profile_decode_steps(torch, lambda: model.decode(
-                pool, tok, clock, pos_offset=off), out["kernel"])}
+    step = lambda: model.decode(pool, tok, clock, pos_offset=off)  # noqa: E731
+    res = {"decode_step_ms": out, "decode_step_ms_turns": times,
+           "profile": profile_decode_steps(torch, step, out["kernel"])}
+    # the candidate pin the contract tests were also run under: bf16 GEMM
+    # split-K reductions kept in fp32 (torch's default allows bf16), timed
+    # in turns against the default, and profiled
+    mm = torch.backends.cuda.matmul
+    default = mm.allow_bf16_reduced_precision_reduction
+    pin = {"default": [], "bf16_reduction_in_fp32": []}
+    try:
+        for which in ("default", "bf16_reduction_in_fp32", "bf16_reduction_in_fp32",
+                      "default"):
+            mm.allow_bf16_reduced_precision_reduction = default if which == "default" \
+                else False
+            pin[which].append(steps_ms())
+        mm.allow_bf16_reduced_precision_reduction = False
+        pinned = profile_decode_steps(torch, step, min(pin["bf16_reduction_in_fp32"]))
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = default
+    res["candidate_pin"] = {
+        "allow_bf16_reduced_precision_reduction_default": default,
+        "wall_ms": {k: min(v) for k, v in pin.items()}, "wall_ms_turns": pin,
+        "device_ms": {"default": res["profile"]["device_ms_per_step"],
+                      "bf16_reduction_in_fp32": pinned["device_ms_per_step"]}}
+    print("decode step, candidate pin: " + json.dumps(res["candidate_pin"]))
+    return res
 
 
 def profile_decode_steps(torch, step, wall_ms: float, n: int = 5):
@@ -1070,6 +1130,273 @@ def chunked_prefix_serve_phase(torch, np, params):
     return stats
 
 
+FLEET_SLICES, FLEET_REQUESTS, FLEET_RATE = 4, 32, 50.0
+
+
+def fleet_traffic(np, cfg, n, seed, rid0=0):
+    """n requests at FLEET_RATE per second: 1 s of 48 kHz audio each, a
+    prompt of 33-63 tokens (mean 48; every one pads to the 64-token bucket)
+    and 8 new tokens."""
+    from repro_torch.core.batching.buckets import Request
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        m = int(rng.integers(33, 64))
+        out.append(Request(rid=rid0 + i, arrival=i / FLEET_RATE, length=float(m),
+                           prompt=rng.integers(0, cfg.vocab, m), max_new_tokens=8,
+                           payload=rng.standard_normal(48_000).astype(np.float32)))
+    return out
+
+
+def fleet_stats(np, rt, done, wall, launches, steps, card):
+    """The fleet phases' JSON line: per-slice served (retirements on the
+    tracer, by slice id), hedges, requeues, dead letters by reason,
+    tokens/s and the card."""
+    from repro_torch.serving import telemetry as tm
+
+    ms = rt.engine
+    served = {}
+    for e in rt.tracer.of(tm.RETIRE):
+        served[e.sid] = served.get(e.sid, 0) + 1
+    n_tok = int(sum(len(r.payload) for r in done))
+    lat = np.array([r.completed_at - r.arrival for r in done]) if done else np.zeros(1)
+    return dict(
+        card=card, slices=len(ms.engines), served=len(done), shed=rt.shed_counts(),
+        dead=rt.dead_counts(),
+        served_by_slice=dict(sorted(served.items())),
+        hedges=ms.hedges, hedge_wins=ms.stats["hedge_wins"], requeued=ms.stats["requeued"],
+        cancelled=ms.stats["cancelled"], quarantined=ms.stats["quarantined"],
+        readmitted=ms.stats["readmitted"], resizes=ms.stats["resizes"],
+        breaker_trips=rt.stats["breaker_trips"], cpu_fallback=rt.stats["cpu_fallback"],
+        pp_retries=rt.stats["pp_retries"], tokens=n_tok, wall_s=wall,
+        tokens_per_s=n_tok / wall, latency_p50_ms=1e3 * float(np.percentile(lat, 50)),
+        latency_p99_ms=1e3 * float(np.percentile(lat, 99)), decode_steps=steps,
+        engines_built=len({id(e) for e in ms._built}), launches=launches)
+
+
+def single_slice_tokens(torch, np, cfg, ec, model, reqs):
+    """The same requests (no payloads) served by one engine on the same
+    weights: the fleet phases' reference tokens."""
+    from dataclasses import replace
+
+    from repro_torch.serving.engine import build_engine
+
+    engine = build_engine(cfg, ec=ec, device="cuda", params=model.tree())
+    done, _ = _burst(torch, engine, [replace(r, payload=None) for r in reqs])
+    return {r.rid: np.asarray(r.payload) for r in done}
+
+
+def check_fleet_tokens(np, done, ref, where):
+    for r in done:
+        if not np.array_equal(np.asarray(r.payload), ref[r.rid]):
+            fail(f"{where}: request {r.rid} tokens {np.asarray(r.payload)} differ from the "
+                 f"single-slice engine's {ref[r.rid]}")
+
+
+def fleet_phase(torch, np, params, card):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.dpu.runtime import DpuConfig
+    from repro_torch.core.dpu.service import DpuService, DpuServiceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import DenseLM
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime
+
+    cfg = get_config("tinyllama-1.1b")
+    model = DenseLM(cfg, params)           # one DenseLM, every slice serves it
+    ec = EngineConfig(max_new_tokens=8, continuous=True, max_slots=8, segment_len=8,
+                      max_prompt_len=128)
+    service = DpuService(DpuServiceConfig(clock="wall", dpu=DpuConfig(backend="dpu")),
+                         device="cuda")
+    feats = {}
+    poll = service.poll
+
+    def recording_poll(now, n=None):
+        out = poll(now, n)
+        for r in out:
+            feats[r.rid] = np.array(r.payload)
+        return out
+
+    service.poll = recording_poll
+    rt = build_pipelined_runtime(cfg, n_slices=FLEET_SLICES, ec=ec, service=service,
+                                 params=model, hedge_factor=3.0, device="cuda",
+                                 rc=RuntimeConfig(clock="wall", max_ingest=64))
+    ms = rt.engine
+    streams = {id(e.stream) for e in ms.engines.values()}
+    if len(streams) != FLEET_SLICES or any(e.model is not model for e in ms.engines.values()):
+        fail(f"fleet: {len(streams)} streams for {FLEET_SLICES} slices, or a slice "
+             f"serves another DenseLM")
+
+    def drive(reqs):
+        t0 = time.monotonic()
+        for r in reqs:
+            r.arrival += t0
+        rt.submit(reqs)
+        done = rt.run_until_idle()
+        torch.cuda.synchronize()
+        return done, time.monotonic() - t0
+
+    # warm-up: one request a slice (cuBLAS handles and workspaces per
+    # stream, the slot pools), other rids
+    drive(fleet_traffic(np, cfg, FLEET_SLICES, 98, rid0=50_000))
+    rt.reset_metrics()
+    feats.clear()
+    groups0 = service.stats["groups"]
+
+    reqs = fleet_traffic(np, cfg, FLEET_REQUESTS, 2026)
+    raws = {r.rid: r.payload.copy() for r in reqs}
+    kernels.reset_launch_counts()              # the fleet path starts here
+    done, wall = drive(reqs)
+    launches = kernels.launch_counts()         # ... and ends here
+    groups = service.stats["groups"] - groups0
+    rt.close()
+
+    rids = [r.rid for r in done]
+    if len(done) != FLEET_REQUESTS or len(set(rids)) != FLEET_REQUESTS:
+        fail(f"fleet: served {len(done)} ({len(set(rids))} distinct) of {FLEET_REQUESTS}")
+    if rt.shed or rt.dead or not rt.conservation_ok():
+        fail(f"fleet: shed {rt.shed_counts()}, dead {rt.dead_counts()}, conservation "
+             f"{rt.conservation_ok()}")
+    check_no_fallback(rt, "fleet")
+    for r in done:
+        f = feats.get(r.rid)
+        if f is None or f.shape != (98, 80) or not np.isfinite(f).all():
+            fail(f"fleet request {r.rid}: features {None if f is None else f.shape}")
+        plain = ops.audio_pipeline_batch(torch.from_numpy(raws[r.rid][None]))[0].numpy()
+        if not np.allclose(f, plain, rtol=1e-3, atol=1e-2):
+            fail(f"fleet request {r.rid}: features differ from the plain CPU pipeline "
+                 f"(max abs {np.abs(f - plain).max():.3e})")
+    for k in kernels.AUDIO_KERNELS:
+        if launches[k] <= 0 or launches[k] != groups:
+            fail(f"{k}: {launches[k]} launches on the fleet path, the service launched "
+                 f"{groups} groups")
+    steps = check_decode_launches(launches, cfg, ms, "fleet path")
+    if sum(1 for e in ms.engines.values() if e.stats["admitted"] > 0) < 2:
+        fail(f"fleet: the work did not spread over the slices {ms.slice_stats()}")
+    ref = single_slice_tokens(torch, np, cfg, ec, model, reqs)
+    check_fleet_tokens(np, done, ref, "fleet")
+    stats = fleet_stats(np, rt, done, wall, launches, steps, card)
+    stats.update(groups=groups, tokens_equal_single_slice=len(done),
+                 stage_occupancy=rt.stage_occupancy())
+    print("fleet: " + json.dumps(stats))
+    return stats, model, ec, ref
+
+
+def pool_bytes(engines) -> int:
+    """Bytes of the slot pools these engines hold on the card."""
+    from repro_torch.models import lm
+
+    return sum(sum(t.numel() * t.element_size() for t in lm._kv_leaves(e._pool))
+               for e in engines if e.slot_capacity() and e._pool is not None)
+
+
+def chaos_phase(torch, np, model, ec, ref, card):
+    from repro_torch import kernels
+    from repro_torch.core.dpu.runtime import DpuConfig
+    from repro_torch.core.dpu.service import DpuService, DpuServiceConfig
+    from repro_torch.serving import telemetry as tm
+    from repro_torch.serving.faults import (DPU_FAIL, RESIZE_ABORT, SLICE_FAIL, STRAGGLER,
+                                            FaultEvent, FaultPlan, replay_virtual)
+    from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime
+
+    cfg = model.cfg
+    service = DpuService(DpuServiceConfig(clock="virtual", dpu=DpuConfig(backend="dpu")),
+                         device="cuda")
+    rt = build_pipelined_runtime(
+        cfg, n_slices=FLEET_SLICES, ec=ec, service=service, params=model, hedge_factor=3.0,
+        device="cuda", max_retries=10, watchdog_rounds=20, probe_interval_s=0.02,
+        rc=RuntimeConfig(clock="virtual", max_ingest=64, preprocess_retries=3,
+                         breaker_threshold=2, breaker_probe_s=0.05))
+    ms = rt.engine
+    # virtual seconds, one tick = 2 ms. Traffic: a burst of 16 at t = 0,
+    # then one request every 4 ms from t = 0.2. The burst's launches fail
+    # twice and trip the breaker, and it is served on the CPU path; slice 1
+    # straggles while its share is dispatched (tick 3) and then fails
+    # (tick 4), so that share is requeued; after its 0.04 s heal window a
+    # probe readmits it. The breaker's probe at ~0.05 s fails (the third
+    # injected failure), the one at 0.2 s closes it, and the second wave
+    # meets a straggler on slice 2 and, inside it, a resize to 2 slices
+    # aborted straight back to 4
+    plan = FaultPlan([
+        FaultEvent(at=0.0, kind=DPU_FAIL, param=3),
+        FaultEvent(at=0.0, kind=STRAGGLER, target=1, duration=0.0075),
+        FaultEvent(at=0.0075, kind=SLICE_FAIL, target=1, duration=0.04),
+        FaultEvent(at=0.2, kind=STRAGGLER, target=2, duration=0.03),
+        FaultEvent(at=0.22, kind=RESIZE_ABORT, param=2),
+    ], seed=18)
+    # observers: launch counts when the breaker closes, cache bytes per build
+    at_close, cache_bytes = [], []
+    event = rt.tracer.event
+
+    def watching_event(kind, t, **kw):
+        if kind == tm.BREAKER_CLOSE:
+            at_close.append(kernels.launch_counts())
+        return event(kind, t, **kw)
+
+    rt.tracer.event = watching_event
+    build = ms._build
+
+    def watching_build(n):
+        build(n)
+        cache_bytes.append(pool_bytes(e for gen in ms._engine_cache.values()
+                                      for e in gen.values()))
+
+    ms._build = watching_build
+    reqs = fleet_traffic(np, cfg, FLEET_REQUESTS, 2026)  # the fleet phase's requests
+    half = FLEET_REQUESTS // 2
+    for i, r in enumerate(reqs):               # on the virtual clock
+        r.arrival = 0.0 if i < half else 0.2 + 0.004 * (i - half)
+    kernels.reset_launch_counts()              # the chaos path starts here
+    t0 = time.monotonic()
+    done = replay_virtual(rt, reqs, plan)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()         # ... and ends here
+    rt.close()
+
+    log = [list(x) for x in rt.injector.log]
+    print(f"chaos: injector log {log}")
+    if [x[1] for x in log] != [e.kind for e in plan.events] or not rt.injector.done():
+        fail(f"chaos: the injector fired {log}, the plan holds {plan.to_json()}")
+    if not rt.conservation_ok():
+        fail("chaos: conservation does not hold over completed, shed and dead")
+    out = [r.rid for r in done] + [r.rid for r in rt.shed] + [r.rid for r in rt.dead]
+    if sorted(out) != sorted(r.rid for r in reqs) or not done:
+        fail(f"chaos: completed {len(done)}, shed {rt.shed_counts()}, dead "
+             f"{rt.dead_counts()} do not partition the {len(reqs)} requests")
+    check_fleet_tokens(np, done, ref, "chaos")
+    if rt.stats["breaker_trips"] < 1 or rt.stats["cpu_fallback"] < 1 or rt._brk_open \
+            or not at_close:
+        fail(f"chaos: breaker trips {rt.stats['breaker_trips']}, cpu_fallback "
+             f"{rt.stats['cpu_fallback']}, open {rt._brk_open}, closed {len(at_close)} times")
+    after = {k: launches[k] - at_close[-1][k] for k in kernels.AUDIO_KERNELS}
+    failed_groups = plan.events[0].param
+    for k in kernels.AUDIO_KERNELS:
+        if after[k] <= 0 or launches[k] != service.stats["groups"] - failed_groups:
+            fail(f"{k}: {launches[k]} launches in the chaos run ({after[k]} after the "
+                 f"breaker closed), the service formed {service.stats['groups']} groups "
+                 f"of which {failed_groups} failed")
+    if ms.stats["quarantined"] < 1 or ms.stats["readmitted"] < 1 or ms._quarantined \
+            or not all(s.healthy for s in ms.sched.slices.values()):
+        fail(f"chaos: quarantined {ms.stats['quarantined']}, readmitted "
+             f"{ms.stats['readmitted']}, still quarantined {sorted(ms._quarantined)}")
+    if ms.stats["resizes"] != 2 or len(ms.engines) != FLEET_SLICES \
+            or ms.stats["requeued"] < 1:
+        fail(f"chaos: {ms.stats['resizes']} resizes, {len(ms.engines)} slices at the end, "
+             f"{ms.stats['requeued']} requeued")
+    steps = check_decode_launches(launches, cfg, ms, "chaos path")
+    stats = fleet_stats(np, rt, done, wall, launches, steps, card)
+    stats.update(injector_log=log, plan=plan.to_json(), groups=service.stats["groups"],
+                 failed_groups=failed_groups, launches_after_breaker_close=after,
+                 tokens_equal_single_slice=len(done),
+                 slot_pool_bytes_per_engine=pool_bytes(list(ms.engines.values())[:1]),
+                 warm_cache_bytes_after_each_build=cache_bytes)
+    print("chaos: " + json.dumps(stats))
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -1126,15 +1453,25 @@ def main() -> int:
 
     # 9. chunked prefill + prefix cache serve, on the same weights
     chunk_stats = chunked_prefix_serve_phase(torch, np, params)
+
+    # 10. the multi-slice fleet, on the same weights
+    fleet_stats_, model, fleet_ec, fleet_ref = fleet_phase(torch, np, params, card)
+
+    # 11. the same fleet under a fault plan, on the virtual clock
+    chaos_stats = chaos_phase(torch, np, model, fleet_ec, fleet_ref, card)
+    audio_run = {"launches": {k: sum(st["launches"][k]
+                                     for st in (stats, fleet_stats_, chaos_stats))
+                              for k in ("audio_resample", "mel_spectrogram",
+                                        "audio_normalize")}}
     decode_run = {"launches": {"decode_attention": sum(
         st["launches"]["decode_attention"]
-        for st in (stats, image_stats, rtc_stats, chunk_stats))}}
+        for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats))}}
 
     line = []
     for name, shape_rows, main_of, run in (
-            ("audio_resample", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, stats),
-            ("mel_spectrogram", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, stats),
-            ("audio_normalize", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, stats),
+            ("audio_resample", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, audio_run),
+            ("mel_spectrogram", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, audio_run),
+            ("audio_normalize", rows, lambda r: (r["n"], r["L"]) == MAIN_SHAPE, audio_run),
             ("jpeg_idct", image_rows,
              lambda r: (r["n"], r["H"], r["W"]) == IMAGE_MAIN_SHAPE, image_stats),
             ("image_resize", image_rows,
@@ -1166,7 +1503,8 @@ def main() -> int:
         out.write_text(json.dumps(
             {"card": card, "kernels_by_shape": rows + image_rows + decode_rows,
              "serve": stats, "image_serve": image_stats, "rtc_serve": rtc_stats,
-             "chunked_prefix_serve": chunk_stats, "decode_step": decode_step}, indent=1))
+             "chunked_prefix_serve": chunk_stats, "decode_step": decode_step,
+             "fleet": fleet_stats_, "chaos": chaos_stats}, indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -152,6 +152,10 @@ class DpuService:
         # wedge the pipeline (see _worker_loop)
         self._failed: List[Request] = []
         self.last_error: Optional[BaseException] = None
+        # fault injection (serving/faults.py FaultPlan dpu_fail events): the
+        # next N batched launches raise, through the same take_failed()
+        # contract a real kernel failure uses
+        self._fail_next_launches = 0
         # wall clock: one worker = the DPU device; work/done guarded by _cond
         self._cond = threading.Condition()
         self._work: Deque[List[Request]] = deque()
@@ -253,6 +257,21 @@ class DpuService:
             self._worker.join(timeout=5.0)
             self._worker = None
 
+    # --- fault injection ----------------------------------------------------
+    def inject_launch_failures(self, n: int) -> None:
+        """Arm the next `n` batched launches to raise (deterministic chaos
+        harness): each armed launch fails its whole group through the same
+        take_failed() contract a real kernel failure uses."""
+        with self._cond:
+            self._fail_next_launches += int(n)
+
+    def _injected_failure(self) -> bool:
+        with self._cond:
+            if self._fail_next_launches > 0:
+                self._fail_next_launches -= 1
+                return True
+        return False
+
     # --- internals ----------------------------------------------------------
     def _process_group(self, group: List[Request]) -> List[Any]:
         """One batched pass over a group's payloads; with pow2 bucketing the
@@ -263,7 +282,10 @@ class DpuService:
         kernels.ops.image_pipeline_batch call (JPEG dicts whose qtables all
         equal the first; a group with mixed tables takes the per-FU batched
         path) on the service's stream, and the features reach the host in
-        one copy."""
+        one copy. An armed injected failure raises before any kernel
+        launches."""
+        if self._injected_failure():
+            raise RuntimeError("injected DPU launch failure (fault plan)")
         xs = [r.payload for r in group]
         n = len(xs)
         if self._bucket:

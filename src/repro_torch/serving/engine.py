@@ -47,9 +47,15 @@ a cache hit, so the compile-once accounting reads as it does there.
 Composes the knee-driven BucketedBatcher, the SlotScheduler (admission
 order + segment length) and, for `submit_many`, an inline DPU pass. The
 pipelined runtime (serving/runtime.py) feeds `offer()` instead.
+
+A fleet slice (serving/multislice.py) builds its engine with `slice_id`,
+`tenant` and the slice's CUDA `stream`: the engine allocates its slot pool
+and issues every kernel of `step()` on that stream, and its metrics and
+lifecycle events carry the slice and tenant labels.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -226,10 +232,20 @@ class ServingEngine:
                  device: DeviceLike = "cuda",
                  knee_profiles: Optional[Dict[int, Any]] = None,
                  registry: Optional[MetricsRegistry] = None,
-                 tracer: Optional[tm.Tracer] = None):
+                 tracer: Optional[tm.Tracer] = None,
+                 slice_id: Optional[int] = None,
+                 tenant: Optional[str] = None,
+                 stream: Optional[torch.cuda.Stream] = None):
         ec = EngineConfig() if ec is None else ec
         self.cfg = cfg
         self.device = resolve_device(device)
+        if stream is not None and self.device.type != "cuda":
+            raise ValueError("a CUDA stream needs a CUDA device")
+        self.stream = stream
+        if stream is not None:
+            # the weights were written on the caller's stream: order this
+            # engine's first reads after them
+            stream.wait_stream(torch.cuda.current_stream(self.device))
         self.model = model
         self.policy = policy
         self.ec = ec
@@ -238,7 +254,10 @@ class ServingEngine:
         self.dpu = DPU(DpuConfig(), self.device) if ec.preprocess == "dpu" else None
         self.completed: List[Request] = []
         self.batch_exec_s: List[float] = []
-        self._labels = {"slice": "-", "tenant": "-"}
+        self._sid = slice_id
+        self._tenant = tenant
+        self._labels = {"slice": "-" if slice_id is None else str(slice_id),
+                        "tenant": tenant if tenant is not None else "-"}
         self.registry = registry if registry is not None \
             else MetricsRegistry("engine")
         self.tracer = tracer if tracer is not None else tm.Tracer()
@@ -383,8 +402,9 @@ class ServingEngine:
         every chunked admission by one chunk, run one decode segment, retire
         finished rows."""
         now = time.monotonic() if now is None else now
-        progressed = self._step_rtc(now) if not self.ec.continuous \
-            else self._step_pool(now)
+        with self._on_stream():
+            progressed = self._step_rtc(now) if not self.ec.continuous \
+                else self._step_pool(now)
         for k, v in kernels.launch_counts().items():
             self.stats[f"launches_{k}"] = v
         return progressed
@@ -423,6 +443,13 @@ class ServingEngine:
             self._clock = self.ec.max_prompt_len
             self._pool_off[:] = 0
         return progressed
+
+    def _on_stream(self):
+        """The engine's stream as the current one (a slice engine's work
+        and slot-pool allocations stay on its own stream)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     def run_until_idle(self) -> List[Request]:
         while self.busy():
@@ -561,7 +588,8 @@ class ServingEngine:
             self.completed.append(r)
             self._h_lat.observe(done - r.arrival)
             self._h_ttft.observe(done - r.arrival)
-            self.tracer.event(tm.RETIRE, done, rid=r.rid, tokens=len(r.payload))
+            self.tracer.event(tm.RETIRE, done, rid=r.rid, sid=self._sid,
+                              tenant=self._tenant, tokens=len(r.payload))
 
     # --- continuous batching (slot pool + segmented decode) ----------------
     def _free_slots(self) -> int:
@@ -614,7 +642,8 @@ class ServingEngine:
             r.first_token_at = t  # TTFT: prefill emits the first token
             self.stats["prefix_prompt_tokens"] += lens[i]
         self.stats["admitted"] += len(reqs)
-        self.tracer.event(tm.ADMIT, t, bucket=lp, rids=[r.rid for r in reqs])
+        self.tracer.event(tm.ADMIT, t, sid=self._sid, tenant=self._tenant,
+                          bucket=lp, rids=[r.rid for r in reqs])
         self._retire_finished(t)  # budget-1 / instant-EOS requests
 
     # --- chunked prefill ----------------------------------------------------
@@ -746,8 +775,8 @@ class ServingEngine:
         self._shape_use("prefix_scatter", lp, "prefix_scatter_traces")
         self._pool = self.model.scatter_prefix_into_slots(self._pool, dev,
                                                           self._dev(sids), lp)
-        self.tracer.event(tm.PREFIX_SCATTER, t, bucket=lp, rows=len(hits),
-                          tokens=sum(m for _, m, _ in hits))
+        self.tracer.event(tm.PREFIX_SCATTER, t, sid=self._sid, tenant=self._tenant,
+                          bucket=lp, rows=len(hits), tokens=sum(m for _, m, _ in hits))
 
     def _from_host(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         t = torch.from_numpy(a).to(self.device)
@@ -790,7 +819,8 @@ class ServingEngine:
         exec_s = time.monotonic() - t0
         self._observe_exec(exec_s)
         self.stats["prefill_calls"] += 1
-        self.tracer.event(tm.PREFILL_CHUNK, self._stamp(now), bucket=lp, chunk=c,
+        self.tracer.event(tm.PREFILL_CHUNK, self._stamp(now), sid=self._sid,
+                          tenant=self._tenant, bucket=lp, chunk=c,
                           rows=sum(len(a.slots) for a in adms),
                           dur=None if self._virtual else exec_s)
         finished: List[_ChunkAdmission] = []
@@ -843,8 +873,9 @@ class ServingEngine:
         n_active = self.ec.max_slots - self._free_slots()
         self._h_occ.observe(n_active / self.ec.max_slots)
         stamp = now if (self._virtual and now is not None) else done
-        self.tracer.event(tm.DECODE_SEGMENT, stamp, steps=int(steps),
-                          active=n_active, dur=None if self._virtual else exec_s)
+        self.tracer.event(tm.DECODE_SEGMENT, stamp, sid=self._sid, tenant=self._tenant,
+                          steps=int(steps), active=n_active,
+                          dur=None if self._virtual else exec_s)
         for s, st in enumerate(self._slots):
             if st is None or not st.live:
                 continue  # mid-prefill rows produce nothing yet
@@ -881,7 +912,8 @@ class ServingEngine:
             self._h_lat.observe(now - r.arrival)
             if r.first_token_at is not None:
                 self._h_ttft.observe(r.first_token_at - r.arrival)
-            self.tracer.event(tm.RETIRE, now, rid=r.rid, tokens=len(r.payload))
+            self.tracer.event(tm.RETIRE, now, rid=r.rid, sid=self._sid,
+                              tenant=self._tenant, tokens=len(r.payload))
             # the row's prompt K/V (true positions [0, n), which decode never
             # overwrites) is donor material for later shared-prefix hits
             self._prefix_insert_on_retire(s, st)

@@ -541,3 +541,356 @@ def test_engine_decode_launches_once_per_layer_and_step_on_card(cuda):
         assert len(done) == 5 and all(len(r.payload) == 6 for r in done)
         assert kernels.launch_counts()["decode_attention"] == \
             cfg.n_layers * eng.stats["decode_steps"] > 0
+
+
+# --- the within-port contracts at full width (d_model 2048, GQA 32/4,
+# d_ff 5632, vocab 32000; 2 layers, bf16, seeded weights) -------------------
+#
+# Each compares logits and KV bits, under torch's default backend flags:
+# these tests set none, and the package pins none (on the H100 no contract
+# changed with TF32 off and the bf16/fp16 reduced-precision reductions off;
+# PERF.md §6).
+
+CONTRACT_BUDGET = 8
+
+
+@pytest.fixture(scope="module")
+def full_width():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the contracts are held on the card")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models.api import DenseLM
+    from repro_torch.models.params import init_params
+
+    dev = resolve_device("cuda")
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2)
+    assert cfg.dtype == "bfloat16" and cfg.d_model == 2048
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, DenseLM(cfg, init_params(cfg, gen, dev, cfg.dtype)), dev
+
+
+def _prompt(cfg, n, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, n)
+
+
+def _block(cfg, lens, lp, seed, dev):
+    """Left-padded [len(lens), lp] prompt block and its offsets."""
+    toks = np.zeros((len(lens), lp), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, lp - n:] = _prompt(cfg, n, seed + i)
+    off = np.array([lp - n for n in lens], np.int64)
+    return torch.from_numpy(toks).to(dev), torch.from_numpy(off).to(dev)
+
+
+def _kv(pool, row, n):
+    """Row `row` of a pool or prefill cache, true positions [0, n), both leaves."""
+    from repro_torch.models import lm
+
+    k, v = lm._kv_leaves(pool)
+    return torch.stack([k[:, row, :n], v[:, row, :n]])
+
+
+def _assert_bits(got, want, what):
+    assert got.shape == want.shape, what
+    diff = (got.float() - want.float()).abs()
+    assert torch.equal(got, want), (
+        f"{what}: {int((got != want).sum())} of {got.numel()} elements differ, "
+        f"largest difference {float(diff.max()):.3e}")
+
+
+def _step_logits(model, pool, row, tok, pos):
+    """Logits of one more decode step of pool row `row` (a one-row copy of
+    it), at true position `pos` after token `tok`."""
+    from repro_torch.models import lm
+
+    k, v = lm._kv_leaves(pool)
+    one = {"body": {"l0": {"mixer": {"k": k[:, row:row + 1].clone(),
+                                      "v": v[:, row:row + 1].clone()}}}}
+    t = torch.tensor([[int(tok)]], device=k.device)
+    logits, _ = model.decode(one, t, pos)
+    return logits[0, 0]
+
+
+@pytest.mark.gpu
+def test_contract_padded_equals_unpadded_on_card(full_width):
+    """A prompt prefilled alone at its own length == the same prompt
+    left-padded into a larger bucket next to other rows: last-position
+    logits and the K/V at its true positions, bit for bit. On a failure the
+    message also gives the greedy tokens' agreement over 8 generated
+    tokens (the run-to-completion path: prefill, then lm.generate)."""
+    cfg, model, dev = full_width
+    n, lp, steps = 20, 32, CONTRACT_BUDGET
+    alone = torch.from_numpy(_prompt(cfg, n, 1)[None]).to(dev)
+    la, ca = model.prefill(alone, cache_len=n + steps)
+    toks, off = _block(cfg, [n, 30, 7], lp, 1, dev)  # row 0: the same prompt
+    lb, cb = model.prefill(toks, pos_offset=off, cache_len=lp + steps)
+    logits_equal = torch.equal(lb[0], la[0])
+    kv_equal = torch.equal(_kv(cb, 0, n), _kv(ca, 0, n))
+    ta, _ = model.generate(ca, la, n, steps=steps)
+    tb, _ = model.generate(cb, lb, lp, steps=steps, pos_offset=off)
+    agree = int((ta[0] == tb[0]).sum())
+    assert logits_equal and kv_equal, (
+        f"padded != unpadded: logits largest difference "
+        f"{float((lb[0].float() - la[0].float()).abs().max()):.3e}, K/V equal {kv_equal} "
+        f"(largest difference {float((_kv(cb, 0, n).float() - _kv(ca, 0, n).float()).abs().max()):.3e}), "
+        f"greedy tokens agree {agree} of {steps}")
+
+
+def _pool_admit(model, cfg, dev, pool, slot, n, seed, clock):
+    from repro_torch.models import lm
+
+    lp = max(8, 1 << (n - 1).bit_length())
+    toks, off = _block(cfg, [n], lp, seed, dev)
+    tok0, pool = model.prefill_into_slots(toks, pool, torch.tensor([slot], device=dev),
+                                          clock, pos_offset=off)
+    return tok0, pool
+
+
+@pytest.mark.gpu
+def test_contract_join_equals_alone_on_card(full_width):
+    """Request B admitted into a slot while A is mid-decode (another clock,
+    another bucket) decodes as it does alone in the same pool: its tokens,
+    its K/V row, and the logits of its next step, bit for bit."""
+    from repro_torch.models import lm
+
+    cfg, model, dev = full_width
+    ring, nb, steps = 144, 37, CONTRACT_BUDGET
+
+    def serve_b(pool, clock, poff, tok):
+        t0b, pool = _pool_admit(model, cfg, dev, pool, 1, nb, 5, clock)
+        poff[1] = clock - nb
+        tok = tok.clone()
+        tok[1] = t0b[0]
+        seg, pool = model.decode_segment(pool, tok, clock, steps=steps, pos_offset=poff)
+        return seg[1], pool
+
+    pool = lm.alloc_slot_pool(cfg, 2, ring, dev)
+    solo, pool_a = serve_b(pool, 64, torch.tensor([0, 0], device=dev),
+                           torch.zeros(2, 1, dtype=torch.long, device=dev))
+
+    pool = lm.alloc_slot_pool(cfg, 2, ring, dev)
+    clock = 128
+    t0a, pool = _pool_admit(model, cfg, dev, pool, 0, 100, 4, clock)
+    poff = torch.tensor([clock - 100, 0], device=dev)
+    tok = torch.cat([t0a, torch.zeros(1, 1, dtype=torch.long, device=dev)])
+    seg, pool = model.decode_segment(pool, tok, clock, steps=3, pos_offset=poff)
+    clock += 3
+    tok = torch.cat([seg[:1, -1:], torch.zeros(1, 1, dtype=torch.long, device=dev)])
+    joined, pool_j = serve_b(pool, clock, poff, tok)
+
+    _assert_bits(joined, solo, "join tokens")
+    _assert_bits(_kv(pool_j, 1, nb + steps), _kv(pool_a, 1, nb + steps), "join K/V")
+    _assert_bits(_step_logits(model, pool_j, 1, joined[-1], nb + steps),
+                 _step_logits(model, pool_a, 1, solo[-1], nb + steps), "join logits")
+
+
+@pytest.mark.gpu
+def test_contract_chained_segments_equal_sequential_decode_on_card(full_width):
+    """decode_segment(3) then decode_segment(5) == eight single decode
+    steps: tokens, the pool's K/V and the next step's logits, bit for bit."""
+    from repro_torch.models import lm
+
+    cfg, model, dev = full_width
+    clock, lens = 64, (50, 13)
+
+    def admitted():
+        pool = lm.alloc_slot_pool(cfg, 2, 144, dev)
+        toks, off = _block(cfg, list(lens), 64, 7, dev)
+        tok0, pool = model.prefill_into_slots(toks, pool, torch.arange(2, device=dev),
+                                              clock, pos_offset=off)
+        return tok0, pool, torch.tensor([clock - n for n in lens], device=dev)
+
+    tok0, pool_c, poff = admitted()
+    s1, pool_c = model.decode_segment(pool_c, tok0, clock, steps=3, pos_offset=poff)
+    s2, pool_c = model.decode_segment(pool_c, s1[:, -1:], clock + 3, steps=5,
+                                      pos_offset=poff)
+    chained = torch.cat([s1, s2], dim=1)
+    tok, pool_s, poff = admitted()
+    seq = []
+    for i in range(8):
+        logits, pool_s = model.decode(pool_s, tok, clock + i, pos_offset=poff)
+        tok = torch.argmax(logits, -1)
+        seq.append(tok)
+    seq = torch.cat(seq, dim=1)
+    _assert_bits(chained, seq, "chained tokens")
+    for row, n in enumerate(lens):
+        _assert_bits(_kv(pool_c, row, n + 8), _kv(pool_s, row, n + 8), f"row {row} K/V")
+        _assert_bits(_step_logits(model, pool_c, row, chained[row, -1], n + 8),
+                     _step_logits(model, pool_s, row, seq[row, -1], n + 8),
+                     f"row {row} logits")
+
+
+@pytest.mark.gpu
+def test_contract_chunked_equals_monolithic_on_card(full_width):
+    """A 100-token prompt admitted in 32-token chunks == admitted in one
+    prefill: the first token, the K/V at its true positions, and the logits
+    of the next decode step, bit for bit."""
+    from repro_torch.models import lm
+
+    cfg, model, dev = full_width
+    n, lp, c, clock = 100, 128, 32, 128
+    toks, off = _block(cfg, [n], lp, 9, dev)
+    pool_m = lm.alloc_slot_pool(cfg, 2, 144, dev)
+    tok_m, pool_m = model.prefill_into_slots(toks, pool_m, torch.tensor([0], device=dev),
+                                             clock, pos_offset=off)
+    pool_c = lm.alloc_slot_pool(cfg, 2, 144, dev)
+    rows = torch.zeros(2, lp, dtype=torch.long, device=dev)
+    rows[0] = toks[0]
+    roff = torch.tensor([lp - n, lp], device=dev)  # row 1: not in the admission
+    for col in range(0, lp, c):
+        start = torch.tensor([col, 0], device=dev)
+        tok_c, pool_c = model.prefill_chunk_into_slots(rows[:, col:col + c], pool_c, start,
+                                                       pos_offset=roff, lp=lp)
+    _assert_bits(tok_c[:1], tok_m, "chunked first token")
+    _assert_bits(_kv(pool_c, 0, n), _kv(pool_m, 0, n), "chunked K/V")
+    _assert_bits(_step_logits(model, pool_c, 0, tok_c[0, 0], n),
+                 _step_logits(model, pool_m, 0, tok_m[0, 0], n), "chunked logits")
+
+
+def _serve_alone(engine, reqs):
+    """Serve `reqs` to the end; returns {rid: (tokens, pool row)} with each
+    request's pool row as it was when the request retired."""
+    rows = {}
+    orig = engine._retire_finished
+
+    def spy(now):
+        for s, st in enumerate(engine._slots):
+            if st is not None and st.live:
+                rows[st.req.rid] = s
+        orig(now)
+
+    engine._retire_finished = spy
+    engine.submit_many(reqs)
+    done = engine.run_until_idle()
+    torch.cuda.synchronize()
+    mine = {r.rid for r in reqs}
+    return {r.rid: (np.asarray(r.payload), rows[r.rid]) for r in done if r.rid in mine}
+
+
+@pytest.mark.gpu
+def test_contract_prefix_hit_equals_cold_prefill_on_card(full_width):
+    """A request whose prompt shares a 64-token template with an earlier
+    one (its prefix scattered from the radix store, the suffix chunked) ==
+    the same request prefilled cold: tokens, K/V row, next-step logits."""
+    from repro_torch.core.batching.buckets import Request
+    from repro_torch.serving.engine import EngineConfig, build_engine
+
+    cfg, model, dev = full_width
+    template = _prompt(cfg, 64, 11)
+    donor = np.r_[template, _prompt(cfg, 26, 12)]
+    probe = np.r_[template, _prompt(cfg, 36, 13)]
+    base = dict(continuous=True, max_slots=4, segment_len=CONTRACT_BUDGET,
+                max_new_tokens=CONTRACT_BUDGET, max_prompt_len=128, chunk_lens=(32,))
+
+    def req(rid, p):
+        return Request(rid=rid, arrival=0.0, length=float(len(p)), prompt=p)
+
+    hit = build_engine(cfg, ec=EngineConfig(**base, prefix_cache_bytes=64 << 20),
+                       device=dev, params=model.tree())
+    _serve_alone(hit, [req(1, donor)])
+    got = _serve_alone(hit, [req(2, probe)])
+    assert hit.stats["prefix_hits"] == 1 and hit.stats["prefix_hit_tokens"] > 0
+    cold = build_engine(cfg, ec=EngineConfig(**base), device=dev, params=model.tree())
+    want = _serve_alone(cold, [req(2, probe)])
+    n = len(probe) + CONTRACT_BUDGET  # prompt + the 8 decode steps' writes
+    (gt, gs), (wt, ws) = got[2], want[2]
+    np.testing.assert_array_equal(gt, wt)
+    _assert_bits(_kv(hit._pool, gs, n), _kv(cold._pool, ws, n), "prefix K/V")
+    _assert_bits(_step_logits(model, hit._pool, gs, gt[-1], n - 1),
+                 _step_logits(model, cold._pool, ws, wt[-1], n - 1), "prefix logits")
+
+
+def _fleet_requests(lens, model=None, rid0=0):
+    from repro_torch.core.batching.buckets import Request
+
+    return [Request(rid=rid0 + i, arrival=0.0, length=float(n),
+                    max_new_tokens=CONTRACT_BUDGET, model=model)
+            for i, n in enumerate(lens)]
+
+
+# one prompt bucket (33-64 tokens pad to 64) so every admission has one shape
+FLEET_LENS = [48, 33, 61, 40, 57, 36, 64, 45]
+
+
+@pytest.mark.gpu
+def test_contract_multi_slice_equals_single_slice_on_card(full_width):
+    """Two slices, each an engine on its own CUDA stream, sharing one
+    DenseLM == one engine: per request the tokens, the K/V row it left in
+    its slice's pool and the logits of its next step, bit for bit."""
+    from repro_torch.serving.engine import EngineConfig, build_engine
+    from repro_torch.serving.multislice import build_multislice_engine
+
+    cfg, model, dev = full_width
+    ec = EngineConfig(continuous=True, max_slots=8, segment_len=CONTRACT_BUDGET,
+                      max_new_tokens=CONTRACT_BUDGET, max_prompt_len=128)
+    single = build_engine(cfg, ec=ec, device=dev, params=model.tree())
+    want = _serve_alone(single, _fleet_requests(FLEET_LENS))
+    fleet = build_multislice_engine(cfg, n_slices=2, ec=ec, device=dev, params=model)
+    streams = {e.stream for e in fleet.engines.values()}
+    assert len(streams) == 2 and torch.cuda.current_stream(dev) not in streams
+    rows = {}
+    for sid, e in fleet.engines.items():
+        orig = e._retire_finished
+
+        def spy(now, e=e, orig=orig):
+            for s, st in enumerate(e._slots):
+                if st is not None and st.live:
+                    rows[st.req.rid] = (e, s)
+            orig(now)
+
+        e._retire_finished = spy
+    fleet.submit_many(_fleet_requests(FLEET_LENS))
+    done = fleet.run_until_idle()
+    torch.cuda.synchronize()
+    assert sorted(r.rid for r in done) == list(range(len(FLEET_LENS)))
+    assert all(e.stats["admitted"] > 0 for e in fleet.engines.values())
+    for r in done:
+        wt, ws = want[r.rid]
+        e, s = rows[r.rid]
+        n = FLEET_LENS[r.rid] + CONTRACT_BUDGET
+        np.testing.assert_array_equal(np.asarray(r.payload), wt)
+        _assert_bits(_kv(e._pool, s, n), _kv(single._pool, ws, n), f"rid {r.rid} K/V")
+        _assert_bits(_step_logits(model, e._pool, s, wt[-1], n - 1),
+                     _step_logits(model, single._pool, ws, wt[-1], n - 1),
+                     f"rid {r.rid} logits")
+
+
+@pytest.mark.gpu
+def test_two_tenant_fleet_matches_each_tenants_single_engine_on_card(full_width):
+    """Two tenants of one config under two names (seeds 0 and 1), two slices
+    each: every request's tokens equal its own tenant's single engine's,
+    and no request ran on the other tenant's slices."""
+    from repro_torch.serving.engine import EngineConfig, build_engine
+    from repro_torch.serving.multislice import TenantSpec, build_multislice_engine
+
+    cfg, _, dev = full_width
+    ec = EngineConfig(continuous=True, max_slots=8, segment_len=CONTRACT_BUDGET,
+                      max_new_tokens=CONTRACT_BUDGET, max_prompt_len=128)
+    names = ("a", "b")
+    fleet = build_multislice_engine(
+        n_slices=4, ec=ec, device=dev,
+        tenants=[TenantSpec(cfg=cfg, name=nm, n_slices=2, seed=i)
+                 for i, nm in enumerate(names)])
+    reqs = []
+    for i, nm in enumerate(names):
+        reqs += _fleet_requests(FLEET_LENS, model=nm, rid0=100 * i)
+    kernels.reset_launch_counts()
+    fleet.submit_many(reqs)
+    done = fleet.run_until_idle()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == \
+        cfg.n_layers * fleet.decode_steps_total() > 0
+    assert len(done) == 2 * len(FLEET_LENS)
+    for i, nm in enumerate(names):
+        single = build_engine(cfg, seed=i, ec=ec, device=dev)
+        single.submit_many(_fleet_requests(FLEET_LENS, rid0=100 * i))
+        ref = {r.rid: np.asarray(r.payload) for r in single.run_until_idle()}
+        for r in done:
+            if r.model == nm:
+                np.testing.assert_array_equal(np.asarray(r.payload), ref[r.rid])
+        ts = fleet.tenant_stats()[nm]
+        assert ts["completed"] == len(FLEET_LENS)
+        assert set(ts["routed_to"]) <= set(ts["slices"])
