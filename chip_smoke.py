@@ -131,15 +131,45 @@ Phases, each fatal on failure:
    request's tokens equal the single-slice engine's; conservation holds
    over completed, shed and dead; the injector's log is printed, with the
    bytes of slot pools the warm partition cache holds.
+12. knee calibration — launch/serve.py's `_calibrate_knee` (the paper's
+   offline profiling pass, §3.2) on full-width tinyllama-1.1b, bf16, seeded
+   weights: for each context bucket up to the engine's 128-token prompt
+   limit (two 64-token buckets: contexts 32 and 96) a padded context is
+   prefilled and one lm.decode timed with the cache resident at batch 1,
+   2, 4 and 8 (device-synchronized, best of 3). Prints each point's wall
+   ms beside its device ms (torch.profiler over 3 steps), and each
+   bucket's Batch_knee and Time_knee; the profiles are written to
+   build/knee_profiles.json and must read back equal. Decode attention's
+   launches must equal n_layers x the decode steps the pass ran.
+13. controller — PREBA's closed partition loop: a fleet that starts at 1
+   slice (8 KV slots, segment 8, 16 new tokens, so a request spans two
+   engine steps) behind the pipelined runtime and a virtual-clock
+   DpuService, with an online PartitionController (menu 1, 2, 4) and
+   phase 12's knee profiles, driven by faults.replay_virtual at one tick a
+   segment of 8 decode steps (0.036 s). The trace: 48 requests of a phased
+   WorkloadSpec, each with 1 s of 48 kHz audio — a quiet phase of long
+   prompts (4 /s, mean 100 tokens, 0.5 s), then a burst of short ones
+   (400 /s, mean 12 tokens). Replayed twice: the two decision logs and the
+   two sets of tokens must be byte-identical; at least one switch;
+   fleet_reconfigs_total == decisions == reconfig spans; conservation;
+   every rid served once, 0 dead; the audio kernels' launches equal the
+   service's groups and decode attention's n_layers x the decode steps of
+   every engine built. Prints the switches (t, from, to, reason) and the
+   sha256 of decisions_json(). Then the same trace with the analytical knee
+   profiles of the reduced model (the port's CPU test's): its log's sha256
+   must be ANALYTICAL_LOG_SHA256, which tests/test_torch_partition_controller.py
+   pins on the CPU (explicit profiles: the log depends on neither the
+   model's width nor the backend).
 
-In every serve phase (4, 6, 8-11) the decode kernel's launches must equal
+In every serve phase (4, 6, 8-11, 13) the decode kernel's launches must equal
 n_layers x the decode steps the engines executed (their own stats): every
 decode step runs it once per layer. Any serve phase that injected no
 failure fails on a breaker trip or a request served on the CPU path.
 
 Prints one JSON line {"kernels": [...]} (seven kernels; a kernel's launches
-are the sum over the serve phases that run it — decode_attention's over
-all six, the audio kernels' over phases 4, 10 and 11; worst_library_ratio is the
+are the sum over the phases that run it — decode_attention's over the six
+serve phases, the knee pass and the controller's first replay, the audio
+kernels' over phases 4, 10, 11 and 13; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
 where it falls, so a kernel that loses off its main shape shows), the
 card's name and power limit, and last {"ok": true, "device": {...}}. With --out PATH the
@@ -149,6 +179,7 @@ as JSON.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -920,6 +951,7 @@ def decode_step_phase(torch, np, params):
     step = lambda: model.decode(pool, tok, clock, pos_offset=off)  # noqa: E731
     res = {"decode_step_ms": out, "decode_step_ms_turns": times,
            "profile": profile_decode_steps(torch, step, out["kernel"])}
+    print("decode step profile: " + json.dumps(res["profile"]))
     # the candidate pin the contract tests were also run under: bf16 GEMM
     # split-K reductions kept in fp32 (torch's default allows bf16), timed
     # in turns against the default, and profiled
@@ -934,6 +966,7 @@ def decode_step_phase(torch, np, params):
             pin[which].append(steps_ms())
         mm.allow_bf16_reduced_precision_reduction = False
         pinned = profile_decode_steps(torch, step, min(pin["bf16_reduction_in_fp32"]))
+        print("decode step profile: " + json.dumps(pinned))
     finally:
         mm.allow_bf16_reduced_precision_reduction = default
     res["candidate_pin"] = {
@@ -970,7 +1003,6 @@ def profile_decode_steps(torch, step, wall_ms: float, n: int = 5):
            "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / n,
                             "ms_per_step": e.self_device_time_total / 1e3 / n}
                            for e in top]}
-    print("decode step profile: " + json.dumps(res))
     return res
 
 
@@ -1396,6 +1428,204 @@ def chaos_phase(torch, np, model, ec, ref, card):
     print("chaos: " + json.dumps(stats))
     return stats
 
+# --- phases 12-13: knee calibration and the partition controller ------------
+
+CONTROLLER_REQUESTS = 48
+CONTROLLER_MENU = (1, 2, 4)
+# one replay tick is one engine step: a segment of 8 decode steps at the
+# card's 4.45 ms of device time a full-width step (PERF.md §5)
+CONTROLLER_TICK_S = 0.036
+# sha256 of decisions_json() for the controller trace with the reduced
+# model's analytical knee profiles (pinned on the CPU by
+# tests/test_torch_partition_controller.py)
+ANALYTICAL_LOG_SHA256 = "b3a6c0e2297bcad546fca96c6a80fd340588e2f4da80c74c29229107a3908fd4"
+
+
+def controller_ec():
+    """8 KV slots a slice, segment 8, 16 new tokens (two engine steps a
+    request, so a switch finds work in flight), prompts up to 128 tokens."""
+    from repro_torch.serving.engine import EngineConfig
+
+    return EngineConfig(max_new_tokens=16, continuous=True, max_slots=8, segment_len=8,
+                        max_prompt_len=128)
+
+
+def controller_trace(np, vocab: int):
+    """The phased trace: a quiet phase of long prompts (4 /s, mean 100
+    tokens, 0.5 s), then a burst of short ones (400 /s, mean 12 tokens);
+    1 s of 48 kHz audio each. Arrivals and lengths do not depend on vocab."""
+    from repro_torch.serving.requests import Phase, WorkloadSpec, generate_requests
+
+    spec = WorkloadSpec(modality="text", rate_qps=4.0, mean_len=100.0, sigma=0.1,
+                        max_len=120.0, vocab=vocab, payload_samples=48_000, seed=19,
+                        phases=(Phase(0.5, 4.0, mean_len=100.0),
+                                Phase(0.5, 400.0, mean_len=12.0, sigma=0.2, max_len=31.0)))
+    return generate_requests(spec, CONTROLLER_REQUESTS)
+
+
+def analytical_profiles():
+    """The knee profiles a fleet of the reduced model derives by default
+    (the analytical roofline knee per 64-token bucket): explicit here, so a
+    full-width fleet on the card runs the CPU test's cost model."""
+    from repro_torch.configs import reduced
+    from repro_torch.core.batching import analytical_knee, kv_bytes_per_token
+
+    cfg, ec = reduced("tinyllama-1.1b"), controller_ec()
+    return {b: analytical_knee(cfg.active_param_count(), chips=1,
+                               context_len=int((b + 0.5) * ec.bucket_width),
+                               kv_bytes_per_token=kv_bytes_per_token(cfg))
+            for b in range(8)}
+
+
+def controller_replay(torch, np, model, profiles, device):
+    """One virtual-clock replay of the controller trace through a fleet
+    that starts at 1 slice; returns (runtime, controller, completed)."""
+    from repro_torch.core.control import ControllerConfig, PartitionController
+    from repro_torch.core.dpu.runtime import DpuConfig
+    from repro_torch.core.dpu.service import DpuService, DpuServiceConfig
+    from repro_torch.serving.faults import replay_virtual
+    from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime
+
+    service = DpuService(DpuServiceConfig(clock="virtual", dpu=DpuConfig(backend="dpu")),
+                         device=device)
+    ctl = PartitionController(ControllerConfig(menu=CONTROLLER_MENU))
+    rt = build_pipelined_runtime(model.cfg, n_slices=1, ec=controller_ec(), service=service,
+                                 params=model, device=device, controller=ctl,
+                                 knee_profiles=profiles,
+                                 rc=RuntimeConfig(clock="virtual", max_ingest=64))
+    rt.engine.fixed_expected_s = 1.0           # no hedge reads the wall clock
+    done = replay_virtual(rt, controller_trace(np, model.cfg.vocab), tick=CONTROLLER_TICK_S)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    rt.close()
+    return rt, ctl, done
+
+
+def knee_phase(torch, np, card):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.batching.knee import profiles_from_json
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config("tinyllama-1.1b")
+    path = ROOT / "build" / "knee_profiles.json"
+    path.parent.mkdir(exist_ok=True)
+    points = []
+
+    def on_point(batch, context_len, best_s, step):
+        dev = profile_decode_steps(torch, step, 1e3 * best_s, n=3)["device_ms_per_step"]
+        points.append(dict(batch=batch, context_len=context_len, wall_ms=1e3 * best_s,
+                           device_ms=dev))
+        print(f"knee: context {context_len}, batch {batch}: wall {1e3 * best_s:.3f} ms, "
+              f"device {dev:.3f} ms")
+
+    steps = [0]
+    decode = lm.decode
+
+    def counting_decode(*a, **kw):
+        steps[0] += 1
+        return decode(*a, **kw)
+
+    lm.decode = counting_decode
+    kernels.reset_launch_counts()              # the knee pass starts here
+    t0 = time.monotonic()
+    try:
+        profiles = serve._calibrate_knee(cfg, controller_ec(), str(path), max_batch=8,
+                                         device="cuda", on_point=on_point)
+    finally:
+        lm.decode = decode
+    launches = kernels.launch_counts()         # ... and ends here
+    wall = time.monotonic() - t0
+    if sorted(profiles) != [0, 1] or profiles_from_json(path.read_text()) != profiles:
+        fail(f"knee: buckets {sorted(profiles)}, or {path.name} does not read back equal")
+    for b, p in profiles.items():
+        if p.batch_sizes != (1, 2, 4, 8) or not all(0 < x < 10 for x in p.latencies):
+            fail(f"knee: bucket {b} profile {p}")
+    if launches["decode_attention"] != cfg.n_layers * steps[0] or steps[0] <= 0:
+        fail(f"decode_attention: {launches['decode_attention']} launches in the knee pass, "
+             f"{steps[0]} decode steps of {cfg.n_layers} layers")
+    knees = {b: dict(batch_knee=p.batch_knee, time_knee_ms=1e3 * p.time_knee)
+             for b, p in sorted(profiles.items())}
+    for b, k in knees.items():
+        print(f"knee: bucket {b} (context {int((b + 0.5) * 64)}): "
+              f"Batch_knee={k['batch_knee']} Time_knee={k['time_knee_ms']:.3f} ms")
+    stats = dict(card=card, points=points, knees=knees, decode_steps=steps[0],
+                 launches=launches, wall_s=wall)
+    print("knee: " + json.dumps(stats))
+    return stats, profiles
+
+
+def controller_phase(torch, np, model, profiles, card):
+    from repro_torch import kernels
+    from repro_torch.serving import telemetry as tm
+
+    cfg = model.cfg
+    runs = []
+    for _ in range(2):
+        kernels.reset_launch_counts()          # the controller path starts here
+        t0 = time.monotonic()
+        rt, ctl, done = controller_replay(torch, np, model, profiles, "cuda")
+        runs.append((rt, ctl, done, kernels.launch_counts(), time.monotonic() - t0))
+    (rt, ctl, done, launches, wall), (rt2, ctl2, done2, launches2, _) = runs
+    log = ctl.decisions_json()
+    if log != ctl2.decisions_json():
+        fail(f"controller: the two replays' decision logs differ:\n{log}\n"
+             f"{ctl2.decisions_json()}")
+    toks2 = {r.rid: np.asarray(r.payload) for r in done2}
+    for r in done:
+        if r.rid not in toks2 or not np.array_equal(np.asarray(r.payload), toks2[r.rid]):
+            fail(f"controller: request {r.rid} tokens differ between the two replays")
+    if not ctl.decisions:
+        fail("controller: no switch was logged")
+    for x, c in ((rt, ctl), (rt2, ctl2)):
+        n = len(c.decisions)
+        if x.registry.value("fleet_reconfigs_total") != n or len(x.tracer.of(tm.RECONFIG)) != n:
+            fail(f"controller: fleet_reconfigs_total {x.registry.value('fleet_reconfigs_total')}"
+                 f", reconfig spans {len(x.tracer.of(tm.RECONFIG))}, decisions {n}")
+        rids = sorted(r.rid for r in x.completed)
+        if rids != list(range(CONTROLLER_REQUESTS)) or x.dead or x.shed \
+                or not x.conservation_ok():
+            fail(f"controller: served {len(rids)} ({len(set(rids))} distinct) of "
+                 f"{CONTROLLER_REQUESTS}, shed {x.shed_counts()}, dead {x.dead_counts()}")
+        check_no_fallback(x, "controller")
+    for x, _, _, ls, _ in runs:
+        groups = x.service.stats["groups"]
+        for k in kernels.AUDIO_KERNELS:
+            if ls[k] <= 0 or ls[k] != groups:
+                fail(f"{k}: {ls[k]} launches on the controller path, the service "
+                     f"launched {groups} groups")
+        check_decode_launches(ls, cfg, x.engine, "controller path")
+    steps = rt.engine.decode_steps_total()
+    switches = [(d.t, d.from_slices, d.to_slices, d.reason) for d in ctl.decisions]
+    sha = hashlib.sha256(log.encode()).hexdigest()
+    print(f"controller: switches (t, from, to, reason) {switches}; "
+          f"decisions_json sha256 {sha}")
+    rt_a, ctl_a, done_a = controller_replay(torch, np, model, analytical_profiles(), "cuda")
+    sha_a = hashlib.sha256(ctl_a.decisions_json().encode()).hexdigest()
+    print(f"controller, analytical profiles: switches "
+          f"{[(d.t, d.from_slices, d.to_slices, d.reason) for d in ctl_a.decisions]}; "
+          f"decisions_json sha256 {sha_a}")
+    if sha_a != ANALYTICAL_LOG_SHA256:
+        fail(f"controller: the analytical-profile log {ctl_a.decisions_json()} has sha256 "
+             f"{sha_a}, the CPU test pins {ANALYTICAL_LOG_SHA256}")
+    if len(done_a) != CONTROLLER_REQUESTS or rt_a.dead or not rt_a.conservation_ok():
+        fail(f"controller, analytical profiles: served {len(done_a)}, dead "
+             f"{rt_a.dead_counts()}")
+    ms = rt.engine
+    stats = fleet_stats(np, rt, done, wall, launches, steps, card)
+    stats.update(decisions=json.loads(log), decisions_sha256=sha, switches=switches,
+                 reconfigs_total=rt.registry.value("fleet_reconfigs_total"),
+                 reconfig_spans=len(rt.tracer.of(tm.RECONFIG)),
+                 groups=rt.service.stats["groups"], slices_at_end=len(ms.pod.slices),
+                 tokens_equal_across_replays=len(done),
+                 analytical_decisions=json.loads(ctl_a.decisions_json()),
+                 analytical_sha256=sha_a, launches_second_replay=launches2,
+                 warm_cache_bytes=pool_bytes(e for gen in ms._engine_cache.values()
+                                             for e in gen.values()))
+    print("controller: " + json.dumps(stats))
+    return stats
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
@@ -1459,13 +1689,21 @@ def main() -> int:
 
     # 11. the same fleet under a fault plan, on the virtual clock
     chaos_stats = chaos_phase(torch, np, model, fleet_ec, fleet_ref, card)
+
+    # 12. knee profiles measured on the card
+    knee_stats, profiles = knee_phase(torch, np, card)
+
+    # 13. the partition controller resizing the fleet, on phase 12's profiles
+    controller_stats = controller_phase(torch, np, model, profiles, card)
     audio_run = {"launches": {k: sum(st["launches"][k]
-                                     for st in (stats, fleet_stats_, chaos_stats))
+                                     for st in (stats, fleet_stats_, chaos_stats,
+                                                controller_stats))
                               for k in ("audio_resample", "mel_spectrogram",
                                         "audio_normalize")}}
     decode_run = {"launches": {"decode_attention": sum(
         st["launches"]["decode_attention"]
-        for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats))}}
+        for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats,
+                   knee_stats, controller_stats))}}
 
     line = []
     for name, shape_rows, main_of, run in (
@@ -1504,7 +1742,8 @@ def main() -> int:
             {"card": card, "kernels_by_shape": rows + image_rows + decode_rows,
              "serve": stats, "image_serve": image_stats, "rtc_serve": rtc_stats,
              "chunked_prefix_serve": chunk_stats, "decode_step": decode_step,
-             "fleet": fleet_stats_, "chaos": chaos_stats}, indent=1))
+             "fleet": fleet_stats_, "chaos": chaos_stats, "knee": knee_stats,
+             "controller": controller_stats}, indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

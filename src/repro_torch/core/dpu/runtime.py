@@ -9,13 +9,15 @@ Design objectives carried over from the paper:
   3. fine-grained scheduling across CU *types* for audio so Normalize's
      global-stats barrier never stalls Resample+Mel (Fig. 12c).
 
-`DPU.submit` is the event-driven (virtual-clock) interface; `DPU.process`
-and `DPU.process_batch` are the real-execution paths.
+`DPU.submit` is the event-driven (virtual-clock) interface the serving
+simulator and the service's virtual clock use; `DPU.process` and
+`DPU.process_batch` are the real-execution paths. `CpuPreprocessPool` is
+the host-core baseline the simulator compares it with.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -157,3 +159,34 @@ class DPU:
 
     def latency_s(self, x: Any) -> float:
         return sum(p.cu.latency_s(x) for p in self.stages)
+
+
+# ---------------------------------------------------------------------------
+# CPU-baseline preprocessing pool (the paper's bottleneck, §3.3)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class CpuPreprocessPool:
+    """Host-core preprocessing: `n_cores` workers, each non-pipelined (a
+    core runs the whole pipeline per request). Models the paper's saturation:
+    demand scales with the number of active inference servers while the core
+    pool is fixed."""
+
+    n_cores: int
+    cost_per_request_s: Callable[[Any], float]
+    free_at: List[float] = field(default_factory=list)
+
+    def __post_init__(self):
+        self.free_at = [0.0] * self.n_cores
+
+    def submit(self, now: float, x: Any) -> float:
+        i = min(range(self.n_cores), key=lambda j: self.free_at[j])
+        start = max(now, self.free_at[i])
+        done = start + self.cost_per_request_s(x)
+        self.free_at[i] = done
+        return done
+
+    def utilization(self, horizon: float) -> float:
+        busy = sum(min(t, horizon) for t in self.free_at)
+        return busy / (self.n_cores * horizon) if horizon > 0 else 0.0

@@ -14,8 +14,15 @@ shared admission queue; on one card they are logical replicas, not MIG
 instances), or a multi-tenant fleet --tenants tinyllama-1.1b:2,tinyllama-1.1b:2
 (dense model:slices asks; a second tenant of the same arch is named
 arch@1). CPU run of the kernels' plain versions at a reduced size:
---device cpu --reduced. The partition controller and knee calibration are
-not ported yet; their flags are rejected.
+--device cpu --reduced.
+
+The closed partition loop (PREBA's MIG lever): measure the knee profiles
+on the card once, then serve with the online partition controller, which
+resizes the fleet mid-serve between the menu's slice counts:
+
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --calibrate-knee knees.json
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --continuous \
+        --pipelined --preprocess dpu --slices 1 --controller --knee-profiles knees.json
 """
 from __future__ import annotations
 
@@ -40,6 +47,65 @@ def _export(registry, tracer, metrics_out: str, trace_out: str,
         with open(trace_out, "w") as f:
             f.write(tracer.to_json(0.0 if virtual else None))
         print(f"  trace   -> {trace_out}")
+
+
+def _calibrate_knee(cfg, ec, out_path: str, *, max_batch: int,
+                    device="cuda", on_point=None):
+    """The paper's offline profiling pass (§3.2): for every context bucket
+    the engine serves, sweep batch sizes through a REAL timed decode step
+    (seeded weights, a padded context prefilled, then one `lm.decode` timed
+    with the cache resident; every timing bracketed by device
+    synchronization, best of 3) and find the Batch_knee/Time_knee. Writes
+    the {bucket: profile} JSON `--knee-profiles` loads back, and returns
+    the profiles. `on_point(batch, context_len, seconds, step)` sees each
+    measured point with its decode-step closure (a caller may profile it)."""
+    import time
+
+    import torch
+
+    from repro_torch.core.batching.knee import calibrate_knees, profiles_to_json
+    from repro_torch.device import resolve_device
+    from repro_torch.models.api import DenseLM
+    from repro_torch.models.params import init_params
+
+    dev = resolve_device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = DenseLM(cfg, init_params(cfg, gen, dev, cfg.dtype))
+
+    def measure(batch: int, context_len: int) -> float:
+        ctx = max(int(ec.min_prompt_len), context_len)
+        toks = torch.zeros((batch, ctx), dtype=torch.int64, device=dev)
+        _, cache = model.prefill(toks, cache_len=ctx + 2)
+        tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+
+        def step():
+            model.decode(cache, tok, ctx)
+
+        step()                                    # warm: handles, workspaces
+        sync()
+        best = float("inf")
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            step()
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        if on_point is not None:
+            on_point(batch, context_len, best, step)
+        return best
+
+    bw = max(1, int(ec.bucket_width))
+    buckets = list(range(max(1, ec.max_prompt_len // bw)))
+    profiles = calibrate_knees(measure, buckets, bw, max_batch=max_batch)
+    with open(out_path, "w") as f:
+        f.write(profiles_to_json(profiles))
+    for b, p in sorted(profiles.items()):
+        print(f"  bucket {b} (ctx~{int((b + 0.5) * bw)}): "
+              f"Batch_knee={p.batch_knee} "
+              f"Time_knee={1e3 * p.time_knee:.2f}ms")
+    print(f"  knee profiles -> {out_path}")
+    return profiles
 
 
 def _print_fleet(engine, tenanted: bool) -> None:
@@ -105,13 +171,33 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-out", default="",
                     help="write the request-lifecycle timeline as Chrome "
                          "trace-event JSON here")
+    ap.add_argument("--controller", action="store_true",
+                    help="close the resize() loop (--pipelined): an online "
+                         "partition controller watches arrival rate, "
+                         "prompt-length mix and queue depths and re-slices "
+                         "the fleet mid-serve — fine slices for bursts, "
+                         "coarse for long-prompt mixes; its decisions are "
+                         "hysteretic, cost-modeled against the knee "
+                         "profiles, and deterministic under --clock virtual")
+    ap.add_argument("--controller-menu", default="",
+                    help="comma-separated slice counts the controller may "
+                         "pick from (ascending; default '1,2,4'); --slices "
+                         "must be one of them (the starting point)")
+    ap.add_argument("--calibrate-knee", default="", metavar="OUT",
+                    help="run the offline Batch_knee/Time_knee profiling "
+                         "pass on --device (paper §3.2: per context bucket "
+                         "up to the engine's 128-token prompt limit, time a "
+                         "real decode step at batch 1, 2, 4, ... up to "
+                         "--max-slots; knee = where throughput plateaus), "
+                         "write the {bucket: profile} JSON to OUT, then "
+                         "exit; feed it back with --knee-profiles")
+    ap.add_argument("--knee-profiles", default="", metavar="IN",
+                    help="load a --calibrate-knee JSON file and use the "
+                         "measured knees (instead of the analytical "
+                         "data-sheet default) for admission batching and "
+                         "the partition controller's cost model")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
-    # flags of the JAX launcher whose paths are not ported yet: rejected
-    ap.add_argument("--controller", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--controller-menu", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--calibrate-knee", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--knee-profiles", default="", help=argparse.SUPPRESS)
     return ap
 
 
@@ -138,18 +224,26 @@ def _tenant_asks(ap, spec: str):
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, given in (("--controller (partition controller)", args.controller),
-                        ("--controller-menu (partition controller)",
-                         bool(args.controller_menu)),
-                        ("--calibrate-knee (knee calibration)", bool(args.calibrate_knee)),
-                        ("--knee-profiles (measured knees)", bool(args.knee_profiles))):
-        if given:
-            ap.error(f"{flag} is not ported to the PyTorch package yet")
     tenant_asks = _tenant_asks(ap, args.tenants)
     if not tenant_asks and not args.arch:
         ap.error("--arch is required unless --tenants is given")
     if args.slices < 1:
         ap.error(f"--slices must be >= 1 (got {args.slices})")
+    if args.controller and not args.pipelined:
+        ap.error("--controller closes the loop over the pipelined runtime; "
+                 "add --pipelined")
+    if args.calibrate_knee and not args.arch:
+        ap.error("--calibrate-knee needs --arch (one model per pass)")
+    try:
+        menu = tuple(int(x) for x in args.controller_menu.split(",")
+                     if x.strip()) or (1, 2, 4)
+    except ValueError:
+        ap.error(f"--controller-menu takes comma-separated slice counts "
+                 f"(got {args.controller_menu!r})")
+    n_asked = sum(n for _, n in tenant_asks) if tenant_asks else args.slices
+    if args.controller and n_asked not in menu:
+        ap.error(f"--slices {n_asked} must be on the controller menu {menu} "
+                 f"(it is the starting point)")
     chunk_lens = tuple(int(c) for c in args.chunk_lens.split(",") if c.strip())
     for c in chunk_lens:
         # fail at parse time, not mid-serve: admission asserts pow2
@@ -176,6 +270,22 @@ def main(argv=None):
         preprocess=args.preprocess if not args.pipelined else "none",
         chunk_lens=chunk_lens,
     )
+    if args.calibrate_knee:
+        _calibrate_knee(cfg, ec, args.calibrate_knee, max_batch=args.max_slots,
+                        device=args.device)
+        return
+
+    knee_profiles = None
+    if args.knee_profiles:
+        from repro_torch.core.batching.knee import profiles_from_json
+
+        try:
+            with open(args.knee_profiles) as f:
+                knee_profiles = profiles_from_json(f.read())
+        except (OSError, ValueError, KeyError) as e:
+            ap.error(f"--knee-profiles {args.knee_profiles}: {e!r}")
+        print(f"  knee profiles <- {args.knee_profiles} "
+              f"({len(knee_profiles)} context buckets)")
     samples = 48000 if args.preprocess == "dpu" else 0
     tenants = None
     if tenant_asks:
@@ -217,11 +327,17 @@ def main(argv=None):
             # launches); the numpy backend is the inline baseline
             service = DpuService(DpuServiceConfig(
                 clock=args.clock, dpu=DpuConfig(backend="dpu")), device=args.device)
+        controller = None
+        if args.controller:
+            from repro_torch.core.control import ControllerConfig, PartitionController
+
+            controller = PartitionController(ControllerConfig(menu=menu))
         rt = build_pipelined_runtime(
             cfg, n_slices=n_slices, ec=ec, service=service, device=args.device,
             rc=RuntimeConfig(clock=args.clock, slo_s=args.slo,
                              max_ingest=max(64, 2 * args.requests)),
             hedge_factor=args.hedge_factor, tenants=tenants,
+            controller=controller, knee_profiles=knee_profiles,
         )
         t0 = time.monotonic()
         if args.clock == "virtual":
@@ -251,6 +367,13 @@ def main(argv=None):
               f"slots={occ['slots']:.3f}")
         if isinstance(rt.engine, MultiSliceEngine):
             _print_fleet(rt.engine, tenants is not None)
+        if controller is not None:
+            print(f"  controller: {len(controller.decisions)} reconfiguration(s), "
+                  f"fleet now {len(rt.engine.pod.slices)} slice(s)")
+            for d in controller.decisions:
+                print(f"    t={d.t:.3f}s {d.from_slices}->{d.to_slices} "
+                      f"[{d.reason}] demand={d.demand} "
+                      f"gain={d.gain_frac:.2f} requeued={d.requeued}")
         print(f"  kernel launches: {kernels.launch_counts()}")
         _export(rt.registry, rt.tracer, args.metrics_out, args.trace_out,
                 args.clock == "virtual")
@@ -260,7 +383,8 @@ def main(argv=None):
         from repro_torch.serving.multislice import build_multislice_engine
 
         engine = build_multislice_engine(cfg, n_slices=n_slices, ec=ec, device=args.device,
-                                         hedge_factor=args.hedge_factor, tenants=tenants)
+                                         hedge_factor=args.hedge_factor, tenants=tenants,
+                                         knee_profiles=knee_profiles)
         engine.submit_many(reqs)
         done = engine.run_until_idle()
         lats = [r.completed_at - r.dispatched_at for r in done]

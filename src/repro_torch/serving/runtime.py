@@ -66,7 +66,10 @@ Clocks: `clock="virtual"` is deterministic (tests/replay drive `now`
 explicitly; idle gaps jump to the next modeled event). `clock="wall"` is
 real serving (launch/serve.py --pipelined).
 
-Not ported yet (the JAX runtime has it): the online partition controller.
+Partition control: an optional `PartitionController`
+(core/control/partition.py) observes every front-door arrival, is polled
+once per step(), and calls the fleet's resize() mid-trace when its
+hysteresis and knee cost model clear — the closed reconfiguration loop.
 """
 from __future__ import annotations
 
@@ -110,7 +113,7 @@ class PipelinedRuntime:
     (single- or multi-slice) and an optional DpuService."""
 
     def __init__(self, engine: Engine, service: Optional[DpuService] = None,
-                 rc: Optional[RuntimeConfig] = None):
+                 rc: Optional[RuntimeConfig] = None, controller=None):
         rc = RuntimeConfig() if rc is None else rc
         if rc.clock not in ("virtual", "wall"):
             raise ValueError(f"unknown clock mode {rc.clock!r}")
@@ -165,6 +168,12 @@ class PipelinedRuntime:
             for k in _STAGES
         }
         self._pre_busy = self.registry.histogram("runtime_dpu_busy")
+        # optional online partition controller: observes front-door
+        # arrivals and is polled once per step(); when its hysteresis and
+        # cost model clear, it drives engine.resize() mid-trace
+        self.controller = controller
+        if controller is not None:
+            controller.bind(self)
         self._now = 0.0                 # virtual-clock high-water mark
         # EMA of the engine's per-dispatch execution times (admit/chunk/
         # segment calls) feeding the decode-backlog SLO estimate; the
@@ -254,6 +263,11 @@ class PipelinedRuntime:
         modality = self.service.cfg.dpu.modality if check else "audio"
         for r in reqs:
             self.stats["submitted"] += 1
+            if self.controller is not None:
+                # the controller windows OFFERED load (shed included): a
+                # shed storm is exactly the signal that the current
+                # partitioning is wrong for the traffic
+                self.controller.observe(r, now)
             if check and r.payload is not None \
                     and payload_error(r.payload, modality) is not None:
                 self._shed(r, ShedReason.MALFORMED, "shed_malformed", now)
@@ -299,6 +313,13 @@ class PipelinedRuntime:
         # this tick (deterministic on the virtual clock)
         if self.injector is not None:
             self.injector.step(self, now)
+
+        # partition-control poll — a firing decision calls engine.resize()
+        # BEFORE this tick's decode step, so the drained backlog requeues
+        # and redispatches onto the new slice layout within the same tick
+        if self.controller is not None:
+            if self.controller.maybe_reconfigure(now) is not None:
+                progressed = True
 
         # stages 4+5 — decode + emit: the engine's own admit -> segment ->
         # retire iteration. A drained multi-slice engine still steps while
@@ -589,6 +610,10 @@ class PipelinedRuntime:
             t = self.injector.next_at()
             if t is not None:
                 ts.append(t)
+        if self.controller is not None:
+            t = self.controller.next_wakeup()
+            if t is not None and t > self._now:
+                ts.append(t)
         return min(ts) if ts else None
 
     def _sample(self) -> None:
@@ -638,6 +663,8 @@ class PipelinedRuntime:
         self._brk_consec = 0
         self._proc_mark = 0
         self._exec_seen = 0
+        if self.controller is not None:
+            self.controller.reset()
 
     def reset_metrics(self) -> None:
         """One registry-wide reset (warmup boundary): every counter and
@@ -652,7 +679,8 @@ def build_pipelined_runtime(
     params=None, hedge_factor: float = 3.0,
     max_retries: int = 3, retry_backoff_s: float = 0.0,
     watchdog_rounds: int = 0, probe_interval_s: float = 0.0,
-    tenants=None, knee_profiles=None, device: DeviceLike = "cuda",
+    tenants=None, controller=None, knee_profiles=None,
+    device: DeviceLike = "cuda",
 ) -> PipelinedRuntime:
     """One continuous-batching engine (or a multi-slice fleet) behind the
     pipelined stages, on `device`. The engine's own inline DPU pass is
@@ -663,7 +691,9 @@ def build_pipelined_runtime(
     runtimes have no slice to lose. Pass `tenants=[TenantSpec(...), ...]`
     (serving/multislice.py) instead of `cfg` for a multi-tenant fleet —
     per-tenant EngineConfig overrides are normalized the same way the
-    fleet default is (continuous, no inline preprocessing)."""
+    fleet default is (continuous, no inline preprocessing). A `controller`
+    (core/control/partition.py) is bound to the runtime; it needs a
+    resizable fleet, so one is built even at n_slices=1."""
     from dataclasses import replace as dc_replace
 
     from repro_torch.models.api import DenseLM
@@ -683,10 +713,12 @@ def build_pipelined_runtime(
             for t in tenants
         ]
         engine: Engine = build_multislice_engine(tenants=tenants, **fleet)
-    elif n_slices > 1:
+    elif n_slices > 1 or controller is not None:
+        # a partition controller needs a resizable fleet even when the
+        # starting menu point is a single coarse slice
         engine = build_multislice_engine(cfg, params=params, **fleet)
     else:
         if isinstance(params, DenseLM):
             params = params.tree()
         engine = build_engine(cfg, seed=seed, ec=ec, device=device, params=params)
-    return PipelinedRuntime(engine, service, rc)
+    return PipelinedRuntime(engine, service, rc, controller=controller)

@@ -894,3 +894,88 @@ def test_two_tenant_fleet_matches_each_tenants_single_engine_on_card(full_width)
         ts = fleet.tenant_stats()[nm]
         assert ts["completed"] == len(FLEET_LENS)
         assert set(ts["routed_to"]) <= set(ts["slices"])
+
+
+# --- the closed partition loop on the card ------------------------------------
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_controller_resizes_the_fleet_deterministically_on_card(full_width):
+    """chip_smoke.py's controller trace at full width, 2 layers: the
+    analytical-profile decision log is the CPU test's pin (width and backend
+    do not enter it), two replays agree on the log and on every token, each
+    rid is served once, and the kernels ran on every step of every engine
+    the resizes built."""
+    import hashlib
+
+    cs = _chip_smoke()
+    cfg, model, _ = full_width
+    runs = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        rt, ctl, done = cs.controller_replay(torch, np, model, cs.analytical_profiles(), "cuda")
+        runs.append((rt, ctl, done, kernels.launch_counts()))
+    (rt, ctl, done, counts), (_, ctl2, done2, _) = runs
+    text = ctl.decisions_json()
+    assert text == ctl2.decisions_json()
+    assert hashlib.sha256(text.encode()).hexdigest() == cs.ANALYTICAL_LOG_SHA256
+    assert sorted(r.rid for r in done) == list(range(cs.CONTROLLER_REQUESTS))
+    assert rt.conservation_ok() and not rt.dead and not rt.shed
+    assert rt.engine.stats["requeued"] >= 1 and len(rt.engine.pod.slices) > 1
+    want = {r.rid: np.asarray(r.payload) for r in done2}
+    for r in done:
+        np.testing.assert_array_equal(np.asarray(r.payload), want[r.rid])
+    assert counts["decode_attention"] == cfg.n_layers * rt.engine.decode_steps_total() > 0
+    assert all(counts[k] == rt.service.stats["groups"] > 0 for k in kernels.AUDIO_KERNELS)
+
+
+@pytest.mark.gpu
+def test_calibrate_knee_on_card_writes_what_knee_profiles_reads(full_width, tmp_path):
+    from repro_torch.core.batching.knee import profiles_from_json
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import EngineConfig
+
+    cfg, _, _ = full_width
+    path = tmp_path / "knees.json"
+    kernels.reset_launch_counts()
+    seen = []
+    profiles = serve._calibrate_knee(
+        cfg, EngineConfig(max_prompt_len=128), str(path), max_batch=4, device="cuda",
+        on_point=lambda b, ctx, s, step: seen.append((b, ctx, s)))
+    assert sorted(profiles) == [0, 1] and profiles_from_json(path.read_text()) == profiles
+    assert [(b, ctx) for b, ctx, _ in seen] == [(b, c) for c in (32, 96) for b in (1, 2, 4)]
+    assert all(0 < s < 1 for _, _, s in seen)
+    # a warm-up and three timed decode steps a point, each one launch a layer
+    assert kernels.launch_counts()["decode_attention"] == cfg.n_layers * 4 * len(seen)
+
+
+@pytest.mark.gpu
+def test_simulate_on_card_equals_the_cpu(cuda):
+    """The simulator is a host-side cost model: on the card it launches
+    nothing and gives the CPU's result."""
+    from repro_torch.core.batching.policy import BatchPolicy
+    from repro_torch.serving.requests import WorkloadSpec, generate_requests
+    from repro_torch.serving.simulator import SimConfig, simulate
+
+    def run(device):
+        reqs = generate_requests(WorkloadSpec(rate_qps=300.0, seed=2), 200)
+        pol = BatchPolicy(batch_max={0: 4, 1: 8}, time_queue=0.004, time_knee=0.02,
+                          n_slices=4, bucket_width=2.5)
+        res = simulate(reqs, pol, lambda b: 0.004 + 0.001 * b.size, lambda n: 0.002 * n,
+                       SimConfig(n_slices=4, preprocess="dpu"), device=device)
+        return [(r.rid, r.completed_at) for r in res.completed], res.batch_sizes
+
+    kernels.reset_launch_counts()
+    assert run("cuda") == run("cpu")
+    assert not any(kernels.launch_counts().values())

@@ -257,7 +257,9 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py",
+                                   "src/repro_torch/core/control/partition.py",
+                                   "src/repro_torch/serving/simulator.py"])
 def test_port_imports_neither_jax_nor_the_jax_package(where):
     paths = sorted((ROOT / where).rglob("*.py")) if (ROOT / where).is_dir() else [ROOT / where]
     assert paths
