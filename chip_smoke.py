@@ -109,7 +109,7 @@ Phases, each fatal on failure:
    the monolithic path's logits at that step); the count is printed.
 
 10. fleet — PREBA's multi-slice system shape: 4 slices, each an engine
-   with 8 KV slots on its own CUDA stream, all serving one DenseLM, behind
+   with 8 KV slots on its own CUDA stream, all serving one LM, behind
    the pipelined runtime and one wall-clock DpuService. 32 requests carry
    48 kHz audio (1 s) and prompts of 33-63 tokens (mean 48; one prompt
    bucket, so every admission has one shape), 8 new tokens each,
@@ -161,15 +161,38 @@ Phases, each fatal on failure:
    pins on the CPU (explicit profiles: the log depends on neither the
    model's width nor the backend).
 
-In every serve phase (4, 6, 8-11, 13) the decode kernel's launches must equal
-n_layers x the decode steps the engines executed (their own stats): every
-decode step runs it once per layer. Any serve phase that injected no
-failure fails on a breaker trip or a request served on the CPU path.
+14. two-model fleet — PREBA's multi-tenant shape, bench part 8's
+   (benchmarks/bench_engine.py): full-width tinyllama-1.1b (phase 4's
+   weights) and full-width mamba2-370m (48 layers, d_model 1,024, 32 SSM
+   heads of 64, state 128; bf16, seed-0 weights), 2 slices each (8 slots,
+   segment 8, 16 new tokens), behind the pipelined runtime and a wall-clock
+   DpuService. 32 requests with 1 s of 48 kHz audio, one Poisson stream a
+   tenant at 40 /s merged by the multi-tenant generator, prompts lognormal
+   (mean 24, sigma 0.05) in the one (16, 32] bucket, submitted as their
+   arrival times pass. Gates: every request served once per tenant, 0 shed,
+   0 dead; every rid's tokens equal its model's single-slice engine bit for
+   bit; the routing audit shows no cross-tenant dispatch; no request on
+   the CPU path; the audio kernels launch once a DPU group, decode
+   attention 22 x the tinyllama tenant's decode steps (a mamba2 step
+   launches none). Prints per tenant tokens/s, latency and TTFT p50/p99.
+   Before the fleet: ssd_chunked against the sequential ssm_step
+   recurrence in fp32 at mamba2's head shapes, L in {32, 64} (rtol = atol
+   = 2e-3); the within-port SSM contracts at full width, 2 layers, bf16,
+   bit for bit on tokens, conv and state rows and the next step's logits
+   (join == alone, chained == sequential and multi-slice == single-slice
+   gate; padded == unpadded is printed); and one full-width mamba2 decode
+   step at batch 8, its wall ms and a torch.profiler pass.
+
+In every serve phase (4, 6, 8-11, 13, 14) the decode kernel's launches must
+equal n_layers x the decode steps the engines executed (their own stats;
+in phase 14 the tinyllama tenant's): every attention decode step runs it
+once per layer. Any serve phase that injected no failure fails on a
+breaker trip or a request served on the CPU path.
 
 Prints one JSON line {"kernels": [...]} (seven kernels; a kernel's launches
-are the sum over the phases that run it — decode_attention's over the six
+are the sum over the phases that run it — decode_attention's over the seven
 serve phases, the knee pass and the controller's first replay, the audio
-kernels' over phases 4, 10, 11 and 13; worst_library_ratio is the
+kernels' over phases 4, 10, 11, 13 and 14; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
 where it falls, so a kernel that loses off its main shape shows), the
 card's name and power limit, and last {"ok": true, "device": {...}}. With --out PATH the
@@ -289,14 +312,17 @@ def check_no_fallback(rt, where: str) -> None:
              f"{rt.stats['cpu_fallback']} with no failure injected")
 
 
-def check_decode_launches(launches, cfg, engine, where: str) -> int:
+def check_decode_launches(launches, cfg, engine, where: str, tenant=None) -> int:
     """The decode kernel ran once per layer on every decode step the engine
-    (a fleet: every engine it built) executed; returns that step count."""
+    (a fleet: every engine it built; with `tenant`, every engine of that
+    attention tenant, the fleet's only one) executed; returns that step
+    count."""
     total = getattr(engine, "decode_steps_total", None)
-    steps = total() if total is not None else engine.stats["decode_steps"]
+    steps = total(tenant) if total is not None else engine.stats["decode_steps"]
     if steps <= 0 or launches["decode_attention"] != cfg.n_layers * steps:
         fail(f"decode_attention: {launches['decode_attention']} launches on the {where}, "
-             f"the engine executed {steps} decode steps of {cfg.n_layers} layers")
+             f"the engine{'' if tenant is None else ' tenant ' + tenant} executed {steps} "
+             f"decode steps of {cfg.n_layers} layers")
     return steps
 
 
@@ -914,10 +940,10 @@ def decode_step_phase(torch, np, params):
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import ops
     from repro_torch.models import lm
-    from repro_torch.models.api import DenseLM
+    from repro_torch.models.api import LM
 
     cfg = get_config("tinyllama-1.1b")
-    model = DenseLM(cfg, params)
+    model = LM(cfg, params)
     gen = torch.Generator(device="cuda").manual_seed(3)
     pool = lm.alloc_slot_pool(cfg, 8, 144, torch.device("cuda"))
     for leaf in lm._kv_leaves(pool):
@@ -1232,12 +1258,12 @@ def fleet_phase(torch, np, params, card):
     from repro_torch.core.dpu.runtime import DpuConfig
     from repro_torch.core.dpu.service import DpuService, DpuServiceConfig
     from repro_torch.kernels import ops
-    from repro_torch.models.api import DenseLM
+    from repro_torch.models.api import LM
     from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime
 
     cfg = get_config("tinyllama-1.1b")
-    model = DenseLM(cfg, params)           # one DenseLM, every slice serves it
+    model = LM(cfg, params)  # one LM, every slice serves it
     ec = EngineConfig(max_new_tokens=8, continuous=True, max_slots=8, segment_len=8,
                       max_prompt_len=128)
     service = DpuService(DpuServiceConfig(clock="wall", dpu=DpuConfig(backend="dpu")),
@@ -1259,7 +1285,7 @@ def fleet_phase(torch, np, params, card):
     streams = {id(e.stream) for e in ms.engines.values()}
     if len(streams) != FLEET_SLICES or any(e.model is not model for e in ms.engines.values()):
         fail(f"fleet: {len(streams)} streams for {FLEET_SLICES} slices, or a slice "
-             f"serves another DenseLM")
+             f"serves another LM")
 
     def drive(reqs):
         t0 = time.monotonic()
@@ -1317,10 +1343,10 @@ def fleet_phase(torch, np, params, card):
 
 
 def pool_bytes(engines) -> int:
-    """Bytes of the slot pools these engines hold on the card."""
-    from repro_torch.models import lm
-
-    return sum(sum(t.numel() * t.element_size() for t in lm._kv_leaves(e._pool))
+    """Bytes of the slot pools these engines hold on the card (K/V rings,
+    or an SSM's conv tails and states)."""
+    return sum(sum(t.numel() * t.element_size()
+                   for t in e._pool["body"]["l0"]["mixer"].values())
                for e in engines if e.slot_capacity() and e._pool is not None)
 
 
@@ -1627,6 +1653,463 @@ def controller_phase(torch, np, model, profiles, card):
     return stats
 
 
+# --- phase 14: PREBA's two-model fleet (tinyllama + mamba2) at full width ---
+
+MT_TENANT_A, MT_TENANT_B = "tinyllama-1.1b", "mamba2-370m"
+MT_REQUESTS, MT_RATE, MT_SLICES_EACH, MT_MAX_NEW = 32, 40.0, 2, 16
+MT_MEAN_LEN, MT_SIGMA = 24.0, 0.05   # lognormal prompts, all in the (16, 32] bucket
+SSD_TOL = (2e-3, 2e-3)               # rtol, atol: the JAX package's own SSD test tolerance
+SSM_CONTRACT_BUDGET = 8
+SSM_FLEET_LENS = [24, 17, 31, 20, 28, 19, 32, 22]   # one (16, 32] prompt bucket
+
+
+def mt_specs(cfgs, seed0: int = 61):
+    """Bench part 8's traffic (benchmarks/bench_engine.py, `_mt_specs`): one
+    Poisson stream per tenant at 40 /s, tenants in name order with seeds
+    seed0 + k, prompts lognormal (mean 24, sigma 0.05) capped at 32 tokens,
+    merged by the shared multi-tenant generator; each request also carries
+    1 s of 48 kHz audio for the DPU."""
+    from repro_torch.serving.requests import WorkloadSpec
+
+    return [(WorkloadSpec(modality="text", rate_qps=MT_RATE, mean_len=MT_MEAN_LEN,
+                          sigma=MT_SIGMA, max_len=32.0, vocab=c.vocab, model=name,
+                          seed=seed0 + k, payload_samples=48_000), 1.0)
+            for k, (name, c) in enumerate(sorted(cfgs.items()))]
+
+
+def ssd_check(torch, np, cfg):
+    """ssd_chunked against the sequential ssm_step recurrence, on the card in
+    fp32 at the config's head shapes (h, p, n) and L in {32, 64}: with the
+    config's chunk (one chunk) and with 16 (several, the inter-chunk scan).
+    Tolerance SSD_TOL on the outputs and the final state."""
+    from repro_torch.models import layers as L
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    b, h, p, n, g = 2, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
+    rows = []
+    for length in (32, 64):
+        x = torch.randn(b, length, h, p, generator=gen, device=dev)
+        dt = 0.001 + 0.1 * torch.rand(b, length, h, generator=gen, device=dev)
+        A = -(0.5 + 4.0 * torch.rand(h, generator=gen, device=dev))
+        Bm = torch.randn(b, length, g, n, generator=gen, device=dev)
+        Cm = torch.randn(b, length, g, n, generator=gen, device=dev)
+        st = torch.zeros(b, h, p, n, device=dev)
+        ys = []
+        for t in range(length):
+            y1, st = L.ssm_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t], st)
+            ys.append(y1)
+        y_seq = torch.stack(ys, dim=1)
+        for chunk in (cfg.ssm_chunk, 16):
+            y, fin = L.ssd_chunked(x, dt, A, Bm, Cm, chunk)
+            ok = all(bool(torch.isfinite(a).all()) and torch.allclose(
+                a, want, rtol=SSD_TOL[0], atol=SSD_TOL[1]) for a, want in ((y, y_seq), (fin, st)))
+            rows.append(dict(L=length, chunk=chunk, h=h, p=p, n=n,
+                             y_max_abs_err=float((y - y_seq).abs().max()),
+                             y_max_abs=float(y_seq.abs().max()),
+                             state_max_abs_err=float((fin - st).abs().max()), ok=ok))
+            if not ok:
+                fail(f"ssd_chunked differs from the ssm_step recurrence on the card: {rows[-1]}")
+    print("ssd vs recurrence: " + json.dumps(rows))
+    return rows
+
+
+# The within-port SSM contracts at full width (d_model 1024, 32 heads of 64,
+# state 128; 2 layers, bf16, seeded weights), bit for bit on tokens, the
+# conv tail and state rows, and the next step's logits. tests/test_torch_card.py
+# runs each of them as a gpu test.
+
+
+def ssm_contract_model(torch, n_layers: int = 2):
+    """(cfg, LM, device): mamba2-370m at full width, n_layers layers, bf16,
+    the weights of seed 0."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import LM
+    from repro_torch.models.params import init_params
+
+    dev = torch.device("cuda")
+    cfg = replace(get_config(MT_TENANT_B), n_layers=n_layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, LM(cfg, init_params(cfg, gen, dev, cfg.dtype)), dev
+
+
+def _bits(torch, got, want) -> dict:
+    d = (got.float() - want.float()).abs()
+    return dict(equal=bool(torch.equal(got, want)), differing=int((got != want).sum()),
+                max_diff=float(d.max()))
+
+
+def _ssm_row(pool, row):
+    """Pool row `row` as a one-row pool (its conv tail and state, every layer)."""
+    m = pool["body"]["l0"]["mixer"]
+    return {"body": {"l0": {"mixer": {k: v[:, row:row + 1].clone() for k, v in m.items()}}}}
+
+
+def _ssm_compare(torch, model, got_row, want_row, got_tok, want_tok) -> dict:
+    """Tokens, conv and state rows, and the logits of one more decode step
+    from each row (a copy), bit for bit."""
+    gm, wm = got_row["body"]["l0"]["mixer"], want_row["body"]["l0"]["mixer"]
+    out = {"tokens": _bits(torch, got_tok, want_tok),
+           "conv": _bits(torch, gm["conv"], wm["conv"]),
+           "state": _bits(torch, gm["state"], wm["state"])}
+    lg = []
+    dev = gm["state"].device
+    for row, tok in ((got_row, got_tok), (want_row, want_tok)):
+        t = tok.reshape(-1)[-1:].reshape(1, 1).to(dev)
+        lg.append(model.decode(_ssm_row(row, 0), t, 0)[0][0, 0])
+    out["logits"] = _bits(torch, lg[0], lg[1])
+    out["equal"] = all(v["equal"] for v in out.values())
+    return out
+
+
+def _ssm_block(torch, np, cfg, lens, lp, seed, dev):
+    """Left-padded [len(lens), lp] prompt block and its offsets."""
+    toks = np.zeros((len(lens), lp), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, lp - n:] = np.random.default_rng(seed + i).integers(0, cfg.vocab, n)
+    off = np.array([lp - n for n in lens], np.int64)
+    return torch.from_numpy(toks).to(dev), torch.from_numpy(off).to(dev)
+
+
+def ssm_contract_padded(torch, np, cfg, model, dev) -> dict:
+    """A 20-token prompt prefilled alone == left-padded into a 3 x 32
+    bucket next to two others: last-position logits, conv tail and state,
+    and generate's 8 tokens."""
+    n, lp, steps = 20, 32, SSM_CONTRACT_BUDGET
+    alone, _ = _ssm_block(torch, np, cfg, [n], n, 1, dev)
+    la, ca = model.prefill(alone)
+    toks, off = _ssm_block(torch, np, cfg, [n, 30, 7], lp, 1, dev)
+    lb, cb = model.prefill(toks, pos_offset=off)
+    ta, _ = model.generate(_ssm_row(ca, 0), la, n, steps=steps)
+    tb, _ = model.generate(_ssm_row(cb, 0), lb[:1], lp, steps=steps, pos_offset=off[:1])
+    ca_m, cb_m = ca["body"]["l0"]["mixer"], cb["body"]["l0"]["mixer"]
+    out = {"last_logits": _bits(torch, lb[0], la[0]),
+           "conv": _bits(torch, cb_m["conv"][:, :1], ca_m["conv"]),
+           "state": _bits(torch, cb_m["state"][:, :1], ca_m["state"]),
+           "tokens_agree": int((ta[0] == tb[0]).sum()), "tokens": steps}
+    out["equal"] = all(out[k]["equal"] for k in ("last_logits", "conv", "state"))
+    return out
+
+
+def ssm_contract_join(torch, np, cfg, model, dev) -> dict:
+    """Request B admitted into slot 1 while A decodes in slot 0 (slot 1
+    already advanced by A's segment: an SSM decode step runs every row)
+    == B served alone in a fresh pool: tokens, rows, next logits."""
+    from repro_torch.models import lm
+
+    nb, steps = 27, SSM_CONTRACT_BUDGET
+
+    def serve_b(pool, clock, tok, off_a):
+        toks, off = _ssm_block(torch, np, cfg, [nb], 32, 5, dev)
+        t0b, pool = model.prefill_into_slots(toks, pool, torch.tensor([1], device=dev),
+                                             clock, pos_offset=off)
+        poff = torch.tensor([off_a, clock - nb], device=dev)
+        tok = tok.clone()
+        tok[1] = t0b[0]
+        seg, pool = model.decode_segment(pool, tok, clock, steps=steps, pos_offset=poff)
+        return seg[1], pool
+
+    zero = torch.zeros(2, 1, dtype=torch.long, device=dev)
+    solo, pool_s = serve_b(lm.alloc_slot_pool(cfg, 2, 64, dev), 32, zero, 0)
+    pool = lm.alloc_slot_pool(cfg, 2, 64, dev)
+    toks, off = _ssm_block(torch, np, cfg, [20], 32, 4, dev)
+    t0a, pool = model.prefill_into_slots(toks, pool, torch.tensor([0], device=dev), 32,
+                                         pos_offset=off)
+    tok = torch.cat([t0a, zero[:1]])
+    seg, pool = model.decode_segment(pool, tok, 32, steps=3,
+                                     pos_offset=torch.tensor([12, 0], device=dev))
+    tok = torch.cat([seg[:1, -1:], zero[:1]])
+    joined, pool_j = serve_b(pool, 35, tok, 12)
+    return _ssm_compare(torch, model, _ssm_row(pool_j, 1), _ssm_row(pool_s, 1), joined, solo)
+
+
+def ssm_contract_chained(torch, np, cfg, model, dev) -> dict:
+    """decode_segment(3) then decode_segment(5) == eight single decode
+    steps, for both rows of an admitted pair."""
+    from repro_torch.models import lm
+
+    lens, clock = (30, 13), 32
+
+    def admitted():
+        pool = lm.alloc_slot_pool(cfg, 2, 64, dev)
+        toks, off = _ssm_block(torch, np, cfg, list(lens), 32, 7, dev)
+        tok0, pool = model.prefill_into_slots(toks, pool, torch.arange(2, device=dev),
+                                              clock, pos_offset=off)
+        return tok0, pool, torch.tensor([clock - n for n in lens], device=dev)
+
+    tok0, pool_c, poff = admitted()
+    s1, pool_c = model.decode_segment(pool_c, tok0, clock, steps=3, pos_offset=poff)
+    s2, pool_c = model.decode_segment(pool_c, s1[:, -1:], clock + 3, steps=5,
+                                      pos_offset=poff)
+    chained = torch.cat([s1, s2], dim=1)
+    tok, pool_s, poff = admitted()
+    seq = []
+    for i in range(8):
+        logits, pool_s = model.decode(pool_s, tok, clock + i, pos_offset=poff)
+        tok = torch.argmax(logits, -1)
+        seq.append(tok)
+    seq = torch.cat(seq, dim=1)
+    rows = [_ssm_compare(torch, model, _ssm_row(pool_c, r), _ssm_row(pool_s, r),
+                         chained[r], seq[r]) for r in range(2)]
+    return {"rows": rows, "equal": all(r["equal"] for r in rows)}
+
+
+def ssm_contract_multi_slice(torch, np, cfg, model, dev) -> dict:
+    """Two slices, each an engine on its own CUDA stream, sharing one LM ==
+    one engine: per request its tokens, the conv and state rows it held
+    when it retired, and the logits of one more step, bit for bit."""
+    from repro_torch.core.batching.buckets import Request
+    from repro_torch.serving.engine import EngineConfig, build_engine
+    from repro_torch.serving.multislice import build_multislice_engine
+
+    ec = EngineConfig(continuous=True, max_slots=8, segment_len=SSM_CONTRACT_BUDGET,
+                      max_new_tokens=SSM_CONTRACT_BUDGET, max_prompt_len=32)
+
+    def reqs():
+        return [Request(rid=i, arrival=0.0, length=float(n)) for i, n in
+                enumerate(SSM_FLEET_LENS)]
+
+    def spy_rows(engine, rows):
+        """Snapshot each live row as it may retire (an SSM row's state
+        keeps moving with the pool's later steps)."""
+        orig = engine._retire_finished
+
+        def spy(now):
+            for s, st in enumerate(engine._slots):
+                if st is not None and st.live:
+                    rows[st.req.rid] = _ssm_row(engine._pool, s)
+            orig(now)
+
+        engine._retire_finished = spy
+
+    want_rows, got_rows = {}, {}
+    single = build_engine(cfg, ec=ec, device=dev, params=model.tree())
+    spy_rows(single, want_rows)
+    single.submit_many(reqs())
+    want = {r.rid: r.payload for r in single.run_until_idle()}
+    fleet = build_multislice_engine(cfg, n_slices=2, ec=ec, device=dev, params=model)
+    streams = {e.stream for e in fleet.engines.values()}
+    for e in fleet.engines.values():
+        spy_rows(e, got_rows)
+    fleet.submit_many(reqs())
+    done = fleet.run_until_idle()
+    torch.cuda.synchronize()
+    per_rid = {r.rid: _ssm_compare(torch, model, got_rows[r.rid], want_rows[r.rid],
+                                   torch.as_tensor(np.asarray(r.payload)),
+                                   torch.as_tensor(np.asarray(want[r.rid])))
+               for r in done}
+    spread = sum(1 for e in fleet.engines.values() if e.stats["admitted"] > 0)
+    return {"served": len(done), "slices_used": spread, "streams": len(streams),
+            "differing_rids": sorted(rid for rid, v in per_rid.items() if not v["equal"]),
+            "equal": len(done) == len(SSM_FLEET_LENS) and spread == 2 and len(streams) == 2
+            and all(v["equal"] for v in per_rid.values())}
+
+
+def ssm_decode_step_profile(torch, model):
+    """One full-width mamba2 decode step at batch 8 (random conv and state
+    rows): its wall ms (best of two runs of 20 steps) and a torch.profiler
+    pass over 5 steps. It must launch no decode-attention kernel."""
+    from repro_torch import kernels
+    from repro_torch.models import lm
+
+    cfg, dev = model.cfg, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pool = lm.alloc_slot_pool(cfg, 8, 64, dev)
+    for leaf in pool["body"]["l0"]["mixer"].values():
+        leaf.normal_(generator=gen).mul_(0.1)
+    tok = torch.randint(0, cfg.vocab, (8, 1), generator=gen, device=dev)
+
+    def step():
+        model.decode(pool, tok, 0)
+
+    def steps_ms(n=20):
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    before = kernels.launch_counts()["decode_attention"]
+    wall = min(steps_ms(), steps_ms())
+    prof = profile_decode_steps(torch, step, wall)
+    if kernels.launch_counts()["decode_attention"] != before or \
+            prof["decode_attention_calls_per_step"]:
+        fail("a mamba2 decode step launched the decode attention kernel")
+    res = {"layers": cfg.n_layers, "batch": 8, "wall_ms": wall, **prof}
+    print(f"mamba2 decode step ({cfg.n_layers} layers, 8 slots, {cfg.dtype}): "
+          f"wall {wall:.3f} ms, device {prof['device_ms_per_step']:.3f} ms, "
+          f"{prof['kernel_launches_per_step']:.0f} launches")
+    print("mamba2 decode step profile: " + json.dumps(res))
+    return res
+
+
+def mt_fleet_phase(torch, np, params, card):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.dpu.runtime import DpuConfig
+    from repro_torch.core.dpu.service import DpuService, DpuServiceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import LM
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.multislice import TenantSpec
+    from repro_torch.serving.requests import generate_requests
+    from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime
+
+    dev = torch.device("cuda")
+    cfgs = {m: get_config(m) for m in (MT_TENANT_A, MT_TENANT_B)}
+    cfg_a, cfg_b = cfgs[MT_TENANT_A], cfgs[MT_TENANT_B]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    models = {MT_TENANT_A: LM(cfg_a, params),
+              MT_TENANT_B: LM(cfg_b, init_params(cfg_b, gen, dev, cfg_b.dtype))}
+    res = {"card": card, "ssd_vs_recurrence": ssd_check(torch, np, cfg_b)}
+
+    ccfg, cmodel, _ = ssm_contract_model(torch)
+    contracts = {name: fn(torch, np, ccfg, cmodel, dev) for name, fn in (
+        ("padded_equals_unpadded", ssm_contract_padded),
+        ("join_equals_alone", ssm_contract_join),
+        ("chained_equals_sequential", ssm_contract_chained),
+        ("multi_slice_equals_single_slice", ssm_contract_multi_slice))}
+    del cmodel
+    print("ssm contracts: " + json.dumps(contracts))
+    for name in ("join_equals_alone", "chained_equals_sequential",
+                 "multi_slice_equals_single_slice"):
+        if not contracts[name]["equal"]:
+            fail(f"ssm contract {name} does not hold on the card: {contracts[name]}")
+    res["contracts"] = contracts
+    res["mamba2_decode_step"] = ssm_decode_step_profile(torch, models[MT_TENANT_B])
+
+    ec = EngineConfig(max_new_tokens=MT_MAX_NEW, continuous=True, max_slots=8, segment_len=8,
+                      max_prompt_len=32)
+    service = DpuService(DpuServiceConfig(clock="wall", dpu=DpuConfig(backend="dpu")),
+                         device="cuda")
+    feats = {}
+    poll = service.poll
+
+    def recording_poll(now, n=None):
+        out = poll(now, n)
+        for r in out:
+            feats[r.rid] = np.array(r.payload)
+        return out
+
+    service.poll = recording_poll
+    rt = build_pipelined_runtime(
+        None, n_slices=MT_SLICES_EACH * len(cfgs), ec=ec, service=service, device="cuda",
+        tenants=[TenantSpec(cfg=cfgs[m], name=m, n_slices=MT_SLICES_EACH, params=models[m])
+                 for m in (MT_TENANT_A, MT_TENANT_B)],
+        rc=RuntimeConfig(clock="wall", max_ingest=64))
+    ms = rt.engine
+    streams = {id(e.stream) for e in ms.engines.values()}
+    if len(streams) != len(ms.engines) or any(
+            e.model is not models[ms.slice_tenant[sid]] for sid, e in ms.engines.items()):
+        fail(f"two-model fleet: {len(streams)} streams for {len(ms.engines)} slices, or a "
+             f"slice serves another tenant's model")
+
+    def drive(reqs):
+        """Bench part 8's wall-clock replay: each request is submitted when
+        its arrival time passes (arrivals rebased onto the clock), the
+        runtime steps in between; returns (done, makespan)."""
+        t0 = time.monotonic()
+        for r in reqs:
+            r.arrival += t0
+        i = 0
+        while i < len(reqs) or rt.busy():
+            while i < len(reqs) and reqs[i].arrival <= time.monotonic():
+                rt.submit(reqs[i])
+                i += 1
+            if rt.step():
+                continue
+            if i < len(reqs):
+                time.sleep(min(max(reqs[i].arrival - time.monotonic(), 0.0), 0.002))
+            elif rt.busy():
+                time.sleep(0.0005)            # the DPU worker runs
+        torch.cuda.synchronize()
+        return list(rt.completed), time.monotonic() - t0
+
+    # warm-up: a full admission group per slice of each tenant, other rids
+    warm = generate_requests(mt_specs(cfgs, seed0=161), 8 * len(ms.engines))
+    for i, r in enumerate(warm):
+        r.rid, r.arrival = 900_000 + i, 0.0
+    drive(warm)
+    rt.reset_metrics()
+    feats.clear()
+    groups0 = service.stats["groups"]
+
+    reqs = generate_requests(mt_specs(cfgs), MT_REQUESTS)
+    asked = {m: sum(1 for r in reqs if r.model == m) for m in cfgs}
+    raws = {r.rid: r.payload.copy() for r in reqs}
+    kernels.reset_launch_counts()              # the two-model fleet's path starts here
+    done, wall = drive(reqs)
+    launches = kernels.launch_counts()         # ... and ends here
+    groups = service.stats["groups"] - groups0
+    rt.close()
+
+    rids = [r.rid for r in done]
+    if len(done) != MT_REQUESTS or len(set(rids)) != MT_REQUESTS:
+        fail(f"two-model fleet: served {len(done)} ({len(set(rids))} distinct) of "
+             f"{MT_REQUESTS}")
+    if rt.shed or rt.dead or not rt.conservation_ok():
+        fail(f"two-model fleet: shed {rt.shed_counts()}, dead {rt.dead_counts()}, "
+             f"conservation {rt.conservation_ok()}")
+    check_no_fallback(rt, "two-model fleet")
+    ts = ms.tenant_stats()
+    for m in cfgs:
+        served = sum(1 for r in done if r.model == m)
+        if served != asked[m] or ts[m]["completed"] != asked[m] or ts[m]["dead"]:
+            fail(f"two-model fleet, tenant {m}: served {served} of {asked[m]}, {ts[m]}")
+        if not set(ts[m]["routed_to"]) <= set(ts[m]["slices"]):
+            fail(f"two-model fleet: tenant {m}'s requests ran on {ts[m]['routed_to']}, "
+                 f"its slices are {ts[m]['slices']}")
+    for r in done:
+        f = feats.get(r.rid)
+        if f is None or f.shape != (98, 80) or not np.isfinite(f).all():
+            fail(f"two-model fleet request {r.rid}: features {None if f is None else f.shape}")
+        plain = ops.audio_pipeline_batch(torch.from_numpy(raws[r.rid][None]))[0].numpy()
+        if not np.allclose(f, plain, rtol=1e-3, atol=1e-2):
+            fail(f"two-model fleet request {r.rid}: features differ from the plain CPU "
+                 f"pipeline (max abs {np.abs(f - plain).max():.3e})")
+    for k in kernels.AUDIO_KERNELS:
+        if launches[k] <= 0 or launches[k] != groups:
+            fail(f"{k}: {launches[k]} launches on the two-model fleet's path, the service "
+                 f"launched {groups} groups")
+    steps = {m: ms.decode_steps_total(m) for m in cfgs}
+    check_decode_launches(launches, cfg_a, ms, "two-model fleet's path", tenant=MT_TENANT_A)
+    if steps[MT_TENANT_B] <= 0:
+        fail(f"two-model fleet: the {MT_TENANT_B} tenant ran no decode step")
+    per_tenant = {}
+    for m in cfgs:
+        mine = [r for r in done if r.model == m]
+        ref = single_slice_tokens(torch, np, cfgs[m], ec, models[m], mine)
+        check_fleet_tokens(np, mine, ref, f"two-model fleet, tenant {m}")
+        lat = np.array([r.completed_at - r.arrival for r in mine])
+        ttft = np.array([r.first_token_at - r.arrival for r in mine])
+        n_tok = int(sum(len(r.payload) for r in mine))
+        per_tenant[m] = dict(
+            served=len(mine), tokens=n_tok, tokens_per_s=n_tok / wall,
+            latency_p50_ms=1e3 * float(np.percentile(lat, 50)),
+            latency_p99_ms=1e3 * float(np.percentile(lat, 99)),
+            ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
+            ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
+            decode_steps=steps[m], slices=sorted(ts[m]["slices"]),
+            # the tenant's engine calls (admissions and segments), host copy included
+            exec_s=sum(sum(e.batch_exec_s) for e in {id(e): e for e in ms._built}.values()
+                       if e._tenant == m),
+            routed_to=sorted(set(ts[m]["routed_to"])), tokens_equal_single_slice=len(mine))
+        print(f"two-model fleet, {m}: " + json.dumps(per_tenant[m]))
+    stats = fleet_stats(np, rt, done, wall, launches, steps[MT_TENANT_A], card)
+    stats.update(groups=groups, per_tenant=per_tenant, stage_occupancy=rt.stage_occupancy(),
+                 slot_pool_bytes={m: pool_bytes(ms.engines[s] for s in ms.slices_of(m))
+                                  for m in cfgs})
+    print("two-model fleet: " + json.dumps(stats))
+    res.update(stats)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -1695,15 +2178,18 @@ def main() -> int:
 
     # 13. the partition controller resizing the fleet, on phase 12's profiles
     controller_stats = controller_phase(torch, np, model, profiles, card)
+
+    # 14. PREBA's two-model fleet: tinyllama and mamba2, one admission queue
+    mt_stats = mt_fleet_phase(torch, np, params, card)
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
-                                                controller_stats))
+                                                controller_stats, mt_stats))
                               for k in ("audio_resample", "mel_spectrogram",
                                         "audio_normalize")}}
     decode_run = {"launches": {"decode_attention": sum(
         st["launches"]["decode_attention"]
         for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats,
-                   knee_stats, controller_stats))}}
+                   knee_stats, controller_stats, mt_stats))}}
 
     line = []
     for name, shape_rows, main_of, run in (
@@ -1743,7 +2229,7 @@ def main() -> int:
              "serve": stats, "image_serve": image_stats, "rtc_serve": rtc_stats,
              "chunked_prefix_serve": chunk_stats, "decode_step": decode_step,
              "fleet": fleet_stats_, "chaos": chaos_stats, "knee": knee_stats,
-             "controller": controller_stats}, indent=1))
+             "controller": controller_stats, "two_model_fleet": mt_stats}, indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,6 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 
-from repro_torch.configs import tinyllama_1_1b  # noqa: F401
+from repro_torch.configs import mamba2_370m, tinyllama_1_1b  # noqa: F401
 
-SERVED_ARCHS = ["tinyllama-1.1b"]
+SERVED_ARCHS = ["tinyllama-1.1b", "mamba2-370m"]

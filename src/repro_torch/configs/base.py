@@ -1,4 +1,4 @@
-"""Model configs and their registry, dense family.
+"""Model configs and their registry: the dense and SSM families.
 
 Every served architecture is a ``ModelConfig`` registered under its id;
 ``reduced()`` derives a CPU-testable config of the same family. The field
@@ -14,7 +14,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family served by this package so far)
+    family: str  # dense | ssm (the families this package serves)
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,6 +28,14 @@ class ModelConfig:
     sliding_window: int = 0  # 0 = full attention
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+
+    # state-space (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    ssm_ngroups: int = 1
 
     # numerics
     dtype: str = "bfloat16"       # activation/compute dtype
@@ -44,20 +52,38 @@ class ModelConfig:
         true vocab)."""
         return ((self.vocab + 255) // 256) * 256
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def conv_dim(self) -> int:
+        # the mamba2 conv covers the x, B and C streams
+        return self.d_inner + 2 * self.ssm_ngroups * self.ssm_state
+
     def layer_kinds(self) -> List[Tuple[str, str]]:
-        """Per-layer (mixer, ffn) kinds; the dense family is attn + mlp."""
-        if self.family != "dense":
-            raise NotImplementedError(
-                f"{self.name}: family {self.family!r} is not served yet")
-        return [("attn", "mlp")] * self.n_layers
+        """Per-layer (mixer, ffn) kinds: attn + mlp for the dense family,
+        ssm + none for the SSM family (the mamba2 backbone has no separate
+        FFN). Other families are not served yet."""
+        if self.family == "dense":
+            return [("attn", "mlp")] * self.n_layers
+        if self.family == "ssm":
+            return [("ssm", "none")] * self.n_layers
+        raise NotImplementedError(
+            f"{self.name}: family {self.family!r} is not served yet")
 
     def param_count(self) -> int:
-        """Analytical parameter count (matches the init tree)."""
-        d, kh, g, hd = self.d_model, self.n_kv_heads, self.n_heads // self.n_kv_heads, self.hd
-        attn = d + d * kh * g * hd + 2 * d * kh * hd + kh * g * hd * d
-        mlp = d + 3 * d * self.d_ff
-        head = 0 if self.tie_embeddings else d * self.padded_vocab
-        return self.n_layers * (attn + mlp) + self.padded_vocab * d + d + head
+        """Parameter count: the leaves of the weight tree (embeddings
+        included), as the JAX package's count_params_analytical counts."""
+        import math
+
+        from repro_torch.models.params import leaves, model_defs
+
+        return sum(math.prod(pd.shape) for _, pd in leaves(model_defs(self)))
 
     def active_param_count(self) -> int:
         return self.param_count()
@@ -105,6 +131,7 @@ def _default_reduce(cfg: ModelConfig) -> ModelConfig:
         vocab=512,
         head_dim=32,
         sliding_window=16 if cfg.sliding_window else 0,
+        **(dict(ssm_state=16, ssm_headdim=16, ssm_chunk=16) if cfg.ssm_state else {}),
     )
 
 

@@ -11,9 +11,10 @@ Continuous batching alone: --continuous [--max-slots 8 --segment-len 8];
 chunked prefill on top: --continuous --chunk-lens 16,32. The multi-slice
 fleet: --slices 4 (four engines, each on its own CUDA stream, behind one
 shared admission queue; on one card they are logical replicas, not MIG
-instances), or a multi-tenant fleet --tenants tinyllama-1.1b:2,tinyllama-1.1b:2
-(dense model:slices asks; a second tenant of the same arch is named
-arch@1). CPU run of the kernels' plain versions at a reduced size:
+instances), or a multi-tenant fleet --tenants tinyllama-1.1b:2,mamba2-370m:2
+(model:slices asks, PREBA's two-family fleet: the attention LM and a Mamba2
+SSM behind one admission queue; a second tenant of the same arch is named
+arch@1). Every entry point serves --arch tinyllama-1.1b or mamba2-370m. CPU run of the kernels' plain versions at a reduced size:
 --device cpu --reduced.
 
 The closed partition loop (PREBA's MIG lever): measure the knee profiles
@@ -65,13 +66,13 @@ def _calibrate_knee(cfg, ec, out_path: str, *, max_batch: int,
 
     from repro_torch.core.batching.knee import calibrate_knees, profiles_to_json
     from repro_torch.device import resolve_device
-    from repro_torch.models.api import DenseLM
+    from repro_torch.models.api import LM
     from repro_torch.models.params import init_params
 
     dev = resolve_device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = DenseLM(cfg, init_params(cfg, gen, dev, cfg.dtype))
+    model = LM(cfg, init_params(cfg, gen, dev, cfg.dtype))
 
     def measure(batch: int, context_len: int) -> float:
         ctx = max(int(ec.min_prompt_len), context_len)
@@ -126,8 +127,8 @@ def _parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch")
     ap.add_argument("--tenants", default="",
-                    help="comma-separated dense model:slices asks (e.g. "
-                         "'tinyllama-1.1b:2,tinyllama-1.1b:2'): a multi-tenant "
+                    help="comma-separated model:slices asks (e.g. "
+                         "'tinyllama-1.1b:2,mamba2-370m:2'): a multi-tenant "
                          "fleet — every tenant gets its own slices (engines, "
                          "slot pools) behind ONE shared admission queue, "
                          "requests are tagged and routed per model, and the "

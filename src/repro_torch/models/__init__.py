@@ -1,1 +1,1 @@
-"""The dense decoder family: layers, the LM functions, weights."""
+"""The served model families (dense, SSM): layers, the LM functions, weights."""

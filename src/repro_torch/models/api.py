@@ -1,5 +1,6 @@
-"""Public model API: the dense decoder as an `nn.Module` over the
-reference-layout weight tree, and the functions it serves with."""
+"""Public model API: the decoder of a served family (dense or SSM) as an
+`nn.Module` over the reference-layout weight tree, and the functions it
+serves with."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -29,9 +30,10 @@ def _to_tree(mod: nn.Module) -> Dict[str, Any]:
     return out
 
 
-class DenseLM(nn.Module):
-    """The dense-family decoder for serving. Its weights are registered as
-    (frozen) parameters under the reference paths (`body.l0.mixer.wq`, ...),
+class LM(nn.Module):
+    """The decoder of a served family (`cfg.family`: dense or ssm) for
+    serving. Its weights are registered as (frozen) parameters under the
+    reference paths (`body.l0.mixer.wq`, `body.l0.mixer.in_xbc`, ...),
     so `state_dict()` keys read like the JAX package's tree; `tree()` hands
     the same tensors, uncopied, to the functions of `models.lm`."""
 

@@ -1,10 +1,13 @@
-"""Layer primitives of the dense decoder: RMSNorm, RoPE, masked dense
-attention with GQA, the SiLU-gated MLP.
+"""Layer primitives of the served families: RMSNorm (plain and gated),
+RoPE, masked dense attention with GQA, the SiLU-gated MLP, and the Mamba2
+block (causal depthwise conv, the chunked SSD scan, the one-token SSM
+step).
 
 Plain functions on tensors. The compute dtype is the activation dtype;
-norms, RoPE and the attention softmax run in fp32. The mask and the softmax
-follow the JAX package's order (scores in fp32, NEG_INF fill, softmax,
-masked probabilities zeroed), so logits stay comparable across the two.
+norms, RoPE, the attention softmax and the SSM scan run in fp32. The mask
+and the softmax follow the JAX package's order (scores in fp32, NEG_INF
+fill, softmax, masked probabilities zeroed), and the SSD scan its
+formulas term for term, so outputs stay comparable across the two.
 """
 from __future__ import annotations
 
@@ -21,6 +24,12 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     var = (xf * xf).mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * w.float()).to(x.dtype)
+
+
+def rmsnorm_gated(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2-style gated RMSNorm: norm(x * silu(z)) * w."""
+    return rmsnorm(x * F.silu(z.to(x.dtype)), w, eps)
 
 
 def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
@@ -98,3 +107,195 @@ def mlp(x: torch.Tensor, p) -> torch.Tensor:
     g = x @ p["wi_gate"].to(dt)
     u = x @ p["wi_up"].to(dt)
     return (F.silu(g) * u) @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (the mamba2 front end)
+# ---------------------------------------------------------------------------
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x: [B, L, C]; w: [C, k]; depthwise causal conv, k small (unrolled)."""
+    k = w.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    L = x.shape[1]
+    wc = w.to(x.dtype)
+    y = sum(xp[:, i:i + L] * wc[None, None, :, i] for i in range(k))
+    return y + b.to(x.dtype)
+
+
+def conv1d_step(x1: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor):
+    """x1: [B, C] new input; conv_state: [B, k-1, C] history. Returns
+    (y [B, C], new_state [B, k-1, C])."""
+    full = torch.cat([conv_state, x1[:, None]], dim=1)  # [B, k, C]
+    y = torch.einsum("bkc,ck->bc", full, w.to(x1.dtype)) + b.to(x1.dtype)
+    return y, full[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD
+# ---------------------------------------------------------------------------
+
+
+def segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: [..., T] -> [..., T, T] with out[i, j] = sum_{s=j+1..i} x[s]
+    (cs[i] - cs[j] of the cumulative sum), -inf above the diagonal."""
+    T = x.shape[-1]
+    lower = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    return torch.where(lower, out, torch.full((), -math.inf, dtype=out.dtype,
+                                              device=x.device))
+
+
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """Chunked state-space-duality scan (Mamba2).
+
+    xh: [b, l, h, p]; dt: [b, l, h] (> 0, post-softplus); A: [h] (< 0);
+    Bm, Cm: [b, l, g, n]. Returns (y [b, l, h, p] in xh's dtype,
+    final_state [b, h, p, n] in fp32)."""
+    b, l, h, p = xh.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    c = min(chunk, l)
+    if l % c:  # pad to a chunk multiple; dt = 0 padding is state-neutral
+        pad = c - l % c
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    l_orig, l = l, xh.shape[1]
+    Bh = torch.repeat_interleave(Bm, rep, dim=2)
+    Ch = torch.repeat_interleave(Cm, rep, dim=2)
+    nc = l // c
+
+    f32 = torch.float32
+    dA = (dt.to(f32) * A.to(f32)).reshape(b, nc, c, h)
+    dAc = dA.permute(0, 3, 1, 2)  # [b, h, nc, c]
+    A_cs = torch.cumsum(dAc, dim=-1)
+
+    xdt = (xh.to(f32) * dt.to(f32)[..., None]).reshape(b, nc, c, h, p)
+    Bc = Bh.to(f32).reshape(b, nc, c, h, n)
+    Cc = Ch.to(f32).reshape(b, nc, c, h, n)
+
+    Lmat = torch.exp(segsum(dAc))  # [b, h, nc, c, c]
+    y_diag = torch.einsum("bclhn,bcshn,bhcls,bcshp->bclhp", Cc, Bc, Lmat, xdt)
+
+    decay_states = torch.exp(A_cs[..., -1:] - A_cs)  # [b, h, nc, c]
+    states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bc, decay_states, xdt)
+
+    chunk_decay = torch.exp(A_cs[..., -1])  # [b, h, nc]
+    st = (init_state.to(f32) if init_state is not None
+          else torch.zeros((b, h, p, n), dtype=f32, device=xh.device))
+    prev = []
+    for i in range(nc):  # the inter-chunk recurrence; emits each chunk's entry state
+        prev.append(st)
+        st = st * chunk_decay[:, :, i, None, None] + states[:, i]
+    prev_states = torch.stack(prev, dim=1)  # [b, nc, h, p, n]
+
+    state_decay_out = torch.exp(A_cs)  # [b, h, nc, c]
+    y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Cc, prev_states, state_decay_out)
+    y = (y_diag + y_off).reshape(b, l, h, p)[:, :l_orig]
+    return y.to(xh.dtype), st
+
+
+def ssm_step(x1, dt1, A, B1, C1, state):
+    """Single-token SSM recurrence. x1: [b, h, p]; dt1: [b, h]; B1, C1:
+    [b, g, n]; state: [b, h, p, n] (fp32). Returns (y [b, h, p],
+    new_state)."""
+    h = x1.shape[1]
+    rep = h // B1.shape[1]
+    f32 = torch.float32
+    Bh = torch.repeat_interleave(B1, rep, dim=1).to(f32)  # [b, h, n]
+    Ch = torch.repeat_interleave(C1, rep, dim=1).to(f32)
+    dA = torch.exp(dt1.to(f32) * A.to(f32))  # [b, h]
+    inc = torch.einsum("bhp,bhn->bhpn", x1.to(f32) * dt1.to(f32)[..., None], Bh)
+    new_state = state * dA[..., None, None] + inc
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return y.to(x1.dtype), new_state
+
+
+def _ssm_split(xBC: torch.Tensor, cfg):
+    di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+    return xBC[..., :di], xBC[..., di:di + gn], xBC[..., di + gn:]
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as the JAX package computes it (logaddexp(x, 0)): no
+    linear cut-off above a threshold, as F.softplus has."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def ssm_block(x, p, cfg, init_state=None, return_state=False, pos_offset=None):
+    """Full-sequence Mamba2 block. x: [B, L, D].
+
+    pos_offset: [B] left-pad amounts (bucketed serving). The conv and dt
+    biases make padding slots nonzero even when their inputs are zero, so
+    with an offset the pad slots' dt is forced to 0 (state-neutral: dA = 1,
+    zero increment) and the block output is zeroed there, keeping the
+    padded rows' state and residual stream equal to unpadded execution.
+    With return_state: (out, (conv_tail [B, k-1, conv_dim], final_state
+    [B, h, p, n] fp32))."""
+    B, L, D = x.shape
+    dt_ = x.dtype
+    z = x @ p["in_z"].to(dt_)
+    xBC = x @ p["in_xbc"].to(dt_)
+    dtr = x @ p["in_dt"].to(dt_)
+    xBC = F.silu(conv1d_causal(xBC, p["conv_w"], p["conv_b"]))
+    valid = None
+    if pos_offset is not None:
+        valid = (torch.arange(L, device=x.device)[None, :]
+                 >= pos_offset.to(device=x.device, dtype=torch.int64)[:, None])
+        xBC = xBC * valid[..., None].to(xBC.dtype)
+    xs, Bm, Cm = _ssm_split(xBC, cfg)
+    h, pd = cfg.n_ssm_heads, cfg.ssm_headdim
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    dt = _softplus(dtr.float() + p["dt_bias"].float())
+    if valid is not None:
+        dt = torch.where(valid[..., None], dt, torch.zeros((), dtype=dt.dtype,
+                                                           device=dt.device))
+    A = -torch.exp(p["A_log"].float())
+    xh = xs.reshape(B, L, h, pd)
+    y, fstate = ssd_chunked(xh, dt, A, Bm.reshape(B, L, g, n), Cm.reshape(B, L, g, n),
+                            cfg.ssm_chunk, init_state=init_state)
+    y = y + p["D"].to(dt_)[None, None, :, None] * xh
+    y = rmsnorm_gated(y.reshape(B, L, cfg.d_inner), z, p["norm_w"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(dt_)
+    if valid is not None:
+        out = out * valid[..., None].to(out.dtype)
+    if return_state:
+        return out, (_conv_tail(x, p, cfg), fstate)
+    return out
+
+
+def _conv_tail(x, p, cfg) -> torch.Tensor:
+    """The last k-1 pre-conv, pre-SiLU inputs, recomputed from the block's
+    input (the decode handoff after prefill)."""
+    xBC = x @ p["in_xbc"].to(x.dtype)
+    return xBC[:, -(cfg.ssm_conv - 1):, :]
+
+
+def ssm_block_decode(x1, p, cfg, conv_state, state):
+    """Single-token Mamba2 block. x1: [B, 1, D]; conv_state [B, k-1,
+    conv_dim]; state [B, h, p, n] fp32. Returns (y [B, 1, D], (new_conv,
+    new_state))."""
+    B = x1.shape[0]
+    dt_ = x1.dtype
+    xf = x1[:, 0]
+    z = xf @ p["in_z"].to(dt_)
+    xBC = xf @ p["in_xbc"].to(dt_)
+    dtr = xf @ p["in_dt"].to(dt_)
+    xBC, new_conv = conv1d_step(xBC, conv_state, p["conv_w"], p["conv_b"])
+    xBC = F.silu(xBC)
+    xs, Bm, Cm = _ssm_split(xBC, cfg)
+    h, pd = cfg.n_ssm_heads, cfg.ssm_headdim
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    dt = _softplus(dtr.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    y, new_state = ssm_step(xs.reshape(B, h, pd), dt, A, Bm.reshape(B, g, n),
+                            Cm.reshape(B, g, n), state)
+    y = y + p["D"].to(dt_)[None, :, None] * xs.reshape(B, h, pd)
+    y = rmsnorm_gated(y.reshape(B, cfg.d_inner), z, p["norm_w"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(dt_)
+    return out[:, None], (new_conv, new_state)

@@ -1,13 +1,18 @@
-"""The dense decoder LM, serving half: prefill, decode (every step through
-the flash-decode kernel), run-to-completion generate, chunked prefill, and
-the KV slot pool of continuous batching.
+"""The decoder LM of the served families, serving half: prefill, decode
+(every attention step through the flash-decode kernel), run-to-completion
+generate, chunked prefill, and the slot pool of continuous batching.
 
 Plain functions over a parameter tree laid out as the JAX package lays it
 out (`models/params.py`): layer-stacked leaves under
 ``params["body"]["l0"]``, GQA heads factored as [kv_heads, q_per_kv,
 head_dim] (``wq [L, d, kh, g, hd]``, ``wk``/``wv [L, d, kh, hd]``,
-``wo [L, kh, g, hd, d]``). Caches mirror that tree:
-``cache["body"]["l0"]["mixer"]["k"|"v"]`` is ``[L, B, ring, kh, hd]``.
+``wo [L, kh, g, hd, d]``). Each layer is a (mixer, ffn) pair of its kind
+(`cfg.layer_kinds()`): attention + MLP for the dense family, a Mamba2 SSM
+block and no FFN for the SSM family. Caches mirror the tree: an attention
+layer's ``cache["body"]["l0"]["mixer"]["k"|"v"]`` is ``[L, B, ring, kh,
+hd]``; an SSM layer's ``["conv"]`` is ``[L, B, k-1, conv_dim]`` (the last
+k-1 pre-conv inputs, in the activation dtype) and ``["state"]`` ``[L, B, h,
+p, n]`` (fp32 whatever the activation dtype).
 
 Where the JAX functions return a new cache, these update the cache (the
 slot pool) in place and return it — the same values, without a copy of the
@@ -130,14 +135,32 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int, pos_offset=None):
     return out, cache
 
 
+def _mixer_forward(h, p, cfg: ModelConfig, mixer: str, *, cache_len: int,
+                   pos_offset=None):
+    """One layer's mixer over a full prompt: (out [B, S, D], cache entry)."""
+    if mixer == "attn":
+        return _attn_forward(h, p, cfg, cache_len=cache_len, pos_offset=pos_offset)
+    o, (conv_tail, fstate) = L.ssm_block(h, p, cfg, return_state=True,
+                                         pos_offset=pos_offset)
+    return o, {"conv": conv_tail, "state": fstate}
+
+
+def _ffn(x, sub: Tree, cfg: ModelConfig, ffn: str) -> torch.Tensor:
+    """The layer's FFN with its residual (the SSM family has none)."""
+    if ffn == "none":
+        return x
+    h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
+    return x + L.mlp(h, sub["ffn"])
+
+
 def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
             cache_len: int, pos_offset=None) -> Tuple[torch.Tensor, Tree]:
     """Prefill forward: (final hidden [B, S, D], cache tree).
 
     pos_offset: optional [B] left-pad amounts (bucketed serving): row b's
     first pos_offset[b] token slots are padding. Their embeddings are zeroed
-    and they are masked out of attention, so each row computes what it
-    would at its true length."""
+    and they are masked out of attention and SSM state, so each row
+    computes what it would at its true length."""
     dt = _dtype(cfg)
     x = params["embed"][tokens].to(dt)
     if pos_offset is not None:
@@ -145,19 +168,17 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
                  >= pos_offset.to(x.device)[:, None])
         x = x * valid[..., None].to(dt)
     body = params["body"]["l0"]
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
+    entries = []
+    for i, (mixer, ffn) in enumerate(cfg.layer_kinds()):
         sub = _layer(body, i)
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
-        o, c = _attn_forward(h, sub["mixer"], cfg, cache_len=cache_len,
-                             pos_offset=pos_offset)
-        x = x + o
-        h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
-        x = x + L.mlp(h, sub["ffn"])
-        ks.append(c["k"])
-        vs.append(c["v"])
+        o, c = _mixer_forward(h, sub["mixer"], cfg, mixer, cache_len=cache_len,
+                              pos_offset=pos_offset)
+        x = _ffn(x + o, sub, cfg, ffn)
+        entries.append(c)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    cache = {"body": {"l0": {"mixer": {"k": torch.stack(ks), "v": torch.stack(vs)}}}}
+    cache = {"body": {"l0": {"mixer": {
+        k: torch.stack([c[k] for c in entries]) for k in entries[0]}}}}
     return x, cache
 
 
@@ -236,23 +257,34 @@ def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
            cfg: ModelConfig, *, pos_offset=None):
     """One decode step. tokens: [B, 1]; pos: the padded write position;
     pos_offset: optional [B] (row b's true position is pos - pos_offset[b]).
-    Returns (logits [B, 1, V], cache) — the cache updated in place."""
+    Returns (logits [B, 1, V], cache) — the cache updated in place. An SSM
+    layer reads neither position: its step advances each row's conv tail
+    and state."""
     dt = _dtype(cfg)
     x = params["embed"][tokens].to(dt)
     body = params["body"]["l0"]
-    K, V = _kv_leaves(cache)
-    B, wc = x.shape[0], K.shape[2]
-    if pos_offset is None:
-        qpos = torch.full((B,), pos, dtype=torch.int64, device=x.device)
-    else:
-        qpos = pos - pos_offset.to(device=x.device, dtype=torch.int64)
-    valid_len = torch.clamp(qpos + 1, 0, wc).to(torch.int32)  # the ring's valid prefix
-    for i in range(cfg.n_layers):
+    kinds = cfg.layer_kinds()
+    c = cache["body"]["l0"]["mixer"]
+    valid_len = None
+    if any(m == "attn" for m, _ in kinds):
+        B, wc = x.shape[0], c["k"].shape[2]
+        if pos_offset is None:
+            qpos = torch.full((B,), pos, dtype=torch.int64, device=x.device)
+        else:
+            qpos = pos - pos_offset.to(device=x.device, dtype=torch.int64)
+        valid_len = torch.clamp(qpos + 1, 0, wc).to(torch.int32)  # the ring's valid prefix
+    for i, (mixer, ffn) in enumerate(kinds):
         sub = _layer(body, i)
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
-        x = x + _attn_decode(h, sub["mixer"], cfg, K[i], V[i], pos, pos_offset, valid_len)
-        h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
-        x = x + L.mlp(h, sub["ffn"])
+        if mixer == "attn":
+            o = _attn_decode(h, sub["mixer"], cfg, c["k"][i], c["v"][i], pos, pos_offset,
+                             valid_len)
+        else:
+            o, (conv, state) = L.ssm_block_decode(h, sub["mixer"], cfg, c["conv"][i],
+                                                  c["state"][i])
+            c["conv"][i].copy_(conv)
+            c["state"][i].copy_(state)
+        x = _ffn(x + o, sub, cfg, ffn)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return logits_from_hidden(params, x, cfg), cache
 
@@ -296,30 +328,51 @@ def decode_segment(params: Tree, cache: Tree, tok: torch.Tensor, pos0: int,
 
 def alloc_slot_pool(cfg: ModelConfig, max_slots: int, cache_len: int,
                     device: torch.device) -> Tree:
-    """Zero-initialized slot-pool cache tree ([L, max_slots, ring, kh, hd])."""
-    shape = (cfg.n_layers, max_slots, ring_len(cfg, cache_len), cfg.n_kv_heads, cfg.hd)
-    z = lambda: torch.zeros(shape, dtype=_dtype(cfg), device=device)  # noqa: E731
-    return {"body": {"l0": {"mixer": {"k": z(), "v": z()}}}}
+    """Zero-initialized slot-pool cache tree: K/V rings [L, max_slots, ring,
+    kh, hd] for attention layers; for SSM layers the conv tail [L,
+    max_slots, k-1, conv_dim] in the activation dtype and the state [L,
+    max_slots, h, p, n] in fp32."""
+    L_ = cfg.n_layers
+    if cfg.layer_kinds()[0][0] == "attn":  # one kind a model (params.model_defs)
+        shape = (L_, max_slots, ring_len(cfg, cache_len), cfg.n_kv_heads, cfg.hd)
+        leaves = {"k": (shape, _dtype(cfg)), "v": (shape, _dtype(cfg))}
+    else:
+        leaves = {
+            "conv": ((L_, max_slots, cfg.ssm_conv - 1, cfg.conv_dim), _dtype(cfg)),
+            "state": ((L_, max_slots, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+                      torch.float32),
+        }
+    return {"body": {"l0": {"mixer": {
+        k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in leaves.items()}}}}
 
 
 def scatter_into_slots(pool: Tree, prefill_cache: Tree, slot_ids: torch.Tensor,
                        clock: int, lp: int) -> Tree:
     """Admit a prefilled batch into pool row slots, in place: prefill-cache
-    row i lands in pool slot slot_ids[i], at ring slots 0..lp-1 (the
-    prefill cache is already true-position indexed); rows whose slot id is
-    out of range (admission padding) are dropped. The clock does not enter:
-    placement is true-position indexed."""
+    row i lands in pool slot slot_ids[i]; rows whose slot id is out of range
+    (admission padding) are dropped. K/V land at ring slots 0..lp-1 (the
+    prefill cache is already true-position indexed); an SSM conv tail or
+    state is a plain row copy, so every admission overwrites the whole row
+    and a reused slot inherits nothing. The clock does not enter: placement
+    is true-position indexed."""
     del clock
-    pk, pv = _kv_leaves(pool)
-    qk, qv = _kv_leaves(prefill_cache)
-    if qk.shape[2] != lp or lp > pk.shape[2]:
-        raise ValueError(f"prefill ring {qk.shape[2]} / pool ring {pk.shape[2]} "
-                         f"cannot take a prompt bucket of {lp}")
-    slot_ids = slot_ids.to(pk.device)
-    keep = slot_ids < pk.shape[1]
+    pm = pool["body"]["l0"]["mixer"]
+    qm = prefill_cache["body"]["l0"]["mixer"]
+    if "k" in pm:
+        pk, qk = pm["k"], qm["k"]
+        if qk.shape[2] != lp or lp > pk.shape[2]:
+            raise ValueError(f"prefill ring {qk.shape[2]} / pool ring {pk.shape[2]} "
+                             f"cannot take a prompt bucket of {lp}")
+    any_leaf = next(iter(pm.values()))
+    slot_ids = slot_ids.to(any_leaf.device)
+    keep = slot_ids < any_leaf.shape[1]
     rows = slot_ids[keep]
-    pk[:, rows, :lp] = qk[:, keep].to(pk.dtype)
-    pv[:, rows, :lp] = qv[:, keep].to(pv.dtype)
+    for name, pl in pm.items():
+        q = qm[name][:, keep].to(pl.dtype)
+        if name in ("k", "v"):
+            pl[:, rows, :lp] = q
+        else:
+            pl[:, rows] = q
     return pool
 
 
@@ -327,7 +380,7 @@ def prefill_into_slots(params: Tree, tokens: torch.Tensor, pool: Tree,
                        slot_ids: torch.Tensor, clock: int, cfg: ModelConfig, *,
                        pos_offset=None):
     """Fused admission: prefill a left-padded (batch, lp) prompt bucket and
-    scatter its KV into slot-pool rows. Returns (first greedy tokens [B, 1],
+    scatter its cache (K/V, or SSM conv tail and state) into slot-pool rows. Returns (first greedy tokens [B, 1],
     pool). The caller sets each admitted slot's pos_offset to
     clock - true_prompt_len so decode positions continue from the prompt."""
     lp = tokens.shape[1]

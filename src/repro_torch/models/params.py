@@ -1,11 +1,14 @@
-"""The dense family's weights: their layout, a seeded init, and the bridge
-from the JAX package's parameter tree.
+"""The served families' weights: their layout, a seeded init, and the
+bridge from the JAX package's parameter tree.
 
 The tree is the JAX package's (`lm.model_defs` there), leaf by leaf:
 ``embed [padded_vocab, d]``, ``final_ln [d]``, ``lm_head [d, padded_vocab]``
-and, layer-stacked under ``body.l0``, ``mixer.{ln, wq, wk, wv, wo}`` and
-``ffn.{ln, wi_gate, wi_up, wo}``. Same paths and shapes on both sides is
-what lets `from_reference` carry weights across by path.
+(absent with tied embeddings) and, layer-stacked under ``body.l0``, the
+mixer and the ffn of each layer's kind: ``mixer.{ln, wq, wk, wv, wo}`` and
+``ffn.{ln, wi_gate, wi_up, wo}`` for the dense family, ``mixer.{ln, in_z,
+in_xbc, in_dt, conv_w, conv_b, dt_bias, A_log, D, norm_w, out_proj}`` and no
+ffn for the SSM family. Same paths and shapes on both sides is what lets
+`from_reference` carry weights across by path.
 """
 from __future__ import annotations
 
@@ -24,39 +27,78 @@ Tree = Dict[str, Any]
 @dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | ones
+    init: str = "normal"  # normal | zeros | ones | dt_bias | a_log
     scale: float = 0.02
 
 
-def model_defs(cfg: ModelConfig) -> Tree:
-    """Shapes and init scales of every leaf (the JAX package's model_defs
-    for the dense family)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} not served yet")
-    d, kh, hd, nl = cfg.d_model, cfg.n_kv_heads, cfg.hd, cfg.n_layers
+def _attn_defs(cfg: ModelConfig) -> Tree:
+    d, kh, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
     g = cfg.n_heads // kh
-    out_scale = 0.02 / math.sqrt(2 * nl)
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "ln": ParamDef((d,), "ones"),
+        "wq": ParamDef((d, kh, g, hd)),
+        "wk": ParamDef((d, kh, hd)),
+        "wv": ParamDef((d, kh, hd)),
+        "wo": ParamDef((kh, g, hd, d), scale=out_scale),
+    }
+
+
+def _mlp_defs(cfg: ModelConfig) -> Tree:
+    d = cfg.d_model
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "ln": ParamDef((d,), "ones"),
+        "wi_gate": ParamDef((d, cfg.d_ff)),
+        "wi_up": ParamDef((d, cfg.d_ff)),
+        "wo": ParamDef((cfg.d_ff, d), scale=out_scale),
+    }
+
+
+def _ssm_defs(cfg: ModelConfig) -> Tree:
+    d = cfg.d_model
+    di, cd, h = cfg.d_inner, cfg.conv_dim, cfg.n_ssm_heads
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "ln": ParamDef((d,), "ones"),
+        "in_z": ParamDef((d, di)),
+        "in_xbc": ParamDef((d, cd)),
+        "in_dt": ParamDef((d, h)),
+        "conv_w": ParamDef((cd, cfg.ssm_conv), scale=0.1),
+        "conv_b": ParamDef((cd,), "zeros"),
+        "dt_bias": ParamDef((h,), "dt_bias"),
+        "A_log": ParamDef((h,), "a_log"),
+        "D": ParamDef((h,), "ones"),
+        "norm_w": ParamDef((di,), "ones"),
+        "out_proj": ParamDef((di, d), scale=out_scale),
+    }
+
+
+def _stack(tree: Tree, n: int) -> Tree:
+    return {k: (_stack(v, n) if isinstance(v, dict)
+                else ParamDef((n,) + v.shape, v.init, v.scale))
+            for k, v in tree.items()}
+
+
+def model_defs(cfg: ModelConfig) -> Tree:
+    """Shapes and init kinds of every leaf (the JAX package's model_defs
+    for the served families). Every layer of a served family has one kind,
+    so the body is one block `l0` stacked over the layers."""
+    kinds = set(cfg.layer_kinds())
+    if len(kinds) != 1:
+        raise NotImplementedError(f"{cfg.name}: mixed layer kinds {sorted(kinds)}")
+    mixer, ffn = kinds.pop()
+    d = cfg.d_model
     defs: Tree = {
         "embed": ParamDef((cfg.padded_vocab, d)),
         "final_ln": ParamDef((d,), "ones"),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, cfg.padded_vocab))
-    defs["body"] = {"l0": {
-        "mixer": {
-            "ln": ParamDef((nl, d), "ones"),
-            "wq": ParamDef((nl, d, kh, g, hd)),
-            "wk": ParamDef((nl, d, kh, hd)),
-            "wv": ParamDef((nl, d, kh, hd)),
-            "wo": ParamDef((nl, kh, g, hd, d), scale=out_scale),
-        },
-        "ffn": {
-            "ln": ParamDef((nl, d), "ones"),
-            "wi_gate": ParamDef((nl, d, cfg.d_ff)),
-            "wi_up": ParamDef((nl, d, cfg.d_ff)),
-            "wo": ParamDef((nl, cfg.d_ff, d), scale=out_scale),
-        },
-    }}
+    sub: Tree = {"mixer": _attn_defs(cfg) if mixer == "attn" else _ssm_defs(cfg)}
+    if ffn == "mlp":
+        sub["ffn"] = _mlp_defs(cfg)
+    defs["body"] = {"l0": _stack(sub, cfg.n_layers)}
     return defs
 
 
@@ -82,22 +124,36 @@ def _dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
+def _draw(pd: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
+    """One leaf in fp32, by its init kind (the JAX package's formulas)."""
+    if pd.init == "zeros":
+        return torch.zeros(pd.shape, device=device)
+    if pd.init == "ones":
+        return torch.ones(pd.shape, device=device)
+    if pd.init == "normal":
+        return torch.randn(pd.shape, generator=generator, device=device).mul_(pd.scale)
+    u = torch.rand(pd.shape, generator=generator, device=device)
+    if pd.init == "dt_bias":
+        # dt log-uniform in [1e-3, 1e-1], stored as softplus^-1(dt)
+        dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+        return dt + torch.log(-torch.expm1(-dt))
+    if pd.init == "a_log":
+        return torch.log(1.0 + 15.0 * u)  # A = -exp(A_log), |A| uniform in [1, 16)
+    raise ValueError(f"unknown init {pd.init!r}")
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,
                 dtype="float32") -> Tree:
-    """Seeded weights with the JAX package's shapes and init scales:
-    normal(0, 1) * scale, RMSNorm gains at one. Leaves are drawn in sorted
-    path order from `generator`, which must live on `device`. Torch's
-    generator is not JAX's, so the values differ from the reference's; a
-    comparison carries the reference's own weights with `from_reference`."""
+    """Seeded weights with the JAX package's shapes and init rules:
+    normal(0, 1) * scale, zeros and ones where it has them, and its dt_bias
+    and A_log draws. Leaves are drawn in sorted path order from
+    `generator`, which must live on `device`. Torch's generator is not
+    JAX's, so the values differ from the reference's; a comparison carries
+    the reference's own weights with `from_reference`."""
     dt = _dtype(dtype)
     out: Tree = {}
     for path, pd in leaves(model_defs(cfg)):
-        if pd.init == "ones":
-            t = torch.ones(pd.shape, dtype=dt, device=device)
-        else:
-            t = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
-                            device=device).mul_(pd.scale).to(dt)
-        _set(out, path, t)
+        _set(out, path, _draw(pd, generator, device).to(dt))
     return out
 
 

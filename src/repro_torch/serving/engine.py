@@ -73,7 +73,7 @@ from repro_torch.core.metrics import MetricsRegistry
 from repro_torch.core.prefix import PrefixLease, PrefixStore
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
-from repro_torch.models.api import DenseLM
+from repro_torch.models.api import LM
 from repro_torch.models.params import init_params
 from repro_torch.serving import telemetry as tm
 
@@ -227,7 +227,7 @@ class ServingEngine:
         "prefix_scatter_traces",
     )
 
-    def __init__(self, cfg: ModelConfig, model: DenseLM, policy: BatchPolicy,
+    def __init__(self, cfg: ModelConfig, model: LM, policy: BatchPolicy,
                  ec: Optional[EngineConfig] = None, *,
                  device: DeviceLike = "cuda",
                  knee_profiles: Optional[Dict[int, Any]] = None,
@@ -991,5 +991,5 @@ def build_engine(cfg: ModelConfig, *, seed: int = 0, ec: Optional[EngineConfig] 
         for b in range(8)
     }
     policy = derive_policy(profiles, n_slices=1, bucket_width=ec.bucket_width)
-    return ServingEngine(cfg, DenseLM(cfg, params), policy, ec, device=dev,
+    return ServingEngine(cfg, LM(cfg, params), policy, ec, device=dev,
                          knee_profiles=profiles)

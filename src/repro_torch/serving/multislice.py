@@ -11,7 +11,7 @@ beats one monolithic GPU. This module composes:
                                       slice (own KV slot pool allocated on
                                       the slice's stream, own shape caches);
                                       every slice of a tenant serves that
-                                      tenant's ONE DenseLM, uncopied
+                                      tenant's ONE LM, uncopied
   core/batching SliceScheduler     -> REQUEST -> slice dispatch tracking
                                       with per-request straggler hedging
                                       and failure/resize requeue
@@ -109,7 +109,7 @@ from repro_torch.core.slicing.mig import (
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
-from repro_torch.models.api import DenseLM
+from repro_torch.models.api import LM
 from repro_torch.serving import telemetry as tm
 from repro_torch.serving.engine import (
     EngineConfig, ServingEngine, enqueue_requests,
@@ -140,8 +140,8 @@ def _slice_pod(devices: Sequence, n_slices: int):
     return SlicedPod(spec=spec, slices=slices, stranded_chips=0), True
 
 
-def _as_model(cfg: ModelConfig, params) -> DenseLM:
-    return params if isinstance(params, DenseLM) else DenseLM(cfg, params)
+def _as_model(cfg: ModelConfig, params) -> LM:
+    return params if isinstance(params, LM) else LM(cfg, params)
 
 
 @dataclass(frozen=True)
@@ -175,13 +175,13 @@ class TenantSpec:
 @dataclass
 class _Tenant:
     """One tenant, fully resolved: everything a slice engine build needs
-    (its one DenseLM, shared by every slice it owns) plus the fleet-level
+    (its one LM, shared by every slice it owns) plus the fleet-level
     knobs keyed off the tenant (slice ask for rebalance, chunking truth for
     hedging budgets, SLO class)."""
 
     name: str
     cfg: ModelConfig
-    model: DenseLM
+    model: LM
     policy: BatchPolicy
     ec: EngineConfig
     chunked: bool
@@ -207,7 +207,7 @@ class MultiSliceEngine:
     slot capacity (per-request hedging / failure / elastic resize via
     `SliceScheduler`, all tenant-constrained). Single-tenant construction
     (cfg, params, policy) is the one-tenant case. `params` is a weight
-    tree or a DenseLM; `device` is where the slices serve (default the
+    tree or an LM; `device` is where the slices serve (default the
     card; a CUDA device that is not there raises)."""
 
     def __init__(self, cfg: Optional[ModelConfig] = None, params=None,
@@ -1026,15 +1026,17 @@ class MultiSliceEngine:
             for e in gen.values():
                 e.registry.reset()
 
-    def decode_steps_total(self) -> int:
+    def decode_steps_total(self, tenant: Optional[str] = None) -> int:
         """Decode steps executed by every engine built since the last
         metrics reset — live, replaced (readmit, resize) or stashed in the
-        warm partition cache. Each step runs the decode kernel once per
-        layer, so this x n_layers is the kernel's launch count."""
+        warm partition cache — or by those of one tenant. Each step of an
+        attention model runs the decode kernel once per layer, so a
+        tenant's count x its n_layers is its share of the kernel's
+        launches (an SSM tenant's steps launch none)."""
         seen: Set[int] = set()
         total = 0
         for e in self._built:
-            if id(e) not in seen:
+            if id(e) not in seen and tenant in (None, e._tenant):
                 seen.add(id(e))
                 total += e.stats["decode_steps"]
         return total
@@ -1146,7 +1148,8 @@ def _seeded_params(cfg: ModelConfig, seed: int, dev: torch.device):
 
 
 def _check_served(cfg: ModelConfig) -> None:
-    """Tenants are dense decoders of a served arch; anything else raises."""
+    """Tenants are models of a served arch (SERVED_ARCHS: the dense and SSM
+    families), each fleet tenant of its own; anything else raises."""
     from repro_torch.configs import SERVED_ARCHS
 
     base = cfg.name[:-len("-reduced")] if cfg.name.endswith("-reduced") else cfg.name
@@ -1161,7 +1164,7 @@ def _resolve_tenants(specs: Sequence[TenantSpec], n_slices: int,
                      knee_profiles: Optional[Dict[int, Any]] = None,
                      ) -> List[_Tenant]:
     """Resolve TenantSpec asks into fully-built tenants: per-tenant weights
-    (seeded unless supplied; one DenseLM per tenant, shared by its slices),
+    (seeded unless supplied; one LM per tenant, shared by its slices),
     per-tenant knee profiles and policy (V = the tenant's apportioned slice
     count), chunking truth per model family, and the right-sizing check
     against the pod's uniform slice size."""
@@ -1213,7 +1216,7 @@ def build_multislice_engine(
     """Mirror of engine.build_engine for the multi-slice system: the same
     seeded weights (outputs equal a single engine's), knee-derived policy
     with V = n_slices (Time_queue = Time_knee / V). Pass `params` (a tree or
-    a DenseLM) to serve weights already on the card; `dispatch="batch"`
+    an LM) to serve weights already on the card; `dispatch="batch"`
     keeps the batch-granularity dispatcher (baseline).
 
     Multi-tenant: pass `tenants=[TenantSpec(...), ...]` instead of `cfg`.

@@ -685,7 +685,7 @@ def build_pipelined_runtime(
     """One continuous-batching engine (or a multi-slice fleet) behind the
     pipelined stages, on `device`. The engine's own inline DPU pass is
     disabled — preprocessing belongs to the service stage here. `params`:
-    weights to serve (a tree, e.g. from_reference, or a DenseLM); None
+    weights to serve (a tree, e.g. from_reference, or an LM); None
     draws seeded ones from `seed`. The failure-semantics knobs (retry
     budget, watchdog, probe/readmit) apply to the fleet; single-engine
     runtimes have no slice to lose. Pass `tenants=[TenantSpec(...), ...]`
@@ -696,7 +696,7 @@ def build_pipelined_runtime(
     resizable fleet, so one is built even at n_slices=1."""
     from dataclasses import replace as dc_replace
 
-    from repro_torch.models.api import DenseLM
+    from repro_torch.models.api import LM
     from repro_torch.serving.engine import EngineConfig, build_engine
     from repro_torch.serving.multislice import build_multislice_engine
 
@@ -718,7 +718,7 @@ def build_pipelined_runtime(
         # starting menu point is a single coarse slice
         engine = build_multislice_engine(cfg, params=params, **fleet)
     else:
-        if isinstance(params, DenseLM):
+        if isinstance(params, LM):
             params = params.tree()
         engine = build_engine(cfg, seed=seed, ec=ec, device=device, params=params)
     return PipelinedRuntime(engine, service, rc, controller=controller)

@@ -1,5 +1,6 @@
 """The hand-written kernels on the card (the DPU's and decode attention),
-against their plain PyTorch versions.
+against their plain PyTorch versions; the within-port contracts of the
+dense and SSM families and the fleets that serve them.
 
 Marked `gpu`: they skip without a CUDA device. This file imports neither
 JAX nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -562,14 +563,14 @@ def full_width():
 
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.models.api import DenseLM
+    from repro_torch.models.api import LM
     from repro_torch.models.params import init_params
 
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2)
     assert cfg.dtype == "bfloat16" and cfg.d_model == 2048
     gen = torch.Generator(device=dev).manual_seed(0)
-    return cfg, DenseLM(cfg, init_params(cfg, gen, dev, cfg.dtype)), dev
+    return cfg, LM(cfg, init_params(cfg, gen, dev, cfg.dtype)), dev
 
 
 def _prompt(cfg, n, seed):
@@ -818,7 +819,7 @@ FLEET_LENS = [48, 33, 61, 40, 57, 36, 64, 45]
 @pytest.mark.gpu
 def test_contract_multi_slice_equals_single_slice_on_card(full_width):
     """Two slices, each an engine on its own CUDA stream, sharing one
-    DenseLM == one engine: per request the tokens, the K/V row it left in
+    LM == one engine: per request the tokens, the K/V row it left in
     its slice's pool and the logits of its next step, bit for bit."""
     from repro_torch.serving.engine import EngineConfig, build_engine
     from repro_torch.serving.multislice import build_multislice_engine
@@ -886,6 +887,81 @@ def test_two_tenant_fleet_matches_each_tenants_single_engine_on_card(full_width)
     assert len(done) == 2 * len(FLEET_LENS)
     for i, nm in enumerate(names):
         single = build_engine(cfg, seed=i, ec=ec, device=dev)
+        single.submit_many(_fleet_requests(FLEET_LENS, rid0=100 * i))
+        ref = {r.rid: np.asarray(r.payload) for r in single.run_until_idle()}
+        for r in done:
+            if r.model == nm:
+                np.testing.assert_array_equal(np.asarray(r.payload), ref[r.rid])
+        ts = fleet.tenant_stats()[nm]
+        assert ts["completed"] == len(FLEET_LENS)
+        assert set(ts["routed_to"]) <= set(ts["slices"])
+
+
+# --- the Mamba2 SSM family on the card: chip_smoke.py phase 14's checks at
+# full width (d_model 1024, 32 SSM heads of 64, state 128; 2 layers, bf16,
+# seeded weights), bit for bit on tokens, the conv tail and state rows and
+# the next step's logits ---------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ssm_full_width():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the SSM contracts are held on the card")
+    cs = _chip_smoke()
+    return (cs, *cs.ssm_contract_model(torch))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("contract", ["padded", "join", "chained", "multi_slice"])
+def test_ssm_contract_on_card(ssm_full_width, contract):
+    """padded == unpadded, join == alone, chained segments == sequential
+    decode, and multi-slice (two CUDA streams) == single-slice."""
+    cs, cfg, model, dev = ssm_full_width
+    res = getattr(cs, f"ssm_contract_{contract}")(torch, np, cfg, model, dev)
+    assert res["equal"], res
+
+
+@pytest.mark.gpu
+def test_ssd_chunked_matches_the_recurrence_on_card(ssm_full_width):
+    from repro_torch.configs import get_config
+
+    cs = ssm_full_width[0]
+    rows = cs.ssd_check(torch, np, get_config("mamba2-370m"))
+    assert len(rows) == 4 and all(r["ok"] for r in rows)
+
+
+@pytest.mark.gpu
+def test_two_family_fleet_matches_each_models_single_engine_on_card(full_width,
+                                                                      ssm_full_width):
+    """tinyllama and mamba2 (2 layers each), two slices each behind one
+    admission queue: every request's tokens equal its own model's single
+    engine's, no request ran on the other tenant's slices, and the decode
+    kernel ran once per layer on the tinyllama tenant's steps only."""
+    from repro_torch.serving.engine import EngineConfig, build_engine
+    from repro_torch.serving.multislice import TenantSpec, build_multislice_engine
+
+    cfg_a, model_a, dev = full_width
+    _, cfg_b, model_b, _ = ssm_full_width
+    ec = EngineConfig(continuous=True, max_slots=8, segment_len=CONTRACT_BUDGET,
+                      max_new_tokens=CONTRACT_BUDGET, max_prompt_len=128)
+    names = {"tinyllama-1.1b": (cfg_a, model_a), "mamba2-370m": (cfg_b, model_b)}
+    fleet = build_multislice_engine(
+        n_slices=4, ec=ec, device=dev,
+        tenants=[TenantSpec(cfg=c, name=nm, n_slices=2, params=m)
+                 for nm, (c, m) in names.items()])
+    reqs = []
+    for i, nm in enumerate(names):
+        reqs += _fleet_requests(FLEET_LENS, model=nm, rid0=100 * i)
+    kernels.reset_launch_counts()
+    fleet.submit_many(reqs)
+    done = fleet.run_until_idle()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == \
+        cfg_a.n_layers * fleet.decode_steps_total("tinyllama-1.1b") > 0
+    assert fleet.decode_steps_total("mamba2-370m") > 0
+    assert len(done) == 2 * len(FLEET_LENS)
+    for i, (nm, (c, m)) in enumerate(names.items()):
+        single = build_engine(c, ec=ec, device=dev, params=m.tree())
         single.submit_many(_fleet_requests(FLEET_LENS, rid0=100 * i))
         ref = {r.rid: np.asarray(r.payload) for r in single.run_until_idle()}
         for r in done:

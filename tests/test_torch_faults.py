@@ -34,7 +34,7 @@ from repro_torch.configs import reduced  # noqa: E402
 from repro_torch.core.batching.buckets import Request  # noqa: E402
 from repro_torch.core.dpu.runtime import DpuConfig, payload_error  # noqa: E402
 from repro_torch.core.dpu.service import DpuService, DpuServiceConfig  # noqa: E402
-from repro_torch.models.api import DenseLM  # noqa: E402
+from repro_torch.models.api import LM  # noqa: E402
 from repro_torch.models.params import from_reference  # noqa: E402
 from repro_torch.serving import faults  # noqa: E402
 from repro_torch.serving.engine import EngineConfig  # noqa: E402
@@ -90,7 +90,7 @@ def setup():
     jp, pt, ref = {}, {}, {}
     for seed in (0, 1):
         jp[seed] = rapi.init_params(rcfg, jax.random.PRNGKey(seed), dtype="float32")
-        pt[seed] = DenseLM(cfg, from_reference(jax.tree.map(np.asarray, jp[seed]), cfg,
+        pt[seed] = LM(cfg, from_reference(jax.tree.map(np.asarray, jp[seed]), cfg,
                                                "cpu", "float32"))
         eng = rengine.build_engine(rcfg, ec=_ec(rengine.EngineConfig))
         eng.params = jp[seed]
@@ -336,6 +336,68 @@ def test_watchdog_quarantines_probes_and_readmits_the_owning_tenants_engine(setu
     assert ms.dead == []
     assert ms.decode_steps_total() == sum(
         x.stats["decode_steps"] for x in [old, *ms.engines.values()])
+
+
+def test_watchdog_readmit_rebuilds_the_ssm_tenants_engine(setup):
+    """The two-family fleet (tinyllama, and mamba2 as tenant
+    "mamba2-370m-fleet"), two slices each: a hung mamba2 slice is
+    quarantined, its work requeues within its tenant, the probe readmits
+    the slice with an engine rebuilt for mamba2 (never tinyllama), no
+    request crosses the model boundary, every request's tokens equal the
+    JAX package's single engine of its model, and the readmitted slice
+    serves its tenant's next wave."""
+    name_b = "mamba2-370m-fleet"
+    rcfg_b = dataclasses.replace(ref_reduced("mamba2-370m"), dtype="float32")
+    cfg_b = dataclasses.replace(reduced("mamba2-370m"), dtype="float32")
+    jp_b = rapi.init_params(rcfg_b, jax.random.PRNGKey(0), dtype="float32")
+    model_b = LM(cfg_b, from_reference(jax.tree.map(np.asarray, jp_b), cfg_b, "cpu",
+                                       "float32"))
+
+    def _b(cls, i, model=None):
+        return cls(rid=6500 + i, arrival=0.0, length=float(17 + 2 * i),
+                   max_new_tokens=3 + i, model=model)
+
+    single = rengine.build_engine(rcfg_b, ec=_ec(rengine.EngineConfig))
+    single.params = jp_b
+    single.submit_many([_b(RRequest, i) for i in range(3)]
+                       + [RRequest(rid=6510 + i, arrival=0.0, length=float(18 + i),
+                                   max_new_tokens=4) for i in range(4)])
+    ref = {**setup["ref"], **_tokens(single.run_until_idle())}
+    ms = build_multislice_engine(
+        n_slices=4, ec=_ec(EngineConfig), device="cpu",
+        tenants=[TenantSpec(cfg=setup["cfg"], name="a", n_slices=2, params=setup["pt"][0]),
+                 TenantSpec(cfg=cfg_b, name=name_b, n_slices=2, params=model_b)],
+        watchdog_rounds=3, probe_interval_s=0.05)
+    ms.offer([_mk(Request, i, model="a") for i in range(4)]
+             + [_b(Request, i, model=name_b) for i in range(3)])
+    now = time.monotonic()
+    ms._dispatch(now)
+    b_slices = set(ms.slices_of(name_b))
+    sid = next(s for tr in ms._inflight.values() for s in tr.copies if s in b_slices)
+    ms.stalled_slices.add(sid)
+    old = ms.engines[sid]
+    for _ in range(3):
+        now += 1e-3
+        ms.step(now)
+    assert sid in ms._quarantined
+    ms.stalled_slices.discard(sid)         # the device heals
+    now = ms._quarantined[sid] + 1e-3
+    ms.step(now)
+    assert sid not in ms._quarantined and ms.stats["readmitted"] == 1
+    e = ms.engines[sid]
+    assert e is not old and e.cfg is cfg_b and e.model is model_b and e._tenant == name_b
+    done = ms.run_until_idle()
+    assert len(done) == 7
+    _check(done, ref)
+    for name in ("a", name_b):
+        assert set(ms.tenant_stats()[name]["routed_to"]) <= set(ms.slices_of(name))
+    assert ms.dead == []
+    more = [Request(rid=6510 + i, arrival=0.0, length=float(18 + i), max_new_tokens=4,
+                    model=name_b) for i in range(4)]
+    ms.submit_many(more)
+    _check(ms.run_until_idle(), ref)
+    assert sum(ms.engines[s].stats["admitted"] for s in b_slices) >= 7
+    assert set(ms.engines[sid]._pool["body"]["l0"]["mixer"]) == {"conv", "state"}
 
 
 def test_service_injected_failures_take_the_failed_path():

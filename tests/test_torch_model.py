@@ -23,7 +23,7 @@ from repro.models import api as rapi  # noqa: E402
 from repro.models import lm as rlm  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import lm, params as tparams  # noqa: E402
-from repro_torch.models.api import DenseLM  # noqa: E402
+from repro_torch.models.api import LM  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -99,7 +99,7 @@ def test_prefill_logits_match_reference(setup):
                         pos_offset=torch.from_numpy(off), cache_len=16)
     assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
     # the nn.Module runs the same function
-    assert torch.equal(DenseLM(cfg, p)(torch.from_numpy(toks), torch.from_numpy(off)), got)
+    assert torch.equal(LM(cfg, p)(torch.from_numpy(toks), torch.from_numpy(off)), got)
 
 
 def _pool_rows(toks, off, slots, clock):

@@ -31,7 +31,7 @@ from repro_torch.configs import reduced  # noqa: E402
 from repro_torch.core.batching.buckets import Request  # noqa: E402
 from repro_torch.core.batching.policy import BatchPolicy  # noqa: E402
 from repro_torch.core.slicing import mig  # noqa: E402
-from repro_torch.models.api import DenseLM  # noqa: E402
+from repro_torch.models.api import LM  # noqa: E402
 from repro_torch.models.params import from_reference  # noqa: E402
 from repro_torch.serving.engine import EngineConfig  # noqa: E402
 from repro_torch.serving.multislice import (  # noqa: E402
@@ -78,7 +78,7 @@ def setup():
     jp, pt, single = {}, {}, {}
     for seed in (0, 1):
         jp[seed] = rapi.init_params(rcfg, jax.random.PRNGKey(seed), dtype="float32")
-        pt[seed] = DenseLM(cfg, from_reference(jax.tree.map(np.asarray, jp[seed]), cfg,
+        pt[seed] = LM(cfg, from_reference(jax.tree.map(np.asarray, jp[seed]), cfg,
                                                "cpu", "float32"))
         eng = rengine.build_engine(rcfg, ec=_ec(rengine.EngineConfig))
         eng.params = jp[seed]
@@ -286,6 +286,67 @@ def test_resize_rebalances_between_tenants_as_the_reference(setup):
         assert set(ms.tenant_stats()[name]["routed_to"]) <= set(ms.slices_of(name))
 
 
+# --- the two-family fleet: tinyllama + mamba2 behind one admission queue ----
+
+SSM = "mamba2-370m"
+T_LENS = [17.0, 19.0, 21.0, 23.0, 25.0, 18.0]
+T_BUDGETS = [4, 6, 3, 8, 5, 7]
+T_BASE = {ARCH: 8100, SSM: 8200}
+
+
+def _treqs(cls, model):
+    return [cls(rid=T_BASE[model] + i, arrival=0.0, length=T_LENS[i],
+                max_new_tokens=T_BUDGETS[i], model=model) for i in range(len(T_LENS))]
+
+
+@pytest.fixture(scope="module")
+def two_family():
+    """Reduced tinyllama and reduced mamba2 at fp32, the JAX package's
+    seed-0 weights of each, and the JAX two-tenant fleet's tokens (the
+    reference's own two-tenant fixture, tests/test_multislice.py)."""
+    rcfgs = {m: dataclasses.replace(ref_reduced(m), dtype="float32") for m in (ARCH, SSM)}
+    cfgs = {m: dataclasses.replace(reduced(m), dtype="float32") for m in (ARCH, SSM)}
+    jp = {m: rapi.init_params(rcfgs[m], jax.random.PRNGKey(0), dtype="float32")
+          for m in (ARCH, SSM)}
+    pt = {m: LM(cfgs[m], from_reference(jax.tree.map(np.asarray, jp[m]), cfgs[m], "cpu",
+                                        "float32")) for m in (ARCH, SSM)}
+    rfleet = rms.build_multislice_engine(
+        n_slices=4, ec=_ec(rengine.EngineConfig),
+        tenants=[rms.TenantSpec(cfg=rcfgs[m], name=m, n_slices=2, params=jp[m])
+                 for m in (ARCH, SSM)])
+    rfleet.submit_many(_treqs(RRequest, ARCH) + _treqs(RRequest, SSM))
+    return dict(cfgs=cfgs, pt=pt, ref=_tokens(rfleet.run_until_idle()),
+                rtenant_map=rfleet.slice_tenant)
+
+
+def test_two_family_fleet_equals_the_reference_fleet_per_rid(two_family):
+    """Two model families on disjoint slice sets behind one admission
+    queue, each slice's engine built for its owner's model (a KV pool for
+    tinyllama, conv/state rows for mamba2): per rid the tokens equal the
+    JAX package's two-tenant fleet's, and no request touched a foreign
+    slice."""
+    cfgs, pt = two_family["cfgs"], two_family["pt"]
+    ms = build_multislice_engine(
+        n_slices=4, ec=_ec(EngineConfig), device="cpu",
+        tenants=[TenantSpec(cfg=cfgs[m], name=m, n_slices=2, params=pt[m])
+                 for m in (ARCH, SSM)])
+    assert ms.slice_tenant == two_family["rtenant_map"]
+    ms.submit_many(_treqs(Request, ARCH) + _treqs(Request, SSM))
+    done = ms.run_until_idle()
+    _check(done, two_family["ref"], 2 * len(T_LENS))
+    for sid, e in ms.engines.items():
+        m = ms.slice_tenant[sid]
+        assert e.cfg is cfgs[m] and e.model is pt[m]
+        assert set(e._pool["body"]["l0"]["mixer"]) == (
+            {"conv", "state"} if m == SSM else {"k", "v"})
+    ts = ms.tenant_stats()
+    for m in (ARCH, SSM):
+        assert ts[m]["completed"] == len(T_LENS) and ts[m]["dead"] == 0
+        assert set(ts[m]["routed_to"]) <= set(ms.slices_of(m))
+    assert all(e.stats["admitted"] > 0 for e in ms.engines.values())
+    assert not ms.chunked_for_model(SSM)
+
+
 def test_rebalance_and_placement_equal_reference_over_a_sweep():
     rng = np.random.default_rng(0)
     for _ in range(200):
@@ -338,7 +399,7 @@ def test_fleet_entry_points_default_to_cuda_and_refuse_an_unserved_arch(setup):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             MultiSliceEngine(setup["cfg"], setup["pt"][0], _policy(BatchPolicy, 2),
                              n_slices=2)
-    other = dataclasses.replace(setup["cfg"], name="mamba2-370m")
+    other = dataclasses.replace(setup["cfg"], name="mixtral-8x22b")
     with pytest.raises(ValueError, match="not served"):
         build_multislice_engine(n_slices=2, device="cpu",
                                 tenants=[TenantSpec(cfg=other, params=setup["pt"][0])])

@@ -49,7 +49,7 @@ from repro_torch.core.batching import knee  # noqa: E402
 from repro_torch.core.batching.buckets import Request  # noqa: E402
 from repro_torch.core.control import partition  # noqa: E402
 from repro_torch.core.metrics import MetricsRegistry  # noqa: E402
-from repro_torch.models.api import DenseLM  # noqa: E402
+from repro_torch.models.api import LM  # noqa: E402
 from repro_torch.models.params import from_reference, init_params  # noqa: E402
 from repro_torch.serving.engine import EngineConfig  # noqa: E402
 from repro_torch.serving.faults import replay_virtual  # noqa: E402
@@ -310,7 +310,7 @@ def real_fleet():
     rcfg = dataclasses.replace(ref_reduced(ARCH), dtype="float32")
     cfg = dataclasses.replace(reduced(ARCH), dtype="float32")
     jp = rapi.init_params(rcfg, jax.random.PRNGKey(0), dtype="float32")
-    model = DenseLM(cfg, from_reference(jax.tree.map(np.asarray, jp), cfg, "cpu", "float32"))
+    model = LM(cfg, from_reference(jax.tree.map(np.asarray, jp), cfg, "cpu", "float32"))
 
     def ref_run():
         ms = rms.build_multislice_engine(rcfg, n_slices=1,
@@ -454,7 +454,7 @@ def test_card_controller_trace_log_is_pinned():
     depends on neither the model's width nor the backend)."""
     cs = _chip_smoke()
     cfg = reduced(ARCH)
-    model = DenseLM(cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu", cfg.dtype))
+    model = LM(cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu", cfg.dtype))
     profiles = cs.analytical_profiles()
     runs = [cs.controller_replay(torch, np, model, profiles, "cpu") for _ in range(2)]
     (rt, ctl, done), (_, ctl2, done2) = runs
