@@ -81,8 +81,9 @@ Phases, each fatal on failure:
 7. decode kernel — holds the flash-decode attention kernel against its
    plain version at the JAX package's test shapes (B, H, KH, D, S) =
    (2, 8, 4, 64, 512), (1, 7, 7, 128, 300), (4, 16, 16, 64, 1024), each at
-   fp32 and bf16, and at the serve shapes (8, 32, 4, 64, 144) and
-   (8, 32, 4, 64, 2048) in bf16, valid_len drawn in [1, S] (tolerance 2e-4
+   fp32 and bf16, at the serve shapes (8, 32, 4, 64, 144) and
+   (8, 32, 4, 64, 2048) in bf16, and at h2o-danube's decode shape
+   (8, 32, 8, 80, 4096) at fp32 and bf16, valid_len drawn in [1, S] (tolerance 2e-4
    at fp32, 3e-2 at bf16), plus one row with valid_len = 0 (the mean of
    V). The serve shape's output at S = 144 must equal, bit for bit, the
    same rows' at S = 2,048 with noise past valid_len (a row's bits depend
@@ -183,16 +184,48 @@ Phases, each fatal on failure:
    gate; padded == unpadded is printed); and one full-width mamba2 decode
    step at batch 8, its wall ms and a torch.profiler pass.
 
-In every serve phase (4, 6, 8-11, 13, 14) the decode kernel's launches must
+15. new archs — the rest of the dense family and the MoE family at full
+   width, bf16, seed-0 weights, one at a time: h2o-danube-1.8b (24 layers:
+   a 4,096 sliding window, head size 80), granite-3-8b (40), yi-34b (8 of
+   60), mixtral-8x22b (4 of 56: window 4,096, 8 experts top 2) and
+   moonshot-v1-16b-a3b (8 of 48: a dense first layer, 64 experts top 6, 2
+   shared); the cuts keep each arch's weights inside the card
+   (NEW_ARCH_DEPTH). Per arch it prints the weight bytes and the free
+   bytes after them (an 8-slot pool must fit), then serves 8 requests with
+   1 s of 48 kHz audio, submitted at once, through a wall-clock DpuService into the pipelined
+   runtime's continuous engine (8 slots, segment 8, 8 new tokens): all
+   served once, 0 shed, features equal the plain CPU pipeline, tokens in
+   the vocabulary, no CPU path, the audio kernels once a DPU group, decode
+   attention n_attn_layers x the decode steps; it prints tokens/s and the
+   slot pool's bytes. Then one decode step at batch 8 over a 144-slot ring
+   (wall ms, best of two runs of 20; torch.profiler: device ms, launches,
+   one decode attention a layer), and the within-port contracts in an
+   8-slot pool, bit for bit on tokens, K/V and the next logits: join ==
+   alone (gated for the dense archs; for MoE printed, not gated: a token's
+   expert capacity depends on its decode group, and the JAX package's own
+   join holds on tokens but not on logits, tests/test_torch_moe.py) and
+   chained == sequential (gated). danube also serves one 4,000-token prompt
+   (bucket 4,096 = the window; its prefill takes the blockwise attention)
+   with 200 new tokens, so its 4,096-slot ring wraps at decode step 96: at
+   step 150 every layer's kernel output must be within 3e-2 of attention
+   over the same ring with each slot's true position and the window mask.
+   Then the kernel's plain version takes its place, and its greedy tokens'
+   agreement with the kernel run's is reported, served alone and fed the
+   kernel run's tokens (beside a replay with the kernel, which must
+   reproduce them), with the misses' logit margins and the two replays'
+   largest logit difference before and after the wrap (random bf16
+   weights give flat logits, so near-ties are common).
+
+In every serve phase (4, 6, 8-11, 13-15) the decode kernel's launches must
 equal n_layers x the decode steps the engines executed (their own stats;
-in phase 14 the tinyllama tenant's): every attention decode step runs it
-once per layer. Any serve phase that injected no failure fails on a
+in phase 14 the tinyllama tenant's, in phase 15 the attention layers'):
+every attention decode step runs it once per layer. Any serve phase that injected no failure fails on a
 breaker trip or a request served on the CPU path.
 
 Prints one JSON line {"kernels": [...]} (seven kernels; a kernel's launches
 are the sum over the phases that run it — decode_attention's over the seven
-serve phases, the knee pass and the controller's first replay, the audio
-kernels' over phases 4, 10, 11, 13 and 14; worst_library_ratio is the
+serve phases, the knee pass, the controller's first replay and phase 15's
+six serves, the audio kernels' over phases 4, 10, 11, 13, 14 and 15; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
 where it falls, so a kernel that loses off its main shape shows), the
 card's name and power limit, and last {"ok": true, "device": {...}}. With --out PATH the
@@ -221,11 +254,13 @@ IMAGE_SHAPES = [(1, 256, 256), (16, 256, 256), (1, 512, 512), (16, 512, 512),
 IMAGE_MAIN_SHAPE = (16, 512, 512)  # the image serve phase's fused group
 # decode attention (B, H, KH, D, S, dtype): the JAX package's test shapes,
 # then the serve shapes of tinyllama-1.1b (8 slots, a 144-slot ring, and a
-# 2,048-slot ring that spans many of the kernel's 64-key tiles)
+# 2,048-slot ring that spans many of the kernel's 64-key tiles), then
+# h2o-danube-1.8b's (8 slots, its full 4,096-slot window ring, head size 80)
 DECODE_SHAPES = [(2, 8, 4, 64, 512, d) for d in ("float32", "bfloat16")] \
     + [(1, 7, 7, 128, 300, d) for d in ("float32", "bfloat16")] \
     + [(4, 16, 16, 64, 1024, d) for d in ("float32", "bfloat16")] \
-    + [(8, 32, 4, 64, 144, "bfloat16"), (8, 32, 4, 64, 2048, "bfloat16")]
+    + [(8, 32, 4, 64, 144, "bfloat16"), (8, 32, 4, 64, 2048, "bfloat16")] \
+    + [(8, 32, 8, 80, 4096, d) for d in ("float32", "bfloat16")]  # h2o-danube's decode
 DECODE_MAIN_SHAPE = (8, 32, 4, 64, 144, "bfloat16")
 L2_FLUSH_FLOATS = 32 << 20  # 128 MB, written before each cold sample (the L2 holds 50 MB)
 BITS_S = 2048  # the ring the serve shape's rows are held bit for bit against
@@ -1344,10 +1379,14 @@ def fleet_phase(torch, np, params, card):
 
 def pool_bytes(engines) -> int:
     """Bytes of the slot pools these engines hold on the card (K/V rings,
-    or an SSM's conv tails and states)."""
-    return sum(sum(t.numel() * t.element_size()
-                   for t in e._pool["body"]["l0"]["mixer"].values())
-               for e in engines if e.slot_capacity() and e._pool is not None)
+    or an SSM's conv tails and states, every layer)."""
+    return sum(tree_bytes(e._pool) for e in engines
+               if e.slot_capacity() and e._pool is not None)
+
+
+def tree_bytes(tree) -> int:
+    return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
 
 
 def chaos_phase(torch, np, model, ec, ref, card):
@@ -2110,6 +2149,444 @@ def mt_fleet_phase(torch, np, params, card):
     return res
 
 
+# --- 15. the rest of the dense family and the MoE family ----------------------
+
+# arch: layers served in phase 15 (None: all of them); the cuts keep the bf16
+# weights of each inside one card beside its pools
+NEW_ARCH_DEPTH = {"h2o-danube-1.8b": None, "granite-3-8b": None, "yi-34b": 8,
+                  "mixtral-8x22b": 4, "moonshot-v1-16b-a3b": 8}
+NEW_REQUESTS, NEW_MAX_NEW = 8, 8
+CONTRACT_SLOTS, CONTRACT_STEPS = 8, 8
+CONTRACT_LENS_A, CONTRACT_LEN_B = [30, 13, 25, 7, 19, 32, 11], 21  # one 32-token bucket
+WRAP_ARCH = "h2o-danube-1.8b"  # its window ring is made to wrap on the card
+WRAP_PROMPT, WRAP_STEPS, WRAP_CHECK_STEP = 4000, 200, 150  # the ring wraps at step 96
+
+
+def n_attn_layers(cfg) -> int:
+    return sum(1 for m, _ in cfg.layer_kinds() if m == "attn")
+
+
+def _map_pool(pool, fn):
+    """fn(leaf name, leaf, stacked) over a cache tree's leaves (body leaves
+    carry a leading block axis, prefix leaves none)."""
+    def walk(t, stacked):
+        return {k: walk(v, stacked) if isinstance(v, dict) else fn(k, v, stacked)
+                for k, v in t.items()}
+    return {top: walk(sub, top == "body") for top, sub in pool.items()}
+
+
+def _kv_rows(torch, pool, row, n):
+    """Row `row`'s K and V over ring slots [0, n), every attention layer,
+    flattened into one tensor."""
+    parts = []
+    _map_pool(pool, lambda k, v, st: parts.append(
+        (v[:, row, :n] if st else v[row, :n]).reshape(-1)) if k in ("k", "v") else None)
+    return torch.cat(parts)
+
+
+def _attn_block(torch, np, cfg, lens, seed, dev, width=CONTRACT_SLOTS, lp=32):
+    """A [width, lp] left-padded bucket: rows past len(lens) wholly padding."""
+    toks = np.zeros((width, lp), np.int64)
+    off = np.full(width, lp, np.int64)
+    for i, n in enumerate(lens):
+        toks[i, lp - n:] = np.random.default_rng(seed + i).integers(0, cfg.vocab, n)
+        off[i] = lp - n
+    return torch.from_numpy(toks).to(dev), torch.from_numpy(off).to(dev)
+
+
+def attn_contracts(torch, np, cfg, model, dev) -> dict:
+    """The within-port contracts of an attention model, in a pool of 8 slots
+    (ring 64), bit for bit. join == alone: request B (21 tokens) admitted
+    into slot 7 at clock 35 while seven others decode in slots 0-6 (three
+    steps in) == B admitted into an idle pool: its tokens, its K and V over
+    the slots it wrote, and its logits one step later. chained ==
+    sequential: decode_segment(3) then (5) == eight decode steps, every
+    row. An MoE token's expert capacity depends on its decode group, so
+    join may differ there (the JAX package's own contract, tests/
+    test_torch_moe.py)."""
+    from repro_torch.models import lm
+
+    slots, steps = CONTRACT_SLOTS, CONTRACT_STEPS
+
+    def pool0():
+        return lm.alloc_slot_pool(cfg, slots, 64, dev)
+
+    def admit(pool, lens, rows, clock, seed):
+        toks, off = _attn_block(torch, np, cfg, lens, seed, dev)
+        sids = torch.full((slots,), slots, dtype=torch.long, device=dev)
+        sids[:len(rows)] = torch.tensor(rows, device=dev)
+        t0, pool = model.prefill_into_slots(toks, pool, sids, clock, pos_offset=off)
+        return t0[:len(rows)], pool
+
+    def serve_b(pool, clock, tok, poff):
+        t0b, pool = admit(pool, [CONTRACT_LEN_B], [slots - 1], clock, 5)
+        poff, tok = poff.clone(), tok.clone()
+        poff[-1], tok[-1] = clock - CONTRACT_LEN_B, t0b[0]
+        seg, pool = model.decode_segment(pool, tok, clock, steps=steps, pos_offset=poff)
+        logits, pool = model.decode(pool, seg[:, -1:], clock + steps, pos_offset=poff)
+        return torch.cat([t0b[0], seg[-1]]), pool, logits[-1]
+
+    zero_tok = torch.zeros(slots, 1, dtype=torch.long, device=dev)
+    zero_off = torch.zeros(slots, dtype=torch.long, device=dev)
+    solo, pool_s, lg_s = serve_b(pool0(), 35, zero_tok, zero_off)
+    rows_a = list(range(len(CONTRACT_LENS_A)))
+    t0a, pool = admit(pool0(), CONTRACT_LENS_A, rows_a, 32, 4)
+    poff = zero_off.clone()
+    poff[:len(rows_a)] = 32 - torch.tensor(CONTRACT_LENS_A, device=dev)
+    tok = zero_tok.clone()
+    tok[:len(rows_a)] = t0a
+    seg, pool = model.decode_segment(pool, tok, 32, steps=3, pos_offset=poff)
+    joined, pool_j, lg_j = serve_b(pool, 35, seg[:, -1:], poff)
+    n_kv = CONTRACT_LEN_B + steps + 1
+    join = {"tokens": _bits(torch, joined, solo),
+            "kv": _bits(torch, _kv_rows(torch, pool_j, slots - 1, n_kv),
+                        _kv_rows(torch, pool_s, slots - 1, n_kv)),
+            "logits": _bits(torch, lg_j, lg_s)}
+    join["equal"] = all(v["equal"] for v in join.values())
+
+    lens = CONTRACT_LENS_A + [CONTRACT_LEN_B]
+
+    def admitted():
+        t0, pool = admit(pool0(), lens, list(range(slots)), 32, 7)
+        return t0, pool, 32 - torch.tensor(lens, device=dev)
+
+    tok0, pool_c, poff = admitted()
+    s1, pool_c = model.decode_segment(pool_c, tok0, 32, steps=3, pos_offset=poff)
+    s2, pool_c = model.decode_segment(pool_c, s1[:, -1:], 35, steps=steps - 3,
+                                      pos_offset=poff)
+    chained = torch.cat([s1, s2], dim=1)
+    tok, pool_q, _ = admitted()
+    seq = []
+    for i in range(steps):
+        logits, pool_q = model.decode(pool_q, tok, 32 + i, pos_offset=poff)
+        tok = torch.argmax(logits, -1)
+        seq.append(tok)
+    seq = torch.cat(seq, dim=1)
+    lg = [model.decode(p, t[:, -1:], 32 + steps, pos_offset=poff)[0]
+          for p, t in ((pool_c, chained), (pool_q, seq))]
+    chain = {"tokens": _bits(torch, chained, seq),
+             "kv": _bits(torch, torch.cat([_kv_rows(torch, pool_c, r, 32 + steps)
+                                           for r in range(slots)]),
+                         torch.cat([_kv_rows(torch, pool_q, r, 32 + steps)
+                                    for r in range(slots)])),
+             "logits": _bits(torch, lg[0], lg[1])}
+    chain["equal"] = all(v["equal"] for v in chain.values())
+    return {"join_equals_alone": join, "chained_equals_sequential": chain}
+
+
+def attn_decode_step_profile(torch, model):
+    """One decode step at batch 8 over a 144-slot ring of random K/V (rows
+    at 10-143 tokens): wall ms (best of two runs of 20 steps) and a
+    torch.profiler pass over 5 steps, which must show one decode attention
+    launch a layer."""
+    from repro_torch.models import lm
+
+    cfg, dev = model.cfg, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pool = lm.alloc_slot_pool(cfg, 8, 144, dev)
+    _map_pool(pool, lambda k, v, st: v.normal_(generator=gen))
+    tok = torch.randint(0, cfg.vocab, (8, 1), generator=gen, device=dev)
+    clock = 300
+    off = clock - torch.tensor([10, 40, 70, 100, 120, 130, 143, 5], device=dev)
+
+    def step():
+        model.decode(pool, tok, clock, pos_offset=off)
+
+    def steps_ms(n=20):
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    wall = min(steps_ms(), steps_ms())
+    prof = profile_decode_steps(torch, step, wall)
+    if prof["decode_attention_calls_per_step"] != n_attn_layers(cfg):
+        fail(f"{cfg.name}: {prof['decode_attention_calls_per_step']} decode attention "
+             f"launches a step, {n_attn_layers(cfg)} attention layers")
+    return {"layers": cfg.n_layers, "batch": 8, "ring": 144, "wall_ms": wall, **prof}
+
+
+def new_arch_serve(torch, np, cfg, model, where):
+    """PREBA's audio path over this model: 8 requests with 1 s of 48 kHz
+    audio, submitted at once, through a wall-clock DpuService into the
+    pipelined runtime's continuous engine (8 slots, segment 8, 8 new
+    tokens). Gates: all
+    served once, 0 shed, conservation, features equal to the plain CPU
+    pipeline, tokens in the vocabulary, no CPU path, the audio kernels once
+    a DPU group, decode attention n_attn_layers x the engine's decode
+    steps."""
+    from repro_torch import kernels
+    from repro_torch.core.dpu.runtime import DpuConfig
+    from repro_torch.core.dpu.service import DpuService, DpuServiceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.requests import WorkloadSpec, generate_requests
+    from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime
+
+    ec = EngineConfig(max_new_tokens=NEW_MAX_NEW, continuous=True, max_slots=8,
+                      segment_len=8, max_prompt_len=128)
+    service = DpuService(DpuServiceConfig(clock="wall", dpu=DpuConfig(backend="dpu")),
+                         device="cuda")
+    feats = {}
+    poll = service.poll
+
+    def recording_poll(now, n=None):
+        out = poll(now, n)
+        for r in out:
+            feats[r.rid] = np.array(r.payload)
+        return out
+
+    service.poll = recording_poll
+    rt = build_pipelined_runtime(cfg, ec=ec, service=service, device="cuda", params=model,
+                                 rc=RuntimeConfig(clock="wall", max_ingest=64))
+
+    def drive(reqs):
+        """All at once: each request arrives when it is submitted."""
+        t0 = time.monotonic()
+        for r in reqs:
+            r.arrival = t0
+        rt.submit(reqs)
+        done = rt.run_until_idle()
+        torch.cuda.synchronize()
+        return done, time.monotonic() - t0
+
+    def spec(seed):
+        return WorkloadSpec(modality="text", rate_qps=50.0, mean_len=48, max_len=120,
+                            vocab=cfg.vocab, payload_samples=48_000, seed=seed)
+
+    warm = generate_requests(spec(99), 2)  # cuBLAS handles, allocator, other rids
+    for i, r in enumerate(warm):
+        r.rid = 10_000 + i
+    drive(warm)
+    rt.reset_metrics()
+    feats.clear()
+    groups0 = service.stats["groups"]
+    reqs = generate_requests(spec(0), NEW_REQUESTS)
+    raws = {r.rid: r.payload.copy() for r in reqs}
+    kernels.reset_launch_counts()              # this arch's main path starts here
+    done, wall = drive(reqs)
+    launches = kernels.launch_counts()         # ... and ends here
+    groups = service.stats["groups"] - groups0
+    pool = tree_bytes(rt.engine._pool)
+    rt.close()
+    if len(done) != NEW_REQUESTS or rt.shed or not rt.conservation_ok():
+        fail(f"{where}: served {len(done)} of {NEW_REQUESTS}, shed {rt.shed_counts()}")
+    _check_tokens(np, done, cfg, NEW_REQUESTS, NEW_MAX_NEW, where)
+    for r in done:
+        f = feats.get(r.rid)
+        plain = ops.audio_pipeline_batch(torch.from_numpy(raws[r.rid][None]))[0].numpy()
+        if f is None or f.shape != (98, 80) or not np.allclose(f, plain, rtol=1e-3,
+                                                                atol=1e-2):
+            fail(f"{where}: request {r.rid}'s features are not the plain pipeline's")
+    for k in kernels.AUDIO_KERNELS:
+        if launches[k] <= 0 or launches[k] != groups:
+            fail(f"{k}: {launches[k]} launches on the {where}, the service launched "
+                 f"{groups} groups")
+    check_no_fallback(rt, where)
+    steps = rt.engine.stats["decode_steps"]
+    if steps <= 0 or launches["decode_attention"] != n_attn_layers(cfg) * steps:
+        fail(f"decode_attention: {launches['decode_attention']} launches on the {where}, "
+             f"the engine executed {steps} decode steps of {n_attn_layers(cfg)} "
+             f"attention layers")
+    stats = _serve_stats(np, done, wall, launches, steps)
+    stats.update(groups=groups, slot_pool_bytes=pool)
+    return stats
+
+
+def window_wrap_check(torch, np, cfg, model, dev) -> dict:
+    """danube's window on the card: one 4,000-token prompt (bucket 4,096 =
+    the window, so the ring holds the padded prompt; its prefill takes the
+    blockwise attention) and 200 new tokens through the continuous engine,
+    whose 4,304-slot cache makes a 4,096-slot ring that wraps at decode
+    step 96. At step 150 every layer's kernel output is held against
+    attention over the same ring with each slot's true position and the
+    window mask (bf16, 3e-2). Then the kernel's plain version takes its
+    place. Served alone, its greedy tokens' agreement with the kernel
+    run's is reported (random bf16 weights give flat logits, so one
+    near-tie sends two free runs apart). Fed the kernel run's tokens beside
+    a replay with the kernel, which must reproduce them: its picks'
+    agreement, the margins of its misses, and the largest difference
+    between the two replays' logits before and after the ring wraps are
+    reported."""
+    from repro_torch import kernels
+    from repro_torch.core.batching.buckets import Request
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.serving.engine import EngineConfig, build_engine
+
+    W, n_l = cfg.sliding_window, n_attn_layers(cfg)
+    ec = EngineConfig(max_new_tokens=WRAP_STEPS, continuous=True, max_slots=1,
+                      segment_len=8, max_prompt_len=W)
+    real = ops.decode_attention
+    calls, rec = [0], []
+
+    def spy(q, k, v, vl):
+        out = real(q, k, v, vl)
+        if calls[0] // n_l == WRAP_CHECK_STEP:  # the ring as that step reads it
+            rec.append([t.clone() for t in (q, k, v, vl, out)])
+        calls[0] += 1
+        return out
+
+    def serve(attn):
+        eng = build_engine(cfg, ec=ec, device=dev, params=model.tree())
+        ops.decode_attention = attn
+        try:
+            kernels.reset_launch_counts()
+            done, wall = _burst(torch, eng, [Request(rid=4242, arrival=0.0,
+                                                     length=float(WRAP_PROMPT))])
+            launches = kernels.launch_counts()
+        finally:
+            ops.decode_attention = real
+        return eng, np.asarray(done[0].payload), wall, launches
+
+    eng, toks, wall, launches = serve(spy)
+    ring = eng._pool["body"]["l0"]["mixer"]["k"].shape[2]
+    steps = eng.stats["decode_steps"]
+    if ring != W or eng.pool_len <= W + WRAP_STEPS or toks.shape != (WRAP_STEPS,) or \
+            toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"window wrap: ring {ring}, pool {eng.pool_len}, tokens {toks.shape}")
+    if launches["decode_attention"] != n_l * steps or len(rec) != n_l:
+        fail(f"window wrap: {launches['decode_attention']} decode attention launches for "
+             f"{steps} steps of {n_l} layers, {len(rec)} recorded")
+    qpos = WRAP_PROMPT + WRAP_CHECK_STEP
+    slot = torch.arange(W, device=dev)
+    kpos = qpos - torch.remainder(qpos - slot, W)  # each slot's latest true position
+    layer_err = []
+    for q, k, v, vl, out in rec:
+        if vl.tolist() != [W]:
+            fail(f"window wrap: valid_len {vl.tolist()} at true position {qpos}")
+        want = L.attention_dense(q[:, None], k, v, torch.tensor([qpos], device=dev), kpos,
+                                 causal=True, window=W)[:, 0]
+        err = float((out.float() - want.float()).abs().max())
+        layer_err.append(err)
+        if not torch.allclose(out.float(), want.float(), rtol=3e-2, atol=3e-2):
+            fail(f"window wrap: the kernel differs from the window-masked attention over "
+                 f"true positions at step {WRAP_CHECK_STEP} by {err:.3e}")
+    _, plain_toks, plain_wall, _ = serve(kd.decode_attention_plain)
+    rep = replay_both(torch, np, cfg, model, eng, toks, dev)
+    if not np.array_equal(rep["kernel_pick"], toks[1:]):
+        fail("window wrap: the kernel replay does not reproduce the served tokens")
+    miss = rep["plain_pick"] != toks[1:]
+    wrap = W - WRAP_PROMPT
+    res = {"prompt": WRAP_PROMPT, "bucket": W, "ring": ring, "pool_len": eng.pool_len,
+           "decode_steps": steps, "wrap_step": wrap, "check_step": WRAP_CHECK_STEP,
+           "kernel_vs_window_mask_max_abs_err": max(layer_err), "wall_s": wall,
+           "plain_wall_s": plain_wall, "tokens_agree": float((plain_toks == toks).mean()),
+           "first_divergence": int(np.argmax(plain_toks != toks))
+           if (plain_toks != toks).any() else None,
+           "teacher_forced_agree": float(1.0 - miss.mean()),
+           "teacher_forced_misses_before_wrap": int(miss[:wrap].sum()),
+           "teacher_forced_misses_after_wrap": int(miss[wrap:].sum()),
+           "teacher_forced_miss_margins": [float(m) for m in rep["plain_margin"][miss]],
+           "logit_diff_before_wrap": float(rep["logit_diff"][:wrap].max()),
+           "logit_diff_after_wrap": float(rep["logit_diff"][wrap:].max()),
+           "launches": launches}
+    return res
+
+
+def replay_both(torch, np, cfg, model, eng, toks, dev) -> dict:
+    """The request replayed twice in lockstep, both fed the kernel run's
+    tokens (the engine's prefill and decode, as one row of a pool like
+    its): once with the kernel, once with its plain version. Per step past
+    the first: the kernel replay's pick, the plain replay's pick, by how
+    much the plain logits prefer their pick to the kernel run's token, and
+    the largest difference between the two replays' logits."""
+    from repro_torch.core.batching.buckets import Request
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    real = ops.decode_attention
+    lp, n = cfg.sliding_window, WRAP_PROMPT
+    prompt = eng._prompt_tokens(Request(rid=4242, arrival=0.0, length=float(n)), n)
+    row = np.zeros((1, lp), np.int64)
+    row[0, lp - n:] = prompt
+    off = torch.tensor([lp - n], device=dev)
+    pools = {}
+    for name in ("kernel", "plain"):
+        pool = lm.alloc_slot_pool(cfg, 1, eng.pool_len, dev)
+        _, pools[name] = model.prefill_into_slots(torch.from_numpy(row).to(dev), pool,
+                                                  torch.tensor([0], device=dev), lp,
+                                                  pos_offset=off)
+    out = {"kernel_pick": [], "plain_pick": [], "plain_margin": [], "logit_diff": []}
+    try:
+        for i in range(len(toks) - 1):
+            tok = torch.tensor([[int(toks[i])]], device=dev)
+            lg = {}
+            for name, attn in (("kernel", real), ("plain", kd.decode_attention_plain)):
+                ops.decode_attention = attn
+                logits, pools[name] = model.decode(pools[name], tok, lp + i, pos_offset=off)
+                lg[name] = logits[0, 0].float()
+            pick = int(torch.argmax(lg["plain"]))
+            out["kernel_pick"].append(int(torch.argmax(lg["kernel"])))
+            out["plain_pick"].append(pick)
+            out["plain_margin"].append(float(lg["plain"][pick] - lg["plain"][int(toks[i + 1])]))
+            out["logit_diff"].append(float((lg["kernel"] - lg["plain"]).abs().max()))
+    finally:
+        ops.decode_attention = real
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def new_archs_phase(torch, np, card):
+    """Phase 15: each arch at full width with seeded bf16 weights, at the
+    depth NEW_ARCH_DEPTH gives (the cuts keep it inside the card)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import LM
+    from repro_torch.models.params import init_params
+
+    dev = torch.device("cuda")
+    res = {"card": card}
+    for arch, depth in NEW_ARCH_DEPTH.items():
+        full = get_config(arch)
+        cfg = replace(full, n_layers=depth) if depth else full
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = LM(cfg, init_params(cfg, gen, dev, cfg.dtype))
+        torch.cuda.synchronize()
+        free, total = torch.cuda.mem_get_info()
+        out = {"layers": cfg.n_layers, "of_layers": full.n_layers,
+               "weight_bytes": tree_bytes(model.tree()), "free_bytes_after_weights": free,
+               "init_s": time.perf_counter() - t0}
+        pool_need = 8 * 144 * 2 * n_attn_layers(cfg) * cfg.n_kv_heads * cfg.hd * 2
+        if pool_need > free:
+            fail(f"{arch}: an 8-slot pool needs {pool_need} bytes, {free} are free")
+        out["serve"] = new_arch_serve(torch, np, cfg, model, f"{arch} audio path")
+        out["decode_step"] = attn_decode_step_profile(torch, model)
+        out["contracts"] = attn_contracts(torch, np, cfg, model, dev)
+        moe = cfg.n_experts > 0
+        for name, c in out["contracts"].items():
+            gated = not (moe and name == "join_equals_alone")
+            if gated and not c["equal"]:
+                fail(f"{arch}: contract {name} does not hold on the card: {c}")
+        if arch == WRAP_ARCH:
+            out["window_wrap"] = window_wrap_check(torch, np, cfg, model, dev)
+        s, st = out["serve"], out["decode_step"]
+        print(f"{arch} ({cfg.n_layers} of {full.n_layers} layers, bf16): weights "
+              f"{out['weight_bytes']} bytes, {free} free after them, pool "
+              f"{s['slot_pool_bytes']} bytes; {s['tokens_per_s']:.2f} tokens/s, "
+              f"{s['decode_steps']} decode steps, decode attention "
+              f"{s['launches']['decode_attention']} launches; decode step wall "
+              f"{st['wall_ms']:.3f} ms, device {st['device_ms_per_step']:.3f} ms, "
+              f"{st['kernel_launches_per_step']:.0f} launches")
+        print(f"{arch} contracts: " + json.dumps(
+            {k: {"equal": v["equal"], **({"gated": False} if moe and k.startswith("join")
+                                          else {})} for k, v in out["contracts"].items()}))
+        if "window_wrap" in out:
+            print(f"{arch} window wrap: " + json.dumps(out["window_wrap"]))
+        print(f"{arch}: " + json.dumps(out))
+        res[arch] = out
+        del model
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -2181,15 +2658,21 @@ def main() -> int:
 
     # 14. PREBA's two-model fleet: tinyllama and mamba2, one admission queue
     mt_stats = mt_fleet_phase(torch, np, params, card)
+
+    # 15. the rest of the dense family and the MoE family, full width
+    new_stats = new_archs_phase(torch, np, card)
+    # each arch's audio serve (the first five), then danube's window run
+    new_runs = [new_stats[a]["serve"] for a in NEW_ARCH_DEPTH] + [
+        new_stats[a]["window_wrap"] for a in NEW_ARCH_DEPTH if "window_wrap" in new_stats[a]]
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
-                                                controller_stats, mt_stats))
+                                                controller_stats, mt_stats, *new_runs[:5]))
                               for k in ("audio_resample", "mel_spectrogram",
                                         "audio_normalize")}}
     decode_run = {"launches": {"decode_attention": sum(
         st["launches"]["decode_attention"]
         for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats,
-                   knee_stats, controller_stats, mt_stats))}}
+                   knee_stats, controller_stats, mt_stats, *new_runs))}}
 
     line = []
     for name, shape_rows, main_of, run in (
@@ -2229,7 +2712,8 @@ def main() -> int:
              "serve": stats, "image_serve": image_stats, "rtc_serve": rtc_stats,
              "chunked_prefix_serve": chunk_stats, "decode_step": decode_step,
              "fleet": fleet_stats_, "chaos": chaos_stats, "knee": knee_stats,
-             "controller": controller_stats, "two_model_fleet": mt_stats}, indent=1))
+             "controller": controller_stats, "two_model_fleet": mt_stats,
+             "new_archs": new_stats}, indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Model configs and their registry: the dense and SSM families.
+"""Model configs and their registry: the dense, MoE and SSM families.
 
 Every served architecture is a ``ModelConfig`` registered under its id;
 ``reduced()`` derives a CPU-testable config of the same family. The field
@@ -14,7 +14,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm (the families this package serves)
+    family: str  # dense | moe | ssm (the families this package serves)
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,9 +25,22 @@ class ModelConfig:
 
     # attention
     rope_theta: float = 10_000.0
-    sliding_window: int = 0  # 0 = full attention
+    sliding_window: int = 0  # 0 = full attention; >0 = SWA window (all attn layers)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+
+    # mixture-of-experts
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0            # per-expert ffn dim (0 -> d_ff)
+    n_shared_experts: int = 0
+    first_k_dense: int = 0       # leading dense (non-MoE) layers
+    moe_every: int = 1           # MoE on layers where idx % moe_every == moe_offset
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    moe_group_size: int = 4096   # tokens per dispatch group
+    router_aux_weight: float = 0.01
+    moe_impl: str = "einsum"     # einsum (GShard) | sort
 
     # state-space (mamba2 / SSD)
     ssm_state: int = 0
@@ -66,27 +79,52 @@ class ModelConfig:
         return self.d_inner + 2 * self.ssm_ngroups * self.ssm_state
 
     def layer_kinds(self) -> List[Tuple[str, str]]:
-        """Per-layer (mixer, ffn) kinds: attn + mlp for the dense family,
-        ssm + none for the SSM family (the mamba2 backbone has no separate
-        FFN). Other families are not served yet."""
-        if self.family == "dense":
-            return [("attn", "mlp")] * self.n_layers
-        if self.family == "ssm":
-            return [("ssm", "none")] * self.n_layers
-        raise NotImplementedError(
-            f"{self.name}: family {self.family!r} is not served yet")
+        """Per-layer (mixer, ffn) kinds: mixer in {attn, ssm}, ffn in {mlp,
+        moe, none}. The dense and MoE families are attention stacks (MoE on
+        the layers `first_k_dense`, `moe_every` and `moe_offset` pick); the
+        SSM family is ssm + none (the mamba2 backbone has no separate
+        FFN). The hybrid, audio and vlm families are not served yet."""
+        if self.family not in ("dense", "moe", "ssm"):
+            raise NotImplementedError(
+                f"{self.name}: family {self.family!r} is not served yet (the "
+                "hybrid, audio and vlm families: jamba, whisper, phi-3-vision)")
+        kinds = []
+        for i in range(self.n_layers):
+            if self.family == "ssm":
+                kinds.append(("ssm", "none"))
+            elif (self.n_experts and i >= self.first_k_dense
+                  and i % self.moe_every == self.moe_offset):
+                kinds.append(("attn", "moe"))
+            else:
+                kinds.append(("attn", "mlp"))
+        return kinds
+
+    def is_subquadratic(self) -> bool:
+        """True when long-context decode is in-family (SSM or a window)."""
+        return self.family == "ssm" or self.sliding_window > 0
 
     def param_count(self) -> int:
         """Parameter count: the leaves of the weight tree (embeddings
         included), as the JAX package's count_params_analytical counts."""
+        return self._count(active_only=False)
+
+    def active_param_count(self) -> int:
+        """Parameters a token reads: an expert leaf counts top_k / n_experts
+        of its size (count_params_analytical(active_only=True))."""
+        return self._count(active_only=True)
+
+    def _count(self, active_only: bool) -> int:
         import math
 
         from repro_torch.models.params import leaves, model_defs
 
-        return sum(math.prod(pd.shape) for _, pd in leaves(model_defs(self)))
-
-    def active_param_count(self) -> int:
-        return self.param_count()
+        total = 0
+        for _, pd in leaves(model_defs(self)):
+            n = math.prod(pd.shape)
+            if active_only and pd.expert:
+                n = int(n * self.top_k / self.n_experts)
+            total += n
+        return total
 
 
 # ---------------------------------------------------------------------------
@@ -120,9 +158,9 @@ def list_archs() -> List[str]:
 
 
 def _default_reduce(cfg: ModelConfig) -> ModelConfig:
-    """Family-preserving reduced config for CPU tests."""
-    return replace(
-        cfg,
+    """Family-preserving reduced config for CPU tests (the JAX package's
+    rule for the served families)."""
+    changes = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=128,
         n_heads=4,
@@ -130,9 +168,18 @@ def _default_reduce(cfg: ModelConfig) -> ModelConfig:
         d_ff=256,
         vocab=512,
         head_dim=32,
-        sliding_window=16 if cfg.sliding_window else 0,
-        **(dict(ssm_state=16, ssm_headdim=16, ssm_chunk=16) if cfg.ssm_state else {}),
+        moe_group_size=64,
     )
+    if cfg.n_experts:
+        changes.update(n_experts=min(cfg.n_experts, 4), top_k=min(cfg.top_k, 2),
+                       moe_d_ff=128)
+    if cfg.ssm_state:
+        changes.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16)
+    if cfg.sliding_window:
+        changes.update(sliding_window=16)
+    if cfg.first_k_dense:
+        changes.update(first_k_dense=1)
+    return replace(cfg, **changes)
 
 
 def reduced(name_or_cfg) -> ModelConfig:

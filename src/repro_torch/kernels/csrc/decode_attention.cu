@@ -36,8 +36,11 @@
 // Eight warps: warp w owns query heads w, w + 8, ... (tinyllama's G = 8: one
 // each) and upcasts their q once; a lane scores two keys of a head (fixed
 // summation order over D), max and sum are xor-butterfly reductions
-// (bitwise the same value in every lane), and a lane accumulates D / 32
-// adjacent output columns over the tile's keys in order. After
+// (bitwise the same value in every lane), and a lane accumulates kCols
+// adjacent output columns over the tile's keys in order: D / 32 of them
+// when 32 divides D, else 4 (D = 80: lanes 0-19 own 4 columns each, lanes
+// 20-31 sit out the value loop; a lane's 4 columns are 16 bytes in fp32 and
+// 8 in bf16 from a row start on 16 bytes, so the loads stay aligned). After
 // cluster.sync() the blocks merge the partials through distributed shared
 // memory (mapa + ld.shared::cluster, all of a thread's remote reads in
 // flight at once), each a slice of the G x D outputs, in rank order; ranks
@@ -55,7 +58,10 @@
 // the value loop stops at the limit, so no value past it is read. That
 // keeps the serving engine's bit-exact contracts (padded == unpadded, a
 // request joining a pool == alone, chained segments == sequential decode).
-// Head sizes 32 (the reduced test models), 64 and 128 are compiled.
+// Head sizes 32 (the reduced test models), 64, 80 (h2o-danube) and 128 are
+// compiled. A row of 80 is 10 bf16 or 20 fp32 16-byte copies, and a padded
+// ring row of 176 or 336 bytes keeps 8 lanes' 16-byte loads on distinct
+// banks.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -183,7 +189,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kTileElems = kTile * kRow;
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte copy
   constexpr int kChunks = D / kPer;                        // 16-byte copies a row
-  constexpr int kCols = D / 32;                            // output columns a lane
+  // output columns a lane, and the lanes that own columns
+  constexpr int kCols = D % 32 == 0 ? D / 32 : 4;
+  constexpr int kColLanes = D / kCols;
+  static_assert(D % kPer == 0 && D % kCols == 0 && kColLanes <= 32, "head size");
   extern __shared__ float4 smem4[];
   T* ring = reinterpret_cast<T*>(smem4);
   T* qs = ring + kStages * 2 * kTileElems;
@@ -287,30 +296,32 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       pw[lane] = e0;
       pw[lane + 32] = e1;
       __syncwarp();
-      float t[kCols] = {};
-      const int d0 = lane * kCols;
-      int j = 0;
+      if (lane < kColLanes) {
+        float t[kCols] = {};
+        const int d0 = lane * kCols;
+        int j = 0;
 #pragma unroll 4
-      for (; j + 4 <= nk; j += 4) {
-        const float4 p4 = *reinterpret_cast<const float4*>(pw + j);
-        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+        for (; j + 4 <= nk; j += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pw + j);
+          const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          float vv[kCols];
-          load_f32<kCols>(vt + (j + jj) * kRow + d0, vv);
+          for (int jj = 0; jj < 4; ++jj) {
+            float vv[kCols];
+            load_f32<kCols>(vt + (j + jj) * kRow + d0, vv);
 #pragma unroll
-          for (int x = 0; x < kCols; ++x) t[x] = fmaf(pj[jj], vv[x], t[x]);
+            for (int x = 0; x < kCols; ++x) t[x] = fmaf(pj[jj], vv[x], t[x]);
+          }
         }
-      }
-      for (; j < nk; ++j) {
-        float vv[kCols];
-        load_f32<kCols>(vt + j * kRow + d0, vv);
+        for (; j < nk; ++j) {
+          float vv[kCols];
+          load_f32<kCols>(vt + j * kRow + d0, vv);
 #pragma unroll
-        for (int x = 0; x < kCols; ++x) t[x] = fmaf(pw[j], vv[x], t[x]);
-      }
-      float* ag = acc + g * D + d0;
+          for (int x = 0; x < kCols; ++x) t[x] = fmaf(pw[j], vv[x], t[x]);
+        }
+        float* ag = acc + g * D + d0;
 #pragma unroll
-      for (int x = 0; x < kCols; ++x) ag[x] = ag[x] * corr + t[x];
+        for (int x = 0; x < kCols; ++x) ag[x] = ag[x] * corr + t[x];
+      }
       __syncwarp();  // every lane has read m, l and its probabilities
       if (lane == 0) {
         ms[g] = m_new;
@@ -399,6 +410,7 @@ int launch(const void* q, const void* k, const void* v, const int* valid_len, vo
 extern "C" int preba_decode_attention_smem_bytes(int d, int g, int bf16) {
   if (d == 32) return bf16 ? smem_bytes<__nv_bfloat16, 32>(g) : smem_bytes<float, 32>(g);
   if (d == 64) return bf16 ? smem_bytes<__nv_bfloat16, 64>(g) : smem_bytes<float, 64>(g);
+  if (d == 80) return bf16 ? smem_bytes<__nv_bfloat16, 80>(g) : smem_bytes<float, 80>(g);
   if (d == 128) return bf16 ? smem_bytes<__nv_bfloat16, 128>(g) : smem_bytes<float, 128>(g);
   return -1;
 }
@@ -411,6 +423,8 @@ extern "C" int preba_decode_attention_max_clusters(int d, int g, int bf16, int k
     return bf16 ? max_clusters<__nv_bfloat16, 32>(g, kh, b) : max_clusters<float, 32>(g, kh, b);
   if (d == 64)
     return bf16 ? max_clusters<__nv_bfloat16, 64>(g, kh, b) : max_clusters<float, 64>(g, kh, b);
+  if (d == 80)
+    return bf16 ? max_clusters<__nv_bfloat16, 80>(g, kh, b) : max_clusters<float, 80>(g, kh, b);
   if (d == 128)
     return bf16 ? max_clusters<__nv_bfloat16, 128>(g, kh, b) : max_clusters<float, 128>(g, kh, b);
   return -static_cast<int>(cudaErrorInvalidValue);
@@ -418,7 +432,7 @@ extern "C" int preba_decode_attention_max_clusters(int d, int g, int bf16, int k
 
 // q [b, h, d], k/v [b, s, kh, d], valid_len [b] int32 -> out [b, h, d];
 // bf16 != 0 for bfloat16 tensors, else float32; all contiguous and 16-byte
-// aligned, h % kh == 0, d in {32, 64, 128}. Launches a grid of (8 kh, b)
+// aligned, h % kh == 0, d in {32, 64, 80, 128}. Launches a grid of (8 kh, b)
 // blocks in clusters of 8. Returns the cudaError_t of the launch.
 extern "C" int preba_decode_attention(const void* q, const void* k, const void* v,
                                       const int* valid_len, void* out, int b, int h,
@@ -433,6 +447,9 @@ extern "C" int preba_decode_attention(const void* q, const void* k, const void* 
   if (d == 64)
     return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
                 : launch<float, 64>(q, k, v, valid_len, out, b, h, kh, s, scale, st);
+  if (d == 80)
+    return bf16 ? launch<__nv_bfloat16, 80>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
+                : launch<float, 80>(q, k, v, valid_len, out, b, h, kh, s, scale, st);
   if (d == 128)
     return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
                 : launch<float, 128>(q, k, v, valid_len, out, b, h, kh, s, scale, st);

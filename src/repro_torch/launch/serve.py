@@ -14,8 +14,11 @@ shared admission queue; on one card they are logical replicas, not MIG
 instances), or a multi-tenant fleet --tenants tinyllama-1.1b:2,mamba2-370m:2
 (model:slices asks, PREBA's two-family fleet: the attention LM and a Mamba2
 SSM behind one admission queue; a second tenant of the same arch is named
-arch@1). Every entry point serves --arch tinyllama-1.1b or mamba2-370m. CPU run of the kernels' plain versions at a reduced size:
---device cpu --reduced.
+arch@1). Every entry point serves every arch of SERVED_ARCHS: tinyllama-1.1b,
+mamba2-370m, h2o-danube-1.8b, granite-3-8b, yi-34b, mixtral-8x22b and
+moonshot-v1-16b-a3b (a sliding-window model's prompts stay within its
+window, which the slot pool's ring must hold). CPU run of the kernels'
+plain versions at a reduced size: --device cpu --reduced.
 
 The closed partition loop (PREBA's MIG lever): measure the knee profiles
 on the card once, then serve with the online partition controller, which
@@ -123,9 +126,11 @@ def _print_fleet(engine, tenanted: bool) -> None:
 
 
 def _parser() -> argparse.ArgumentParser:
+    from repro_torch.configs import SERVED_ARCHS
+
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch")
+    ap.add_argument("--arch", choices=SERVED_ARCHS)
     ap.add_argument("--tenants", default="",
                     help="comma-separated model:slices asks (e.g. "
                          "'tinyllama-1.1b:2,mamba2-370m:2'): a multi-tenant "
@@ -262,12 +267,22 @@ def main(argv=None):
     from repro_torch.serving.engine import EngineConfig, build_engine
     from repro_torch.serving.requests import WorkloadSpec, generate_requests
 
-    cfg = (reduced(args.arch) if args.reduced else get_config(args.arch)) \
-        if args.arch else None
+    def config(arch):
+        return reduced(arch) if args.reduced else get_config(arch)
+
+    cfg = config(args.arch) if args.arch else None
+    # the prompt bucket covers the workload's prompts (at most 120 tokens)
+    # and fits every sliding window served: a window ring must hold the
+    # padded prompt it admits
+    windows = [c.sliding_window for c in ([cfg] if cfg else
+                                          [config(a) for a, _ in tenant_asks])
+               if c.sliding_window]
+    max_prompt = min([128] + windows)
+    max_len = min(120, max_prompt)
     ec = EngineConfig(
         max_new_tokens=args.max_new, continuous=args.continuous or bool(tenant_asks),
         max_slots=args.max_slots, segment_len=args.segment_len,
-        max_prompt_len=128,  # covers the workload's max_len=120 prompt bucket
+        max_prompt_len=max_prompt,
         preprocess=args.preprocess if not args.pipelined else "none",
         chunk_lens=chunk_lens,
     )
@@ -297,14 +312,14 @@ def main(argv=None):
         seen: dict = {}
         tenants, specs = [], []
         for i, (arch, n) in enumerate(tenant_asks):
-            tcfg = reduced(arch) if args.reduced else get_config(arch)
+            tcfg = config(arch)
             k = seen.get(arch, 0)
             seen[arch] = k + 1
             name = arch if k == 0 else f"{arch}@{k}"
             tenants.append(TenantSpec(cfg=tcfg, name=name, n_slices=n, seed=i))
             # one Poisson stream per tenant, traffic share ~ slice ask
             specs.append((WorkloadSpec(modality="text", rate_qps=args.rate, mean_len=48,
-                                       max_len=120, vocab=tcfg.vocab, model=name, seed=i,
+                                       max_len=max_len, vocab=tcfg.vocab, model=name, seed=i,
                                        payload_samples=samples), float(n)))
         n_slices = sum(n for _, n in tenant_asks)
         reqs = generate_requests(specs, args.requests)
@@ -312,7 +327,7 @@ def main(argv=None):
         n_slices = args.slices
         reqs = generate_requests(
             WorkloadSpec(modality="text", rate_qps=args.rate, mean_len=48,
-                         max_len=120, vocab=cfg.vocab,  # real tokenized prompts
+                         max_len=max_len, vocab=cfg.vocab,  # real tokenized prompts
                          payload_samples=samples),
             args.requests,
         )

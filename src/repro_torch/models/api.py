@@ -1,4 +1,4 @@
-"""Public model API: the decoder of a served family (dense or SSM) as an
+"""Public model API: the decoder of a served family (dense, MoE or SSM) as an
 `nn.Module` over the reference-layout weight tree, and the functions it
 serves with."""
 from __future__ import annotations
@@ -31,7 +31,7 @@ def _to_tree(mod: nn.Module) -> Dict[str, Any]:
 
 
 class LM(nn.Module):
-    """The decoder of a served family (`cfg.family`: dense or ssm) for
+    """The decoder of a served family (`cfg.family`: dense, moe or ssm) for
     serving. Its weights are registered as (frozen) parameters under the
     reference paths (`body.l0.mixer.wq`, `body.l0.mixer.in_xbc`, ...),
     so `state_dict()` keys read like the JAX package's tree; `tree()` hands

@@ -1,13 +1,16 @@
 """Layer primitives of the served families: RMSNorm (plain and gated),
-RoPE, masked dense attention with GQA, the SiLU-gated MLP, and the Mamba2
-block (causal depthwise conv, the chunked SSD scan, the one-token SSM
-step).
+RoPE, attention with GQA (dense, blockwise online-softmax, sliding-window
+banded, and the dispatcher that picks one by shape), the SiLU-gated MLP,
+GShard mixture-of-experts (the router, the capacity dispatch mask, the
+grouped einsum dispatch and the sort-based one), and the Mamba2 block
+(causal depthwise conv, the chunked SSD scan, the one-token SSM step).
 
 Plain functions on tensors. The compute dtype is the activation dtype;
-norms, RoPE, the attention softmax and the SSM scan run in fp32. The mask
-and the softmax follow the JAX package's order (scores in fp32, NEG_INF
-fill, softmax, masked probabilities zeroed), and the SSD scan its
-formulas term for term, so outputs stay comparable across the two.
+norms, RoPE, the attention softmax, the router and the SSM scan run in
+fp32. The mask and the softmax follow the JAX package's order (scores in
+fp32, NEG_INF fill, softmax, masked probabilities zeroed), the router its
+tie order (the lower expert index first), and the SSD scan its formulas
+term for term, so outputs stay comparable across the two.
 """
 from __future__ import annotations
 
@@ -91,14 +94,82 @@ def attention_dense(q, k, v, qpos, kpos, *, causal=True, window=0):
     return o.reshape(B, Sq, H, D)
 
 
-def attention(q, k, v, qpos, kpos, *, causal=True, window=0):
-    """Dispatcher. Only the dense path is served so far: the prompt buckets
-    this engine admits (max_prompt_len) keep Sq * Skv far inside it."""
+def attention_blockwise(q, k, v, qpos, kpos, *, causal=True, window=0, kv_block=512):
+    """Online-softmax (flash-style) attention over KV blocks of kv_block
+    keys: O(Sq * kv_block) scores at a time instead of O(Sq * Skv). Shapes
+    and masks as attention_dense; the output is cast to q's type."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    if Skv % kv_block:
+        pad = kv_block - Skv % kv_block
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = F.pad(kpos, (0, pad), value=-1)
+        Skv += pad
+    qg = q.reshape(B, Sq, KH, G, D).float()
+    scale = 1.0 / math.sqrt(D)
+    m = torch.full((B, KH, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l_ = torch.zeros((B, KH, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KH, G, Sq, D), dtype=torch.float32, device=q.device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    for j in range(0, Skv, kv_block):
+        kb, vb = k[:, j:j + kv_block].float(), v[:, j:j + kv_block].float()
+        s = torch.einsum("bqkgd,bjkd->bkgqj", qg, kb) * scale
+        mask = _batch_mask(_pair_mask(qpos, kpos[..., j:j + kv_block], causal, window))
+        s = torch.where(mask, s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, zero)  # fully-masked pad queries stay exactly 0
+        corr = torch.exp(m - m_new)
+        l_ = l_ * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqj,bjkd->bkgqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l_, min=1e-30)[..., None]  # [B, KH, G, Sq, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_swa_banded(q, k, v, pos0: int, window: int, *, kv_block=512):
+    """Sliding-window attention with banded blocking: each window-sized
+    query block attends to its own key block and the previous one, O(S * 2W)
+    not O(S^2). Needs S % window == 0 and positions shared by the batch
+    (pos0 + arange(S))."""
+    B, S, H, D = q.shape
+    W = window
+    if S % W:
+        raise ValueError(f"banded attention needs S % window == 0 (S={S}, window={W})")
+    dev = q.device
+    outs = []
+    for j in range(S // W):
+        lo = max(j - 1, 0) * W
+        kj, vj = k[:, lo:(j + 1) * W], v[:, lo:(j + 1) * W]
+        if j == 0:  # the first block has no previous one: zero keys, masked
+            kj = torch.cat([torch.zeros_like(kj), kj], dim=1)
+            vj = torch.cat([torch.zeros_like(vj), vj], dim=1)
+        qpos = pos0 + j * W + torch.arange(W, device=dev)
+        kpos = pos0 + (j - 1) * W + torch.arange(2 * W, device=dev)
+        kpos = torch.where(kpos >= pos0, kpos, torch.full_like(kpos, -1))
+        outs.append(attention_blockwise(q[:, j * W:(j + 1) * W], kj, vj, qpos, kpos,
+                                        causal=True, window=W,
+                                        kv_block=min(kv_block, 2 * W)))
+    return torch.cat(outs, dim=1)
+
+
+def attention(q, k, v, qpos, kpos, *, causal=True, window=0, pos0=0, kv_block=512):
+    """Dispatcher: banded sliding-window, dense or blockwise by shape, as
+    the JAX package picks. Per-row [B, S] positions (left-padded serving
+    batches) take dense or blockwise, which mask per row; the banded path
+    needs positions shared by the batch."""
     Sq, Skv = q.shape[1], k.shape[1]
+    shared_pos = qpos.dim() == 1 and kpos.dim() == 1
+    if (window and shared_pos and Sq == Skv and Sq % window == 0
+            and Sq // window >= 2 and causal):
+        return attention_swa_banded(q, k, v, pos0, window, kv_block=kv_block)
     if Sq * Skv <= 4096 * 1024 or Sq == 1:
         return attention_dense(q, k, v, qpos, kpos, causal=causal, window=window)
-    raise NotImplementedError(
-        f"attention over {Sq}x{Skv} needs the blockwise path, not ported yet")
+    return attention_blockwise(q, k, v, qpos, kpos, causal=causal, window=window,
+                               kv_block=kv_block)
 
 
 def mlp(x: torch.Tensor, p) -> torch.Tensor:
@@ -107,6 +178,140 @@ def mlp(x: torch.Tensor, p) -> torch.Tensor:
     g = x @ p["wi_gate"].to(dt)
     u = x @ p["wi_up"].to(dt)
     return (F.silu(g) * u) @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (GShard)
+# ---------------------------------------------------------------------------
+
+
+def _router(x2d: torch.Tensor, p, n_experts: int, top_k: int):
+    """x2d: [T, D] -> (gate_vals [T, k], gate_idx [T, k], probs [T, E], aux).
+
+    fp32 logits and softmax, the top k renormalised, and the Switch load-
+    balance loss E * sum_e f_e P_e. The top k is a stable descending sort:
+    equal probabilities keep the lower expert index first, as the JAX
+    package's top_k does (torch.topk promises no order among ties)."""
+    logits = x2d.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :top_k], idx[:, :top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    f = F.one_hot(gate_idx[:, 0], n_experts).float().mean(0)
+    aux = n_experts * torch.sum(f * probs.mean(0))
+    return gate_vals, gate_idx, probs, aux
+
+
+def _dispatch_mask(gate_idx: torch.Tensor, gate_vals: torch.Tensor, E: int, C: int,
+                   dtype: torch.dtype):
+    """[g, t, K] top-k assignments -> ([g, t, E, C] 0/1 dispatch, [g, t, E]
+    gate weights). A choice's capacity slot is its rank among the group's
+    choices of that expert, counted over [K, t]: every token's first choice
+    before any second choice, tokens in order within a choice. Choices at
+    rank C or more are dropped (no slot)."""
+    g_loc, t, K = gate_idx.shape
+    onehot = F.one_hot(gate_idx, E).float()                  # [g, t, K, E]
+    flat = onehot.transpose(1, 2).reshape(g_loc, K * t, E)
+    pos = torch.cumsum(flat, dim=1) - flat
+    keep = (pos < C).float() * flat
+    pos = pos.reshape(g_loc, K, t, E)
+    keep = keep.reshape(g_loc, K, t, E)
+    slots = torch.arange(C, device=gate_idx.device)
+    dispatch = torch.zeros((g_loc, t, E, C), dtype=dtype, device=gate_idx.device)
+    for kk in range(K):  # a rank past C one-hots to nothing
+        disp_k = (pos[:, kk].long()[..., None] == slots).to(dtype)
+        dispatch = dispatch + disp_k * keep[:, kk][..., None].to(dtype)
+    wte = torch.einsum("gtke,gtk->gte", onehot, gate_vals)
+    return dispatch, wte
+
+
+def _expert_ffn(xe: torch.Tensor, p) -> torch.Tensor:
+    """xe: [G, E, C, D] dispatched token slots -> each expert's SiLU-gated
+    MLP of its slots, [G, E, C, D]."""
+    dt = xe.dtype
+    g = torch.einsum("gecd,edf->gecf", xe, p["wi_gate"].to(dt))
+    u = torch.einsum("gecd,edf->gecf", xe, p["wi_up"].to(dt))
+    return torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["wo"].to(dt))
+
+
+def moe_capacity(cfg, tokens: int) -> int:
+    """Slots an expert has in a dispatch group of `tokens` tokens."""
+    return max(4, int(math.ceil(cfg.capacity_factor * tokens * cfg.top_k / cfg.n_experts)))
+
+
+def moe_gshard_einsum(x: torch.Tensor, p, cfg):
+    """GShard grouped einsum dispatch with capacity. x: [B, S, D] ->
+    (y, aux loss). Tokens go in groups of min(moe_group_size, B * S); a
+    choice past its expert's capacity in its group is dropped (the token's
+    residual passes through). B * S must be a multiple of the group, as in
+    the JAX package, which asserts it."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    group = min(cfg.moe_group_size, T)
+    G = T // group
+    if G * group != T:
+        raise ValueError(f"{T} tokens are not a multiple of the MoE group {group}")
+    xg = x.reshape(G, group, D)
+    gate_vals, gate_idx, _, aux = _router(xg.reshape(T, D), p, E, K)
+    C = moe_capacity(cfg, group)
+    dispatch, wte = _dispatch_mask(gate_idx.reshape(G, group, K),
+                                   gate_vals.reshape(G, group, K), E, C, x.dtype)
+    combine = dispatch * wte[..., None].to(x.dtype)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
+    ye = _expert_ffn(xe, p)
+    y = torch.einsum("gtec,gecd->gtd", combine, ye)
+    return y.reshape(B, S, D), aux * cfg.router_aux_weight
+
+
+def moe_sort(x: torch.Tensor, p, cfg):
+    """Sort-based dispatch: choices sorted by expert (stable), each expert's
+    first C kept in equal buffers, gathered back and summed per token; no
+    one-hot products. One group of all B * S tokens.
+
+    A dropped choice writes zeros to the last buffer slot, as the JAX
+    package's scatter does; where a kept choice of the last expert holds
+    that slot, the last write in sorted order wins, as a serial scatter
+    leaves it."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    x2 = x.reshape(T, D)
+    gate_vals, gate_idx, _, aux = _router(x2, p, E, K)
+    C = moe_capacity(cfg, T)
+    flat_e = gate_idx.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    tok_of = order // K
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, torch.arange(E, device=x.device))
+    rank = torch.arange(T * K, device=x.device) - first[sorted_e]
+    slot = sorted_e * C + rank
+    ok = rank < C
+    last = E * C - 1
+    tgt = torch.where(ok, slot, torch.full_like(slot, last))
+    vals = torch.where(ok[:, None], x2[tok_of], torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+    buf = torch.zeros((E * C, D), dtype=x.dtype, device=x.device)
+    buf[tgt[ok]] = vals[ok]  # kept slots are distinct
+    hits = torch.nonzero(tgt == last).flatten()
+    if hits.numel():
+        buf[last] = vals[hits[-1]]
+    ye = _expert_ffn(buf.reshape(1, E, C, D), p).reshape(E * C, D)
+    w = gate_vals.reshape(-1)[order].to(x.dtype)
+    contrib = torch.where(ok[:, None], ye[torch.clamp(slot, max=last)] * w[:, None],
+                          torch.zeros((), dtype=x.dtype, device=x.device))
+    y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add_(0, tok_of, contrib)
+    return y.reshape(B, S, D), aux * cfg.router_aux_weight
+
+
+def moe(x: torch.Tensor, p, cfg):
+    """The MoE FFN of one layer: the routed experts (`cfg.moe_impl`: einsum
+    or sort) plus the shared experts' MLP. Returns (y, aux loss)."""
+    impl = moe_sort if cfg.moe_impl == "sort" else moe_gshard_einsum
+    y, aux = impl(x, p, cfg)
+    if cfg.n_shared_experts:
+        y = y + mlp(x, p["shared"])
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

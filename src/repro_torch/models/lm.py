@@ -3,16 +3,19 @@
 generate, chunked prefill, and the slot pool of continuous batching.
 
 Plain functions over a parameter tree laid out as the JAX package lays it
-out (`models/params.py`): layer-stacked leaves under
-``params["body"]["l0"]``, GQA heads factored as [kv_heads, q_per_kv,
-head_dim] (``wq [L, d, kh, g, hd]``, ``wk``/``wv [L, d, kh, hd]``,
-``wo [L, kh, g, hd, d]``). Each layer is a (mixer, ffn) pair of its kind
-(`cfg.layer_kinds()`): attention + MLP for the dense family, a Mamba2 SSM
+out (`models/params.py`): the unstacked leading layers under
+``params["prefix"]["l{i}"]`` and the rest under ``params["body"]["l{j}"]``,
+each leaf stacked over the blocks of `params.block_period` layers; GQA heads
+factored as [kv_heads, q_per_kv, head_dim] (``wq [d, kh, g, hd]``,
+``wk``/``wv [d, kh, hd]``, ``wo [kh, g, hd, d]`` a layer). Each layer is a
+(mixer, ffn) pair of its kind (`cfg.layer_kinds()`): attention + MLP for
+the dense family, attention + MLP or MoE for the MoE family, a Mamba2 SSM
 block and no FFN for the SSM family. Caches mirror the tree: an attention
-layer's ``cache["body"]["l0"]["mixer"]["k"|"v"]`` is ``[L, B, ring, kh,
-hd]``; an SSM layer's ``["conv"]`` is ``[L, B, k-1, conv_dim]`` (the last
-k-1 pre-conv inputs, in the activation dtype) and ``["state"]`` ``[L, B, h,
-p, n]`` (fp32 whatever the activation dtype).
+layer's ``["mixer"]["k"|"v"]`` is ``[B, ring, kh, hd]`` (with a leading
+block axis under ``body``); an SSM layer's ``["conv"]`` is ``[B, k-1,
+conv_dim]`` (the last k-1 pre-conv inputs, in the activation dtype) and
+``["state"]`` ``[B, h, p, n]`` (fp32 whatever the activation dtype). A
+ring is ``min(sliding_window, cache_len)`` slots (`ring_len`).
 
 Where the JAX functions return a new cache, these update the cache (the
 slot pool) in place and return it — the same values, without a copy of the
@@ -31,7 +34,7 @@ isolated per-request cache no matter WHEN it joined.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.params import block_period
 
 Tree = Dict[str, Any]
 
@@ -52,12 +56,45 @@ def ring_len(cfg: ModelConfig, cache_len: int) -> int:
 
 
 def _layer(tree: Tree, i: int) -> Tree:
-    """Layer i's view of a layer-stacked subtree (views, no copies)."""
+    """Block i's view of a block-stacked subtree (views, no copies)."""
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
 
 
+def _layers(cfg: ModelConfig, tree: Tree) -> List[Tree]:
+    """Every layer's subtree of a parameter or cache tree, in layer order:
+    the prefix layers, then each body block's layers. Body layers are views
+    into the stacked leaves, so a cache written through them is written in
+    place."""
+    p, npre = block_period(cfg), cfg.first_k_dense
+    out = [tree["prefix"][f"l{i}"] for i in range(npre)]
+    body = tree["body"]
+    for j in range((cfg.n_layers - npre) // p):
+        out.extend(_layer(body[f"l{li}"], j) for li in range(p))
+    return out
+
+
+def _assemble(cfg: ModelConfig, entries: List[Tree]) -> Tree:
+    """Per-layer cache entries (layer order) -> the cache tree: prefix
+    layers as they are, body layers stacked over the blocks."""
+    p, npre = block_period(cfg), cfg.first_k_dense
+    tree: Tree = {}
+    if npre:
+        tree["prefix"] = {f"l{i}": entries[i] for i in range(npre)}
+    body = entries[npre:]
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return torch.stack(items)
+
+    tree["body"] = {f"l{li}": stack(body[li::p]) for li in range(p)}
+    return tree
+
+
 def _kv_leaves(cache: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K and V leaves of a stack of attention layers with no prefix
+    (the families that chunk their prefill: one body block)."""
     m = cache["body"]["l0"]["mixer"]
     return m["k"], m["v"]
 
@@ -93,7 +130,8 @@ def _rope4(q: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int, pos_offset=None):
-    """Causal self-attention sublayer over a full prompt, emitting its cache.
+    """Causal self-attention sublayer over a full prompt (the window mask
+    with a sliding window), emitting its cache.
 
     pos_offset: [B] left-pad amounts for ragged serving batches — row b's
     token at padded index j has true position j - pos_offset[b]; negative
@@ -101,7 +139,9 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int, pos_offset=None):
     keys and values are shifted to the canonical TRUE-POSITION layout (axis
     column t holds the roped key/value at true position t, columns past the
     true length are zero and masked), the same layout the slot pool stores,
-    and the shifted tensors double as the emitted cache.
+    and the shifted tensors double as the emitted cache. A window ring
+    shorter than the prompt keeps the last ring keys at slots pos % ring,
+    and refuses pos_offset, as the JAX package does.
     Returns (out [B, S, D], {"k", "v"} [B, ring, kh, hd])."""
     B, S, _ = x.shape
     q, k, v = _qkv(x, p)
@@ -126,12 +166,23 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int, pos_offset=None):
                     causal=True, window=cfg.sliding_window)
     out = _out(o.reshape(B, S, kh, g, hd), p["wo"])
     wc = ring_len(cfg, cache_len)
-    if wc < S:
-        raise NotImplementedError(
-            "a ring smaller than the prompt (sliding window) is not served yet")
-    # decode headroom: slots S..wc-1 stay empty (masked until decode writes)
-    cache = {"k": F.pad(k, (0, 0, 0, 0, 0, wc - S)),
-             "v": F.pad(v, (0, 0, 0, 0, 0, wc - S))}
+    if wc >= S:
+        # decode headroom: slots S..wc-1 stay empty (masked until decode writes)
+        cache = {"k": F.pad(k, (0, 0, 0, 0, 0, wc - S)),
+                 "v": F.pad(v, (0, 0, 0, 0, 0, wc - S))}
+        return out, cache
+    if pos_offset is not None:
+        raise ValueError("pos_offset with a sliding-window ring smaller than the "
+                         "padded prompt is unsupported (size the ring to cover the "
+                         "prompt bucket)")
+    # a window ring shorter than the prompt keeps its last wc keys, position
+    # t at slot t % wc: the layout decode continues
+    slots = torch.arange(S - wc, S, device=x.device) % wc
+    cache = {}
+    for name, t in (("k", k), ("v", v)):
+        c = torch.zeros((B, wc) + t.shape[2:], dtype=t.dtype, device=t.device)
+        c[:, slots] = t[:, S - wc:]
+        cache[name] = c
     return out, cache
 
 
@@ -146,10 +197,14 @@ def _mixer_forward(h, p, cfg: ModelConfig, mixer: str, *, cache_len: int,
 
 
 def _ffn(x, sub: Tree, cfg: ModelConfig, ffn: str) -> torch.Tensor:
-    """The layer's FFN with its residual (the SSM family has none)."""
+    """The layer's FFN with its residual: the MLP, the MoE experts (their
+    aux loss is a training term, dropped at serving) or none (SSM)."""
     if ffn == "none":
         return x
     h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
+    if ffn == "moe":
+        y, _ = L.moe(h, sub["ffn"], cfg)
+        return x + y
     return x + L.mlp(h, sub["ffn"])
 
 
@@ -167,19 +222,15 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  >= pos_offset.to(x.device)[:, None])
         x = x * valid[..., None].to(dt)
-    body = params["body"]["l0"]
     entries = []
-    for i, (mixer, ffn) in enumerate(cfg.layer_kinds()):
-        sub = _layer(body, i)
+    for (mixer, ffn), sub in zip(cfg.layer_kinds(), _layers(cfg, params)):
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
         o, c = _mixer_forward(h, sub["mixer"], cfg, mixer, cache_len=cache_len,
                               pos_offset=pos_offset)
         x = _ffn(x + o, sub, cfg, ffn)
-        entries.append(c)
+        entries.append({"mixer": c})
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    cache = {"body": {"l0": {"mixer": {
-        k: torch.stack([c[k] for c in entries]) for k in entries[0]}}}}
-    return x, cache
+    return x, _assemble(cfg, entries)
 
 
 def logits_from_hidden(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -216,18 +267,17 @@ def _attn_decode(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
     true position t, exactly like an unpadded per-request cache.
 
     The attention itself is one launch of the flash-decode kernel
-    (kernels.ops.decode_attention) over the prefix-valid layout: with no
-    sliding window, slot t of a row at true position qpos holds a key the
-    causal mask would keep exactly when t < min(qpos + 1, ring) (within
-    [0, qpos] every slot is the row's own most recent write, since a row's
-    live span never exceeds the ring by pool sizing; slots past qpos are
-    stale or unwritten). So the ring plus the causal mask is the kernel's
-    `pos < valid_len` with valid_len = min(qpos + 1, ring), which `decode`
-    computes once per step."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "decode over a sliding-window ring is not served yet: its ring is "
-            "not prefix-valid")
+    (kernels.ops.decode_attention) over the prefix-valid layout. Slot t of
+    a row at true position qpos holds the most recent write at or below
+    qpos congruent to t (mod ring): a row's own writes come in position
+    order, and by pool sizing its live span never exceeds the ring unless
+    the ring is a sliding window's. The JAX package keeps slot t when that
+    position, qpos - (qpos - t) mod ring, is not negative, with no window
+    mask (the ring is at most the window, so every such key is within it):
+    that is t < min(qpos + 1, ring), the kernel's `pos < valid_len` with
+    valid_len = min(qpos + 1, ring), which `decode` computes once per step.
+    Before the ring is full it is the causal prefix; once full, every slot
+    holds one of the last `ring` positions."""
     B = x.shape[0]
     q, k1, v1 = _qkv(x, p)
     wc = ck.shape[1]
@@ -262,28 +312,27 @@ def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
     and state."""
     dt = _dtype(cfg)
     x = params["embed"][tokens].to(dt)
-    body = params["body"]["l0"]
     kinds = cfg.layer_kinds()
-    c = cache["body"]["l0"]["mixer"]
+    caches = [c["mixer"] for c in _layers(cfg, cache)]
     valid_len = None
-    if any(m == "attn" for m, _ in kinds):
-        B, wc = x.shape[0], c["k"].shape[2]
+    attn = [c for (m, _), c in zip(kinds, caches) if m == "attn"]
+    if attn:
+        B, wc = x.shape[0], attn[0]["k"].shape[1]
         if pos_offset is None:
             qpos = torch.full((B,), pos, dtype=torch.int64, device=x.device)
         else:
             qpos = pos - pos_offset.to(device=x.device, dtype=torch.int64)
         valid_len = torch.clamp(qpos + 1, 0, wc).to(torch.int32)  # the ring's valid prefix
-    for i, (mixer, ffn) in enumerate(kinds):
-        sub = _layer(body, i)
+    for (mixer, ffn), sub, c in zip(kinds, _layers(cfg, params), caches):
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
         if mixer == "attn":
-            o = _attn_decode(h, sub["mixer"], cfg, c["k"][i], c["v"][i], pos, pos_offset,
+            o = _attn_decode(h, sub["mixer"], cfg, c["k"], c["v"], pos, pos_offset,
                              valid_len)
         else:
-            o, (conv, state) = L.ssm_block_decode(h, sub["mixer"], cfg, c["conv"][i],
-                                                  c["state"][i])
-            c["conv"][i].copy_(conv)
-            c["state"][i].copy_(state)
+            o, (conv, state) = L.ssm_block_decode(h, sub["mixer"], cfg, c["conv"],
+                                                  c["state"])
+            c["conv"].copy_(conv)
+            c["state"].copy_(state)
         x = _ffn(x + o, sub, cfg, ffn)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return logits_from_hidden(params, x, cfg), cache
@@ -326,24 +375,58 @@ def decode_segment(params: Tree, cache: Tree, tok: torch.Tensor, pos0: int,
 # ---------------------------------------------------------------------------
 
 
-def alloc_slot_pool(cfg: ModelConfig, max_slots: int, cache_len: int,
-                    device: torch.device) -> Tree:
-    """Zero-initialized slot-pool cache tree: K/V rings [L, max_slots, ring,
-    kh, hd] for attention layers; for SSM layers the conv tail [L,
-    max_slots, k-1, conv_dim] in the activation dtype and the state [L,
-    max_slots, h, p, n] in fp32."""
-    L_ = cfg.n_layers
-    if cfg.layer_kinds()[0][0] == "attn":  # one kind a model (params.model_defs)
-        shape = (L_, max_slots, ring_len(cfg, cache_len), cfg.n_kv_heads, cfg.hd)
+def _cache_entry(cfg: ModelConfig, mixer: str, max_slots: int, cache_len: int,
+                 device) -> Tree:
+    """One layer's zero slot-pool entry."""
+    if mixer == "attn":
+        shape = (max_slots, ring_len(cfg, cache_len), cfg.n_kv_heads, cfg.hd)
         leaves = {"k": (shape, _dtype(cfg)), "v": (shape, _dtype(cfg))}
     else:
         leaves = {
-            "conv": ((L_, max_slots, cfg.ssm_conv - 1, cfg.conv_dim), _dtype(cfg)),
-            "state": ((L_, max_slots, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+            "conv": ((max_slots, cfg.ssm_conv - 1, cfg.conv_dim), _dtype(cfg)),
+            "state": ((max_slots, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
                       torch.float32),
         }
-    return {"body": {"l0": {"mixer": {
-        k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in leaves.items()}}}}
+    return {"mixer": {k: torch.zeros(shape, dtype=dt, device=device)
+                      for k, (shape, dt) in leaves.items()}}
+
+
+def alloc_slot_pool(cfg: ModelConfig, max_slots: int, cache_len: int,
+                    device: torch.device) -> Tree:
+    """Zero-initialized slot-pool cache tree, laid out as a prefill cache:
+    per attention layer K/V rings [max_slots, ring, kh, hd]; per SSM layer
+    the conv tail [max_slots, k-1, conv_dim] in the activation dtype and
+    the state [max_slots, h, p, n] in fp32; body leaves with a leading
+    block axis."""
+    return _assemble(cfg, [_cache_entry(cfg, m, max_slots, cache_len, device)
+                           for m, _ in cfg.layer_kinds()])
+
+
+def _scatter_rows(pool: Tree, pre: Tree, keep: torch.Tensor, rows: torch.Tensor,
+                  lp: int, stacked: bool) -> None:
+    """Copy the kept rows of a prefill-cache subtree into pool rows `rows`,
+    in place (body leaves carry a leading block axis)."""
+    for name, pl in pool.items():
+        q = pre[name]
+        if isinstance(pl, dict):
+            _scatter_rows(pl, q, keep, rows, lp, stacked)
+            continue
+        q = (q[:, keep] if stacked else q[keep]).to(pl.dtype)
+        if name in ("k", "v"):
+            ring_q, ring_p = q.shape[2 if stacked else 1], pl.shape[2 if stacked else 1]
+            if ring_q != lp or lp > ring_p:
+                raise ValueError(
+                    f"slot-pool admission needs the prefill ring to hold the whole "
+                    f"padded prompt (sliding_window 0 or >= the bucket): prefill "
+                    f"ring {ring_q}, pool ring {ring_p}, prompt bucket {lp}")
+            if stacked:
+                pl[:, rows, :lp] = q
+            else:
+                pl[rows, :lp] = q
+        elif stacked:
+            pl[:, rows] = q
+        else:
+            pl[rows] = q
 
 
 def scatter_into_slots(pool: Tree, prefill_cache: Tree, slot_ids: torch.Tensor,
@@ -351,28 +434,19 @@ def scatter_into_slots(pool: Tree, prefill_cache: Tree, slot_ids: torch.Tensor,
     """Admit a prefilled batch into pool row slots, in place: prefill-cache
     row i lands in pool slot slot_ids[i]; rows whose slot id is out of range
     (admission padding) are dropped. K/V land at ring slots 0..lp-1 (the
-    prefill cache is already true-position indexed); an SSM conv tail or
-    state is a plain row copy, so every admission overwrites the whole row
-    and a reused slot inherits nothing. The clock does not enter: placement
-    is true-position indexed."""
+    prefill cache is already true-position indexed, and its ring must hold
+    the whole bucket); an SSM conv tail or state is a plain row copy, so
+    every admission overwrites the whole row and a reused slot inherits
+    nothing. The clock does not enter: placement is true-position
+    indexed."""
     del clock
-    pm = pool["body"]["l0"]["mixer"]
-    qm = prefill_cache["body"]["l0"]["mixer"]
-    if "k" in pm:
-        pk, qk = pm["k"], qm["k"]
-        if qk.shape[2] != lp or lp > pk.shape[2]:
-            raise ValueError(f"prefill ring {qk.shape[2]} / pool ring {pk.shape[2]} "
-                             f"cannot take a prompt bucket of {lp}")
-    any_leaf = next(iter(pm.values()))
+    any_leaf = next(iter(pool["body"]["l0"]["mixer"].values()))
     slot_ids = slot_ids.to(any_leaf.device)
     keep = slot_ids < any_leaf.shape[1]
     rows = slot_ids[keep]
-    for name, pl in pm.items():
-        q = qm[name][:, keep].to(pl.dtype)
-        if name in ("k", "v"):
-            pl[:, rows, :lp] = q
-        else:
-            pl[:, rows] = q
+    if "prefix" in pool:
+        _scatter_rows(pool["prefix"], prefill_cache["prefix"], keep, rows, lp, False)
+    _scatter_rows(pool["body"], prefill_cache["body"], keep, rows, lp, True)
     return pool
 
 
@@ -417,7 +491,10 @@ def scatter_prefix_into_slots(pool: Tree, prefix_cache: Tree, slot_ids: torch.Te
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     """Chunked prefill serves pure attention+MLP stacks with no sliding
-    window (a ring smaller than the prompt cannot hold the chunk history)."""
+    window, as in the JAX package: a ring smaller than the prompt cannot
+    hold the chunk history, and an MoE layer's expert capacity counts the
+    whole prefill's tokens, so chunking would change which tokens drop.
+    The others admit monolithically."""
     return cfg.sliding_window == 0 and all(
         m == "attn" and f == "mlp" for m, f in cfg.layer_kinds())
 
@@ -476,12 +553,10 @@ def prefill_chunk_into_slots(params: Tree, tokens: torch.Tensor, pool: Tree,
             + torch.arange(C, device=dev)[None, :]) - off[:, None]
     valid = qpos >= 0
     x = params["embed"][tokens].to(dt) * valid[..., None].to(dt)
-    body = params["body"]["l0"]
-    K, V = _kv_leaves(pool)
-    for i in range(cfg.n_layers):
-        sub = _layer(body, i)
+    for sub, c in zip(_layers(cfg, params), _layers(cfg, pool)):
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
-        x = x + _attn_chunk(h, sub["mixer"], cfg, K[i], V[i], qpos, valid, lp)
+        x = x + _attn_chunk(h, sub["mixer"], cfg, c["mixer"]["k"], c["mixer"]["v"],
+                            qpos, valid, lp)
         h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
         x = x + L.mlp(h, sub["ffn"])
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)

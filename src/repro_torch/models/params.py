@@ -3,12 +3,18 @@ bridge from the JAX package's parameter tree.
 
 The tree is the JAX package's (`lm.model_defs` there), leaf by leaf:
 ``embed [padded_vocab, d]``, ``final_ln [d]``, ``lm_head [d, padded_vocab]``
-(absent with tied embeddings) and, layer-stacked under ``body.l0``, the
-mixer and the ffn of each layer's kind: ``mixer.{ln, wq, wk, wv, wo}`` and
-``ffn.{ln, wi_gate, wi_up, wo}`` for the dense family, ``mixer.{ln, in_z,
-in_xbc, in_dt, conv_w, conv_b, dt_bias, A_log, D, norm_w, out_proj}`` and no
-ffn for the SSM family. Same paths and shapes on both sides is what lets
-`from_reference` carry weights across by path.
+(absent with tied embeddings), the unstacked leading layers under
+``prefix.l{i}`` (moonshot's `first_k_dense` dense layer) and the rest under
+``body.l{j}``, each leaf stacked over the blocks of `block_period(cfg)`
+layers (period 1 for every served family: one block a layer, all under
+``body.l0``). A layer is the mixer and the ffn of its kind:
+``mixer.{ln, wq, wk, wv, wo}`` for attention, ``mixer.{ln, in_z, in_xbc,
+in_dt, conv_w, conv_b, dt_bias, A_log, D, norm_w, out_proj}`` for the SSM
+(no ffn), ``ffn.{ln, wi_gate, wi_up, wo}`` for the MLP, and for MoE
+``ffn.{ln, router [d, E], wi_gate/wi_up [E, d, f], wo [E, f, d]}`` plus
+``ffn.shared.{wi_gate, wi_up, wo}`` with shared experts. Same paths and
+shapes on both sides is what lets `from_reference` carry weights across by
+path.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ class ParamDef:
     shape: Tuple[int, ...]
     init: str = "normal"  # normal | zeros | ones | dt_bias | a_log
     scale: float = 0.02
+    expert: bool = False  # a routed expert's leaf (active_param_count)
 
 
 def _attn_defs(cfg: ModelConfig) -> Tree:
@@ -55,6 +62,27 @@ def _mlp_defs(cfg: ModelConfig) -> Tree:
     }
 
 
+def _moe_defs(cfg: ModelConfig) -> Tree:
+    d, e = cfg.d_model, cfg.n_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    defs: Tree = {
+        "ln": ParamDef((d,), "ones"),
+        "router": ParamDef((d, e)),
+        "wi_gate": ParamDef((e, d, f), expert=True),
+        "wi_up": ParamDef((e, d, f), expert=True),
+        "wo": ParamDef((e, f, d), scale=out_scale, expert=True),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * f
+        defs["shared"] = {
+            "wi_gate": ParamDef((d, fs)),
+            "wi_up": ParamDef((d, fs)),
+            "wo": ParamDef((fs, d), scale=out_scale),
+        }
+    return defs
+
+
 def _ssm_defs(cfg: ModelConfig) -> Tree:
     d = cfg.d_model
     di, cd, h = cfg.d_inner, cfg.conv_dim, cfg.n_ssm_heads
@@ -76,18 +104,36 @@ def _ssm_defs(cfg: ModelConfig) -> Tree:
 
 def _stack(tree: Tree, n: int) -> Tree:
     return {k: (_stack(v, n) if isinstance(v, dict)
-                else ParamDef((n,) + v.shape, v.init, v.scale))
+                else ParamDef((n,) + v.shape, v.init, v.scale, v.expert))
             for k, v in tree.items()}
+
+
+def block_period(cfg: ModelConfig) -> int:
+    """Layers a stacked body block holds: the period of the layer-kind
+    pattern past the prefix (the MoE stride; 1 for every served arch)."""
+    return cfg.moe_every if cfg.n_experts and cfg.moe_every > 1 else 1
+
+
+def _sublayer_defs(cfg: ModelConfig, kind: Tuple[str, str]) -> Tree:
+    mixer, ffn = kind
+    sub: Tree = {"mixer": _attn_defs(cfg) if mixer == "attn" else _ssm_defs(cfg)}
+    if ffn == "mlp":
+        sub["ffn"] = _mlp_defs(cfg)
+    elif ffn == "moe":
+        sub["ffn"] = _moe_defs(cfg)
+    return sub
 
 
 def model_defs(cfg: ModelConfig) -> Tree:
     """Shapes and init kinds of every leaf (the JAX package's model_defs
-    for the served families). Every layer of a served family has one kind,
-    so the body is one block `l0` stacked over the layers."""
-    kinds = set(cfg.layer_kinds())
-    if len(kinds) != 1:
-        raise NotImplementedError(f"{cfg.name}: mixed layer kinds {sorted(kinds)}")
-    mixer, ffn = kinds.pop()
+    for the served families): the `first_k_dense` prefix layers unstacked,
+    then one stacked block of `block_period` layers."""
+    kinds = cfg.layer_kinds()
+    p, npre = block_period(cfg), cfg.first_k_dense
+    body_kinds = kinds[npre:]
+    if len(body_kinds) % p:
+        raise ValueError(f"{cfg.name}: {len(body_kinds)} body layers are not "
+                         f"a multiple of the block period {p}")
     d = cfg.d_model
     defs: Tree = {
         "embed": ParamDef((cfg.padded_vocab, d)),
@@ -95,10 +141,10 @@ def model_defs(cfg: ModelConfig) -> Tree:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, cfg.padded_vocab))
-    sub: Tree = {"mixer": _attn_defs(cfg) if mixer == "attn" else _ssm_defs(cfg)}
-    if ffn == "mlp":
-        sub["ffn"] = _mlp_defs(cfg)
-    defs["body"] = {"l0": _stack(sub, cfg.n_layers)}
+    if npre:
+        defs["prefix"] = {f"l{i}": _sublayer_defs(cfg, kinds[i]) for i in range(npre)}
+    block = {f"l{i}": _sublayer_defs(cfg, k) for i, k in enumerate(body_kinds[:p])}
+    defs["body"] = _stack(block, len(body_kinds) // p)
     return defs
 
 

@@ -1148,8 +1148,9 @@ def _seeded_params(cfg: ModelConfig, seed: int, dev: torch.device):
 
 
 def _check_served(cfg: ModelConfig) -> None:
-    """Tenants are models of a served arch (SERVED_ARCHS: the dense and SSM
-    families), each fleet tenant of its own; anything else raises."""
+    """Tenants are models of a served arch (SERVED_ARCHS: the dense, MoE
+    and SSM families), each fleet tenant of its own; anything else (jamba,
+    whisper, phi-3-vision) raises."""
     from repro_torch.configs import SERVED_ARCHS
 
     base = cfg.name[:-len("-reduced")] if cfg.name.endswith("-reduced") else cfg.name

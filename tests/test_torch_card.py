@@ -401,7 +401,8 @@ def test_image_wrappers_refuse_bad_inputs_on_card(cuda):
 # --- decode attention ----------------------------------------------------------
 
 DECODE_SHAPES = [(2, 8, 4, 64, 512), (1, 7, 7, 128, 300), (4, 16, 16, 64, 1024),
-                 (8, 32, 4, 64, 144), (8, 32, 4, 64, 2048), (4, 4, 2, 32, 74)]
+                 (8, 32, 4, 64, 144), (8, 32, 4, 64, 2048), (4, 4, 2, 32, 74),
+                 (8, 32, 8, 80, 4096), (3, 12, 3, 80, 300)]  # h2o-danube's head size 80
 
 
 def _decode_inputs(shape, dtype, device, seed, valid=None):
@@ -460,7 +461,7 @@ BOUNDARY_VALID = (1, 63, 64, 65, 511, 512, 513)  # tiles of 64, cluster rounds o
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 @pytest.mark.parametrize("s", [74, 2049])
 def test_decode_attention_at_tile_and_cluster_boundaries_on_card(cuda, s, d, dtype):
     """valid_len on both sides of a 64-key tile and of a round of the 8-block
@@ -500,6 +501,69 @@ def test_decode_attention_rows_spanning_the_cluster_ignore_S_and_B_on_card(cuda)
         q[i:i + 1].contiguous(), k[i:i + 1].contiguous(), v[i:i + 1].contiguous(), vl[i:i + 1])
         for i in range(2)])
     assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_decode_attention_head_dim_80_ignores_positions_past_valid_length_on_card(cuda):
+    """At head size 80 (20 lanes of 4 columns) a row's bits depend on its
+    valid prefix only, and a row alone gives the bits it gives in a batch."""
+    q, k, v, vl = _decode_inputs((2, 32, 8, 80, 600), torch.bfloat16, cuda, seed=16,
+                                 valid=[70, 577])
+    a = decode_attention.decode_attention_kernel(q, k, v, vl)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, 70:], v2[0, 70:] = 7.0, -7.0
+    b = decode_attention.decode_attention_kernel(q, k2, v2, vl)
+    c = torch.cat([decode_attention.decode_attention_kernel(
+        q[i:i + 1].contiguous(), k[i:i + 1].contiguous(), v[i:i + 1].contiguous(), vl[i:i + 1])
+        for i in range(2)])
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _plain_swapped(fn):
+    """fn() with the decode kernel's plain version in its place."""
+    real = ops.decode_attention
+    ops.decode_attention = decode_attention.decode_attention_plain
+    try:
+        return fn()
+    finally:
+        ops.decode_attention = real
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b", "h2o-danube-1.8b"])
+def test_window_and_moe_decode_match_the_plain_path_on_card(cuda, arch):
+    """Reduced fp32 models: a 12-token prompt, then 24 decode steps (the
+    16-slot window ring of danube and mixtral wraps at step 4) with the
+    kernel, and the same with its plain version: logits every step within
+    2e-4, greedy tokens equal, one launch a layer a step. The MoE layers'
+    dispatch (router, capacity, expert einsums) runs on the card in both."""
+    from dataclasses import replace
+
+    from repro_torch.configs import reduced
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_params
+
+    cfg = replace(reduced(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
+                              ).to(cuda)
+
+    def run():
+        logits, cache = lm.prefill(params, prompt, cfg, cache_len=40)
+        out = [logits]
+        tok = torch.argmax(logits, -1)
+        for i in range(24):
+            logits, cache = lm.decode(params, cache, tok, 12 + i, cfg)
+            tok = torch.argmax(logits, -1)
+            out.append(logits)
+        return torch.cat(out, dim=1)
+
+    kernels.reset_launch_counts()
+    got = run()
+    assert kernels.launch_counts()["decode_attention"] == 24 * cfg.n_layers
+    want = _plain_swapped(run)
+    assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
 @pytest.mark.gpu

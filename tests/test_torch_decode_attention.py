@@ -171,10 +171,39 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_sliding_window_decode_is_refused():
+    """Sliding-window decode is served now (the name is kept from when it
+    was refused). Decode over a 16-slot window ring (rows at true positions
+    3 and 40, the second wrapped twice): every layer calls the decode
+    attention with
+    valid_len = min(qpos + 1, ring), and its output there equals the JAX
+    package's Pallas kernel (interpret mode) on the same inputs."""
     cfg = dataclasses.replace(reduced("tinyllama-1.1b"), dtype="float32",
                               sliding_window=16)
-    pool = lm.alloc_slot_pool(cfg, 1, 16, torch.device("cpu"))
+    pool = lm.alloc_slot_pool(cfg, 2, 48, torch.device("cpu"))
+    assert pool["body"]["l0"]["mixer"]["k"].shape[2] == 16
+    gen = torch.Generator().manual_seed(0)
+    for leaf in pool["body"]["l0"]["mixer"].values():
+        leaf.normal_(generator=gen)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", "float32")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        lm.decode(params, pool, torch.zeros(1, 1, dtype=torch.long), 3, cfg)
+    seen = []
+    real = ops.decode_attention
 
+    def spy(q, k, v, valid_len):
+        out = real(q, k, v, valid_len)
+        seen.append((q.clone(), k.clone(), v.clone(), valid_len.clone(), out))
+        return out
+
+    ops.decode_attention = spy
+    try:
+        logits, _ = lm.decode(params, pool, torch.zeros(2, 1, dtype=torch.long), 50, cfg,
+                              pos_offset=torch.tensor([47, 10]))
+    finally:
+        ops.decode_attention = real
+    assert logits.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert len(seen) == cfg.n_layers
+    for q, k, v, vl, out in seen:
+        assert vl.tolist() == [4, 16]
+        want = decode_attention_pallas(*(jnp.asarray(t.numpy()) for t in (q, k, v, vl)),
+                                       interpret=True)
+        assert_allclose(out.numpy(), np.asarray(want), rtol=TOL["float32"],
+                        atol=TOL["float32"])

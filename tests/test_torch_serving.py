@@ -22,6 +22,7 @@ from numpy.testing import assert_allclose
 jax = pytest.importorskip("jax")
 
 from repro.configs import reduced as ref_reduced  # noqa: E402
+from repro.core.batching.buckets import Request as RRequest  # noqa: E402
 from repro.core.dpu.service import DpuService as RefService  # noqa: E402
 from repro.core.dpu.service import DpuServiceConfig as RefServiceConfig  # noqa: E402
 from repro.models import api as rapi  # noqa: E402
@@ -230,19 +231,38 @@ def test_engine_cancel_frees_slots_and_queue():
     assert eng.slots_in_use() == 0 and not eng.busy()
 
 
-@pytest.mark.parametrize("ec", [
-    EngineConfig(continuous=False),
-    EngineConfig(continuous=True, chunk_lens=(16,)),
-    EngineConfig(continuous=True, chunk_lens=(16,), prefix_cache_bytes=1 << 20),
+@pytest.mark.parametrize("mode", [
+    dict(continuous=False),
+    dict(continuous=True, chunk_lens=(16,)),
+    dict(continuous=True, chunk_lens=(16,), prefix_cache_bytes=1 << 20),
 ])
-def test_unported_engine_paths_raise(ec):
-    """Every engine mode is served for the dense family; serving a
-    sliding-window model is not ported yet, and each mode refuses it."""
-    cfg = dataclasses.replace(reduced(ARCH), sliding_window=16)
-    eng = build_engine(cfg, ec=ec, device="cpu")
-    eng.submit_many([Request(rid=0, arrival=0.0, length=20.0)])
-    with pytest.raises(NotImplementedError):
-        eng.run_until_idle()
+def test_unported_engine_paths_raise(mode):
+    """Sliding-window models are served now in every engine mode (the name
+    is kept from when each mode refused them): reduced tinyllama with a
+    16-token window, prompts within it and budgets that wrap its ring. The
+    chunked modes admit it monolithically, as the JAX engine does (a ring
+    shorter than the prompt cannot hold the chunk history). Per rid the
+    tokens equal the JAX engine's on the same weights."""
+    ec = dict(max_new_tokens=12, max_slots=4, segment_len=4, max_prompt_len=16, **mode)
+    rcfg = dataclasses.replace(ref_reduced(ARCH), dtype="float32", sliding_window=16)
+    cfg = dataclasses.replace(reduced(ARCH), dtype="float32", sliding_window=16)
+    jparams = rapi.init_params(rcfg, jax.random.PRNGKey(0), dtype="float32")
+    reqs = [(0, 14.0, 12), (1, 5.0, 9), (2, 16.0, 11)]
+    reng = rengine.build_engine(rcfg, ec=rengine.EngineConfig(**ec))
+    reng.params = jparams
+    reng.submit_many([RRequest(rid=i, arrival=0.0, length=n, max_new_tokens=b)
+                      for i, n, b in reqs])
+    want = {r.rid: np.asarray(r.payload) for r in reng.run_until_idle()}
+    eng = build_engine(cfg, ec=EngineConfig(**ec), device="cpu",
+                       params=from_reference(jax.tree.map(np.asarray, jparams), cfg, "cpu"))
+    eng.submit_many([Request(rid=i, arrival=0.0, length=n, max_new_tokens=b)
+                     for i, n, b in reqs])
+    got = {r.rid: np.asarray(r.payload) for r in eng.run_until_idle()}
+    assert got.keys() == want.keys() == {0, 1, 2}
+    for rid, toks in want.items():
+        np.testing.assert_array_equal(got[rid], toks)
+    if mode.get("continuous"):
+        assert eng._chunk_lens == reng._chunk_lens == ()
 
 
 # --- hygiene -----------------------------------------------------------------
