@@ -216,16 +216,43 @@ Phases, each fatal on failure:
    largest logit difference before and after the wrap (random bf16
    weights give flat logits, so near-ties are common).
 
-In every serve phase (4, 6, 8-11, 13-15) the decode kernel's launches must
+16. families — the last three families. First decode attention at their
+   shapes, held against its plain version (2e-4 fp32, 3e-2 bf16) and
+   timed beside SDPA with its bound, as phase 7 does: phi-3-vision's decode
+   (B 8, H 32, KH 32: one query head a KV head, head size 96) over a
+   144-slot and a 4,096-slot ring, valid_len drawn in [1, S], and
+   whisper's cross-attention (B 8, H 8, KH 8, D 64, S 1,500, every
+   position valid), fp32 and bf16. Then each arch at full width, bf16,
+   seed 0. whisper-base through its model entry points (the engine does
+   not serve it): 8 rows of stub frames [8, 1,500, 512] and 8-token
+   prompts, prefill, generate 16 tokens; decode attention must launch (6
+   self + 6 cross) x 15 decode steps; at step 8 every layer's kernel output
+   within 3e-2 of its plain version; the decode loop fed the generated
+   tokens must reproduce them, and its logits with the plain version in
+   the kernel's place must stay within 3e-2 (the free-run greedy agreement
+   is printed). phi-3-vision-4.2b (32 layers) and jamba-v0.1-52b (8 of 32:
+   one block of 1 attention, 7 SSM and 4 MoE layers, ~26.5 GB) serve 8
+   audio requests as phase 15 does, and hold its contracts (join ==
+   alone gated for phi-3-vision, printed for jamba's MoE; chained ==
+   sequential gated for both, jamba's SSM rows included); phi-3-vision
+   also runs its image path (576 stub patch embeddings in a 608-token
+   prompt, prefill, generate 16: 32 x 15 launches) and must refuse
+   pos_offset with img_embeds. Per arch: weight bytes, cache bytes, a
+   decode step's wall and device ms and its launches.
+
+In every serve phase (4, 6, 8-11, 13-16) the decode kernel's launches must
 equal n_layers x the decode steps the engines executed (their own stats;
-in phase 14 the tinyllama tenant's, in phase 15 the attention layers'):
-every attention decode step runs it once per layer. Any serve phase that injected no failure fails on a
+in phase 14 the tinyllama tenant's, in phases 15-16 the attention layers',
+whisper's cross-attention sublayers included): every attention decode step
+runs it once per layer. Any serve phase that injected no failure fails on a
 breaker trip or a request served on the CPU path.
 
 Prints one JSON line {"kernels": [...]} (seven kernels; a kernel's launches
 are the sum over the phases that run it — decode_attention's over the seven
-serve phases, the knee pass, the controller's first replay and phase 15's
-six serves, the audio kernels' over phases 4, 10, 11, 13, 14 and 15; worst_library_ratio is the
+serve phases, the knee pass, the controller's first replay, phase 15's
+six serves and phase 16's two serves, whisper's generate and phi-3-vision's
+image path, the audio kernels' over phases 4, 10, 11, 13, 14, 15 and 16;
+its max_abs_err is the largest over all its shapes; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
 where it falls, so a kernel that loses off its main shape shows), the
 card's name and power limit, and last {"ok": true, "device": {...}}. With --out PATH the
@@ -859,55 +886,49 @@ def image_serve_phase(torch, np, params):
     return stats
 
 
-def decode_kernel_phase(torch, F, np):
-    from repro_torch.kernels import build
-    from repro_torch.kernels import decode_attention as kd
-
+def decode_row(torch, F, np, kd, rng, shape, valid=None):
+    """One decode attention shape (B, H, KH, D, S, dtype) on random inputs,
+    valid_len drawn in [1, S] (or `valid` on every row): the kernel held
+    against its plain version and SDPA (the library yardstick: one call with
+    a boolean prefix mask), the three timed, and the bytes and operations
+    of its bound (the valid prefix of K and V read once, q read and the
+    output written once). Returns (row, its inputs); report_decode_rows
+    reads the errors."""
+    b, h, kh, d, s_len, dt = shape
     dev = torch.device("cuda")
-    rng = np.random.default_rng(777)
-    rows = []
-    for b, h, kh, d, s_len, dt in DECODE_SHAPES:
-        dtype = getattr(torch, dt)
-        q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev, dtype)
-                   for sh in ((b, h, d), (b, s_len, kh, d), (b, s_len, kh, d)))
-        vl_np = rng.integers(1, s_len + 1, b).astype(np.int32)
-        vl = torch.from_numpy(vl_np).to(dev)
-        name = f"decode_attention/{dt}"
-        got = kd.decode_attention_kernel(q, k, v, vl)
-        want = kd.decode_attention_plain(q, k, v, vl)
-        row = dict(name="decode_attention", B=b, H=h, KH=kh, D=d, S=s_len, dtype=dt,
-                   tol=name, err=errors(torch, name, got.float(), want.float()))
-        # the library yardstick: one SDPA call with a boolean prefix mask
-        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        mask = (torch.arange(s_len, device=dev)[None] < vl[:, None].long())[:, None, None]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                                  enable_gqa=True)[:, :, 0]
-
-        row["library_err"] = errors(torch, name, sdpa().float(), want.float())
-        row["ms"] = time_ms(torch, lambda: kd.decode_attention_kernel(q, k, v, vl))
-        row["plain_ms"] = time_ms(torch, lambda: kd.decode_attention_plain(q, k, v, vl))
-        row["library_ms"] = time_ms(torch, sdpa)
-        elt = q.element_size()
-        valid = int(vl_np.sum())  # the kernel reads the valid prefix of K and V
-        row["bytes"] = elt * (2 * b * h * d + 2 * valid * kh * d) + 4 * b
-        row["flops"] = 4 * valid * (h // kh) * kh * d
-        rows.append(row)
-        if (b, h, kh, d, s_len, dt) == DECODE_MAIN_SHAPE:
-            main_row = row
-            main_row["bits_vs_longer_ring"] = decode_bits_check(
-                torch, np, kd, q, k, v, vl, np.random.default_rng(778))
-    # valid_len = 0: every position weighs the same, the output is mean(V)
-    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
-               for sh in ((2, 8, 64), (2, 300, 4, 64), (2, 300, 4, 64)))
-    vl = torch.tensor([0, 100], dtype=torch.int32, device=dev)
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev, dtype)
+               for sh in ((b, h, d), (b, s_len, kh, d), (b, s_len, kh, d)))
+    vl_np = (rng.integers(1, s_len + 1, b) if valid is None
+             else np.full(b, valid)).astype(np.int32)
+    vl = torch.from_numpy(vl_np).to(dev)
+    name = f"decode_attention/{dt}"
     got = kd.decode_attention_kernel(q, k, v, vl)
-    zero = dict(err=errors(torch, "decode_attention/float32", got,
-                           kd.decode_attention_plain(q, k, v, vl)),
-                mean_err=errors(torch, "decode_attention/float32", got[0],
-                                v[0].mean(0).repeat_interleave(2, dim=0)))
-    torch.cuda.synchronize()
+    want = kd.decode_attention_plain(q, k, v, vl)
+    row = dict(name="decode_attention", B=b, H=h, KH=kh, D=d, S=s_len, dtype=dt,
+               tol=name, err=errors(torch, name, got.float(), want.float()))
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(s_len, device=dev)[None] < vl[:, None].long())[:, None, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              enable_gqa=True)[:, :, 0]
+
+    row["library_err"] = errors(torch, name, sdpa().float(), want.float())
+    row["ms"] = time_ms(torch, lambda: kd.decode_attention_kernel(q, k, v, vl))
+    row["plain_ms"] = time_ms(torch, lambda: kd.decode_attention_plain(q, k, v, vl))
+    row["library_ms"] = time_ms(torch, sdpa)
+    elt = q.element_size()
+    n_valid = int(vl_np.sum())  # the kernel reads the valid prefix of K and V
+    row["bytes"] = elt * (2 * b * h * d + 2 * n_valid * kh * d) + 4 * b
+    row["flops"] = 4 * n_valid * (h // kh) * kh * d
+    return row, (q, k, v, vl)
+
+
+def report_decode_rows(rows) -> None:
+    """Each decode attention row's errors and bound, printed; fails on a row
+    whose kernel (or SDPA) differs from the plain version beyond the
+    decode tolerance."""
     for row in rows:
         abs_err, rel_err, ok = row.pop("err")
         lib_abs, _, lib_ok = row.pop("library_err")
@@ -922,11 +943,39 @@ def decode_kernel_phase(torch, F, np):
               f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
               f"max_abs_err={abs_err:.3e} library_err={lib_abs:.3e}")
         if not ok:
-            fail(f"decode_attention {row['dtype']} B={row['B']} S={row['S']} disagrees "
-                 f"with its plain version beyond {TOL[row['tol']]}")
+            fail(f"decode_attention {row['dtype']} B={row['B']} D={row['D']} S={row['S']} "
+                 f"disagrees with its plain version beyond {TOL[row['tol']]}")
         if not lib_ok:
             fail(f"scaled_dot_product_attention differs from the plain decode attention "
-                 f"at {row['dtype']} B={row['B']} S={row['S']} beyond {TOL[row['tol']]}")
+                 f"at {row['dtype']} B={row['B']} D={row['D']} S={row['S']} beyond "
+                 f"{TOL[row['tol']]}")
+
+
+def decode_kernel_phase(torch, F, np):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as kd
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(777)
+    rows = []
+    for shape in DECODE_SHAPES:
+        row, (q, k, v, vl) = decode_row(torch, F, np, kd, rng, shape)
+        rows.append(row)
+        if shape == DECODE_MAIN_SHAPE:
+            main_row = row
+            main_row["bits_vs_longer_ring"] = decode_bits_check(
+                torch, np, kd, q, k, v, vl, np.random.default_rng(778))
+    # valid_len = 0: every position weighs the same, the output is mean(V)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
+               for sh in ((2, 8, 64), (2, 300, 4, 64), (2, 300, 4, 64)))
+    vl = torch.tensor([0, 100], dtype=torch.int32, device=dev)
+    got = kd.decode_attention_kernel(q, k, v, vl)
+    zero = dict(err=errors(torch, "decode_attention/float32", got,
+                           kd.decode_attention_plain(q, k, v, vl)),
+                mean_err=errors(torch, "decode_attention/float32", got[0],
+                                v[0].mean(0).repeat_interleave(2, dim=0)))
+    torch.cuda.synchronize()
+    report_decode_rows(rows)
     for key, (abs_err, _, ok) in zero.items():
         print(f"  decode_attention valid_len=0 row: {key}={abs_err:.3e}")
         if not ok:
@@ -2163,7 +2212,10 @@ WRAP_PROMPT, WRAP_STEPS, WRAP_CHECK_STEP = 4000, 200, 150  # the ring wraps at s
 
 
 def n_attn_layers(cfg) -> int:
-    return sum(1 for m, _ in cfg.layer_kinds() if m == "attn")
+    """Decode attention launches a decode step: the self-attention layers,
+    and an encoder-decoder's cross-attention sublayers (one a layer)."""
+    return (sum(1 for m, _ in cfg.layer_kinds() if m == "attn")
+            + (cfg.n_layers if cfg.enc_layers else 0))
 
 
 def _map_pool(pool, fn):
@@ -2175,12 +2227,17 @@ def _map_pool(pool, fn):
     return {top: walk(sub, top == "body") for top, sub in pool.items()}
 
 
-def _kv_rows(torch, pool, row, n):
-    """Row `row`'s K and V over ring slots [0, n), every attention layer,
-    flattened into one tensor."""
+def _cache_rows(torch, pool, row, n):
+    """Row `row` of every layer's cache, flattened into one fp32 tensor (an
+    exact copy of its bits): K and V over ring slots [0, n), an SSM layer's
+    conv tail and state whole."""
     parts = []
-    _map_pool(pool, lambda k, v, st: parts.append(
-        (v[:, row, :n] if st else v[row, :n]).reshape(-1)) if k in ("k", "v") else None)
+
+    def take(k, v, stacked):
+        r = v[:, row] if stacked else v[row][None]
+        parts.append((r[:, :n] if k in ("k", "v") else r).reshape(-1).float())
+
+    _map_pool(pool, take)
     return torch.cat(parts)
 
 
@@ -2203,7 +2260,8 @@ def attn_contracts(torch, np, cfg, model, dev) -> dict:
     sequential: decode_segment(3) then (5) == eight decode steps, every
     row. An MoE token's expert capacity depends on its decode group, so
     join may differ there (the JAX package's own contract, tests/
-    test_torch_moe.py)."""
+    test_torch_moe.py). A row's state is its K and V over the slots it
+    wrote and, in a hybrid, its SSM layers' conv tails and states."""
     from repro_torch.models import lm
 
     slots, steps = CONTRACT_SLOTS, CONTRACT_STEPS
@@ -2239,8 +2297,8 @@ def attn_contracts(torch, np, cfg, model, dev) -> dict:
     joined, pool_j, lg_j = serve_b(pool, 35, seg[:, -1:], poff)
     n_kv = CONTRACT_LEN_B + steps + 1
     join = {"tokens": _bits(torch, joined, solo),
-            "kv": _bits(torch, _kv_rows(torch, pool_j, slots - 1, n_kv),
-                        _kv_rows(torch, pool_s, slots - 1, n_kv)),
+            "kv": _bits(torch, _cache_rows(torch, pool_j, slots - 1, n_kv),
+                        _cache_rows(torch, pool_s, slots - 1, n_kv)),
             "logits": _bits(torch, lg_j, lg_s)}
     join["equal"] = all(v["equal"] for v in join.values())
 
@@ -2265,9 +2323,9 @@ def attn_contracts(torch, np, cfg, model, dev) -> dict:
     lg = [model.decode(p, t[:, -1:], 32 + steps, pos_offset=poff)[0]
           for p, t in ((pool_c, chained), (pool_q, seq))]
     chain = {"tokens": _bits(torch, chained, seq),
-             "kv": _bits(torch, torch.cat([_kv_rows(torch, pool_c, r, 32 + steps)
+             "kv": _bits(torch, torch.cat([_cache_rows(torch, pool_c, r, 32 + steps)
                                            for r in range(slots)]),
-                         torch.cat([_kv_rows(torch, pool_q, r, 32 + steps)
+                         torch.cat([_cache_rows(torch, pool_q, r, 32 + steps)
                                     for r in range(slots)])),
              "logits": _bits(torch, lg[0], lg[1])}
     chain["equal"] = all(v["equal"] for v in chain.values())
@@ -2587,6 +2645,254 @@ def new_archs_phase(torch, np, card):
     return res
 
 
+# --- 16. the last three families: whisper, phi-3-vision, jamba -----------------
+
+# decode attention (B, H, KH, D, S, dtype, valid_len: None = drawn in [1, S]):
+# phi-3-vision's decode (MHA, head size 96) over a 144-slot ring and a
+# 4,096-slot one, and whisper's cross-attention over its 1,500 encoder
+# positions, every one valid (MHA, head size 64)
+FAMILY_DECODE_SHAPES = [(8, 32, 32, 96, s, d, None) for s in (144, 4096)
+                        for d in ("float32", "bfloat16")] \
+    + [(8, 8, 8, 64, 1500, d, 1500) for d in ("float32", "bfloat16")]
+# arch: layers run in phase 16 (None: all); jamba's cut is one whole block of 8
+FAMILY_DEPTH = {"whisper-base": None, "phi-3-vision-4.2b": None, "jamba-v0.1-52b": 8}
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_STEPS, WHISPER_CHECK_STEP = 8, 8, 16, 8
+PHI3_ROWS, PHI3_TEXT, PHI3_STEPS = 2, 32, 16
+
+
+def family_kernel_rows(torch, F, np):
+    """Decode attention at the new families' shapes, held, timed and
+    bounded as phase 7 does."""
+    from repro_torch.kernels import decode_attention as kd
+
+    rng = np.random.default_rng(1616)
+    rows = [decode_row(torch, F, np, kd, rng, tuple(shape), valid)[0]
+            for *shape, valid in FAMILY_DECODE_SHAPES]
+    torch.cuda.synchronize()
+    report_decode_rows(rows)
+    return rows
+
+
+def family_model(torch, arch):
+    """(cfg, LM): the arch at full width, bf16, the weights of seed 0, at
+    FAMILY_DEPTH's depth."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import LM
+    from repro_torch.models.params import init_params
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    if FAMILY_DEPTH[arch]:
+        cfg = replace(cfg, n_layers=FAMILY_DEPTH[arch])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, LM(cfg, init_params(cfg, gen, dev, cfg.dtype))
+
+
+def _decode_swapped(attn, fn):
+    """fn() with ops.decode_attention replaced by attn."""
+    from repro_torch.kernels import ops
+
+    real = ops.decode_attention
+    ops.decode_attention = attn
+    try:
+        return fn()
+    finally:
+        ops.decode_attention = real
+
+
+def _teacher_forced(torch, model, toks, pos0, prefill):
+    """Logits [B, n, V] (fp32) of decoding the tokens toks[:, :n] in turn
+    after prefill() (cache, first logits): the decode loop fed the given
+    tokens."""
+    _, cache = prefill()
+    out = []
+    for i in range(toks.shape[1]):
+        logits, cache = model.decode(cache, toks[:, i:i + 1], pos0 + i)
+        out.append(logits.float())
+    return torch.cat(out, dim=1)
+
+
+def whisper_check(torch, np, cfg, model) -> dict:
+    """whisper-base through its model entry points: 8 rows of stub frames
+    [8, 1,500, 512] and 8-token prompts from a seed; prefill, then generate
+    16 tokens. Gates: decode attention launches = (6 self + 6 cross) x 15
+    decode steps; at step 8 every layer's kernel output within 3e-2 of the
+    plain version on its own inputs (the cross layers at valid_len =
+    1,500); the decode loop fed the generated tokens reproduces them; its
+    logits, with the kernel and with the plain version fed the same tokens,
+    within bf16's 3e-2. The plain version's own greedy run is compared with
+    the kernel's, and the agreement printed."""
+    from repro_torch import kernels
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WHISPER_ROWS, cfg.n_audio_ctx, cfg.d_model)).astype(np.float32)).to(dev, torch.bfloat16)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (WHISPER_ROWS, WHISPER_PROMPT))
+                              ).to(dev)
+    cache_len = WHISPER_PROMPT + WHISPER_STEPS
+
+    def prefill():
+        return model.prefill(prompt, cache_len=cache_len, audio_frames=frames)
+
+    def generate():
+        logits, cache = prefill()
+        return model.generate(cache, logits, WHISPER_PROMPT, steps=WHISPER_STEPS)
+
+    real, n_l = ops.decode_attention, n_attn_layers(cfg)
+    calls, rec = [0], []
+
+    def spy(q, k, v, vl):
+        out = real(q, k, v, vl)
+        if calls[0] // n_l == WHISPER_CHECK_STEP:
+            rec.append([t.clone() for t in (q, k, v, vl, out)])
+        calls[0] += 1
+        return out
+
+    generate()  # warm-up: cuBLAS handles, the allocator
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()               # whisper's main path starts here
+    t0 = time.perf_counter()
+    toks, cache = _decode_swapped(spy, generate)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()          # ... and ends here
+    steps = WHISPER_STEPS - 1
+    if toks.shape != (WHISPER_ROWS, WHISPER_STEPS) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab:
+        fail(f"whisper: generated tokens of shape {tuple(toks.shape)}")
+    if launches["decode_attention"] != n_l * steps or len(rec) != n_l:
+        fail(f"whisper: {launches['decode_attention']} decode attention launches for "
+             f"{steps} decode steps of {n_l} attention layers (self + cross)")
+    layer_err = []
+    for q, k, v, vl, out in rec:
+        want = kd.decode_attention_plain(q, k, v, vl)
+        layer_err.append(float((out.float() - want.float()).abs().max()))
+        if not torch.allclose(out.float(), want.float(), rtol=3e-2, atol=3e-2):
+            fail(f"whisper: a layer's decode attention differs from its plain version by "
+                 f"{layer_err[-1]:.3e} at step {WHISPER_CHECK_STEP} (S={k.shape[1]})")
+    # each layer calls self-attention, then cross-attention
+    qlen = WHISPER_PROMPT + WHISPER_CHECK_STEP + 1
+    vls = [r[3].tolist() for r in rec]
+    if vls != [[qlen] * WHISPER_ROWS, [cfg.n_audio_ctx] * WHISPER_ROWS] * cfg.n_layers:
+        fail(f"whisper: valid_len {vls} at step {WHISPER_CHECK_STEP}")
+    kern = _teacher_forced(torch, model, toks[:, :-1], WHISPER_PROMPT, prefill)
+    if not torch.equal(kern.argmax(-1), toks[:, 1:]):
+        fail("whisper: the decode loop fed the generated tokens does not reproduce them")
+    plain = _decode_swapped(kd.decode_attention_plain, lambda: _teacher_forced(
+        torch, model, toks[:, :-1], WHISPER_PROMPT, prefill))
+    diff = float((kern - plain).abs().max())
+    if not torch.allclose(kern, plain, rtol=3e-2, atol=3e-2):
+        fail(f"whisper: the kernel path's logits differ from the plain path's by {diff:.3e}")
+    plain_toks, _ = _decode_swapped(kd.decode_attention_plain, generate)
+    torch.cuda.synchronize()
+    return {"rows": WHISPER_ROWS, "frames": cfg.n_audio_ctx, "prompt": WHISPER_PROMPT,
+            "new_tokens": WHISPER_STEPS, "decode_steps": steps, "wall_s": wall,
+            "tokens_per_s": WHISPER_ROWS * WHISPER_STEPS / wall, "launches": launches,
+            "cache_bytes": tree_bytes(cache),
+            "layer_max_abs_err": max(layer_err), "logits_max_abs_diff": diff,
+            "teacher_forced_agree": float((plain.argmax(-1) == toks[:, 1:]).float().mean()),
+            "free_run_agree": float((plain_toks == toks).float().mean())}
+
+
+def phi3_image_check(torch, np, cfg, model) -> dict:
+    """phi-3-vision's image path: 2 rows of 576 stub patch embeddings in
+    place of the first 576 of 608 prompt tokens, prefill, then generate 16
+    tokens. Gates: tokens in the vocabulary, decode attention = 32 layers x
+    15 decode steps, the patch embeddings change the logits, and prefill
+    with pos_offset and img_embeds raises ValueError."""
+    from repro_torch import kernels
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    n = cfg.n_img_tokens + PHI3_TEXT
+    img = torch.from_numpy(rng.standard_normal(
+        (PHI3_ROWS, cfg.n_img_tokens, cfg.d_model)).astype(np.float32) * 0.02
+        ).to(dev, torch.bfloat16)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (PHI3_ROWS, n))).to(dev)
+    kernels.reset_launch_counts()               # the image path starts here
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(toks, cache_len=n + PHI3_STEPS, img_embeds=img)
+    out, cache = model.generate(cache, logits, n, steps=PHI3_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()          # ... and ends here
+    steps = PHI3_STEPS - 1
+    if out.shape != (PHI3_ROWS, PHI3_STEPS) or int(out.min()) < 0 or \
+            int(out.max()) >= cfg.vocab:
+        fail(f"phi-3-vision image path: tokens of shape {tuple(out.shape)}")
+    if launches["decode_attention"] != n_attn_layers(cfg) * steps:
+        fail(f"phi-3-vision image path: {launches['decode_attention']} decode attention "
+             f"launches for {steps} steps of {n_attn_layers(cfg)} layers")
+    text, _ = model.prefill(toks)
+    if torch.equal(text, logits):
+        fail("phi-3-vision image path: the patch embeddings did not change the logits")
+    try:
+        model.prefill(toks, pos_offset=torch.zeros(PHI3_ROWS, dtype=torch.long, device=dev),
+                      img_embeds=img)
+    except ValueError:
+        pass
+    else:
+        fail("phi-3-vision: prefill took pos_offset with img_embeds")
+    return {"rows": PHI3_ROWS, "img_tokens": cfg.n_img_tokens, "prompt": n,
+            "new_tokens": PHI3_STEPS, "wall_s": wall, "launches": launches,
+            "pos_offset_with_img_embeds_refused": True}
+
+
+def families_phase(torch, F, np, card):
+    """Phase 16: decode attention at the new families' shapes, then each
+    arch at full width with seeded bf16 weights: whisper through its model
+    entry points (whisper_check), phi-3-vision and jamba (8 of 32 layers:
+    one block of 1 attention, 7 SSM and 4 MoE layers) through PREBA's audio
+    serve (new_arch_serve) and the within-port contracts, phi-3-vision's
+    image path too; for each, one decode step at batch 8 over a 144-slot
+    ring (wall ms, device ms, launches)."""
+    res = {"card": card, "kernel_rows": family_kernel_rows(torch, F, np)}
+    dev = torch.device("cuda")
+    for arch in FAMILY_DEPTH:
+        t0 = time.perf_counter()
+        cfg, model = family_model(torch, arch)
+        torch.cuda.synchronize()
+        free, _ = torch.cuda.mem_get_info()
+        out = {"layers": cfg.n_layers, "weight_bytes": tree_bytes(model.tree()),
+               "free_bytes_after_weights": free, "init_s": time.perf_counter() - t0}
+        if cfg.enc_layers:
+            out["generate"] = whisper_check(torch, np, cfg, model)
+            run = out["generate"]
+        else:
+            out["serve"] = new_arch_serve(torch, np, cfg, model, f"{arch} audio path")
+            run = out["serve"]
+            run["cache_bytes"] = run["slot_pool_bytes"]
+            out["contracts"] = attn_contracts(torch, np, cfg, model, dev)
+            moe = cfg.n_experts > 0
+            for name, c in out["contracts"].items():
+                if not (moe and name == "join_equals_alone") and not c["equal"]:
+                    fail(f"{arch}: contract {name} does not hold on the card: {c}")
+            print(f"{arch} contracts: " + json.dumps(
+                {k: {"equal": v["equal"], **({"gated": False} if moe and k.startswith("join")
+                                              else {})}
+                 for k, v in out["contracts"].items()}))
+        if cfg.n_img_tokens:
+            out["image"] = phi3_image_check(torch, np, cfg, model)
+        out["decode_step"] = attn_decode_step_profile(torch, model)
+        st = out["decode_step"]
+        print(f"{arch} ({cfg.n_layers} layers, bf16): weights {out['weight_bytes']} bytes, "
+              f"{free} free after them, cache {run['cache_bytes']} bytes; "
+              f"{run['tokens_per_s']:.2f} tokens/s, {run['decode_steps']} decode steps, "
+              f"decode attention {run['launches']['decode_attention']} launches; decode step "
+              f"wall {st['wall_ms']:.3f} ms, device {st['device_ms_per_step']:.3f} ms, "
+              f"{st['kernel_launches_per_step']:.0f} launches")
+        print(f"{arch}: " + json.dumps(out))
+        res[arch] = out
+        del model
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -2664,15 +2970,24 @@ def main() -> int:
     # each arch's audio serve (the first five), then danube's window run
     new_runs = [new_stats[a]["serve"] for a in NEW_ARCH_DEPTH] + [
         new_stats[a]["window_wrap"] for a in NEW_ARCH_DEPTH if "window_wrap" in new_stats[a]]
+
+    # 16. the last three families: jamba, phi-3-vision, whisper, full width
+    family_stats = families_phase(torch, F, np, card)
+    decode_rows += family_stats["kernel_rows"]
+    family_serves = [family_stats[a]["serve"] for a in FAMILY_DEPTH
+                     if "serve" in family_stats[a]]
+    family_runs = family_serves + [family_stats[a][k] for a in FAMILY_DEPTH
+                                   for k in ("generate", "image") if k in family_stats[a]]
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
-                                                controller_stats, mt_stats, *new_runs[:5]))
+                                                controller_stats, mt_stats, *new_runs[:5],
+                                                *family_serves))
                               for k in ("audio_resample", "mel_spectrogram",
                                         "audio_normalize")}}
     decode_run = {"launches": {"decode_attention": sum(
         st["launches"]["decode_attention"]
         for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats,
-                   knee_stats, controller_stats, mt_stats, *new_runs))}}
+                   knee_stats, controller_stats, mt_stats, *new_runs, *family_runs))}}
 
     line = []
     for name, shape_rows, main_of, run in (
@@ -2713,7 +3028,9 @@ def main() -> int:
              "chunked_prefix_serve": chunk_stats, "decode_step": decode_step,
              "fleet": fleet_stats_, "chaos": chaos_stats, "knee": knee_stats,
              "controller": controller_stats, "two_model_fleet": mt_stats,
-             "new_archs": new_stats}, indent=1))
+             "new_archs": new_stats,
+             "families": {k: v for k, v in family_stats.items() if k != "kernel_rows"}},
+            indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

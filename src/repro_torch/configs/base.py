@@ -1,6 +1,7 @@
-"""Model configs and their registry: the dense, MoE and SSM families.
+"""Model configs and their registry: the dense, MoE, SSM, hybrid,
+encoder-decoder (audio) and vision-language families.
 
-Every served architecture is a ``ModelConfig`` registered under its id;
+Every architecture is a ``ModelConfig`` registered under its id;
 ``reduced()`` derives a CPU-testable config of the same family. The field
 names and the reduce rule are those of the JAX package's ``configs/base.py``,
 so a config built here names the same model there.
@@ -10,11 +11,13 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm (the families this package serves)
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +53,18 @@ class ModelConfig:
     ssm_chunk: int = 256
     ssm_ngroups: int = 1
 
+    # hybrid (jamba): attention on layers where idx % attn_every == attn_offset
+    attn_every: int = 0
+    attn_offset: int = 0
+
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    n_audio_ctx: int = 0
+    n_mels: int = 0
+
+    # vision-language (phi-3-vision)
+    n_img_tokens: int = 0
+
     # numerics
     dtype: str = "bfloat16"       # activation/compute dtype
     param_dtype: str = "float32"  # master params; serving casts to dtype
@@ -80,28 +95,33 @@ class ModelConfig:
 
     def layer_kinds(self) -> List[Tuple[str, str]]:
         """Per-layer (mixer, ffn) kinds: mixer in {attn, ssm}, ffn in {mlp,
-        moe, none}. The dense and MoE families are attention stacks (MoE on
-        the layers `first_k_dense`, `moe_every` and `moe_offset` pick); the
-        SSM family is ssm + none (the mamba2 backbone has no separate
-        FFN). The hybrid, audio and vlm families are not served yet."""
-        if self.family not in ("dense", "moe", "ssm"):
+        moe, none}. The SSM family is ssm + none (the mamba2 backbone has no
+        separate FFN); the hybrid family puts attention on the layers
+        `attn_every` and `attn_offset` pick and SSM on the rest; every
+        other family is an attention stack. MoE sits on the layers
+        `first_k_dense`, `moe_every` and `moe_offset` pick."""
+        if self.family not in FAMILIES:
             raise NotImplementedError(
-                f"{self.name}: family {self.family!r} is not served yet (the "
-                "hybrid, audio and vlm families: jamba, whisper, phi-3-vision)")
+                f"{self.name}: no family {self.family!r} (known: {FAMILIES})")
         kinds = []
         for i in range(self.n_layers):
             if self.family == "ssm":
                 kinds.append(("ssm", "none"))
-            elif (self.n_experts and i >= self.first_k_dense
-                  and i % self.moe_every == self.moe_offset):
-                kinds.append(("attn", "moe"))
+                continue
+            if self.family == "hybrid":
+                mixer = ("attn" if self.attn_every and i % self.attn_every == self.attn_offset
+                         else "ssm")
             else:
-                kinds.append(("attn", "mlp"))
+                mixer = "attn"
+            moe = (self.n_experts and i >= self.first_k_dense
+                   and i % self.moe_every == self.moe_offset)
+            kinds.append((mixer, "moe" if moe else "mlp"))
         return kinds
 
     def is_subquadratic(self) -> bool:
-        """True when long-context decode is in-family (SSM or a window)."""
-        return self.family == "ssm" or self.sliding_window > 0
+        """True when long-context decode is in-family (SSM, hybrid or a
+        window)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
 
     def param_count(self) -> int:
         """Parameter count: the leaves of the weight tree (embeddings
@@ -159,9 +179,9 @@ def list_archs() -> List[str]:
 
 def _default_reduce(cfg: ModelConfig) -> ModelConfig:
     """Family-preserving reduced config for CPU tests (the JAX package's
-    rule for the served families)."""
+    rule): a hybrid keeps 8 layers (one whole block of jamba's)."""
     changes = dict(
-        n_layers=min(cfg.n_layers, 4),
+        n_layers=min(cfg.n_layers, 4) if cfg.family != "hybrid" else 8,
         d_model=128,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else 4,
@@ -177,6 +197,10 @@ def _default_reduce(cfg: ModelConfig) -> ModelConfig:
         changes.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16)
     if cfg.sliding_window:
         changes.update(sliding_window=16)
+    if cfg.enc_layers:
+        changes.update(enc_layers=2, n_audio_ctx=24, n_mels=16)
+    if cfg.n_img_tokens:
+        changes.update(n_img_tokens=8)
     if cfg.first_k_dense:
         changes.update(first_k_dense=1)
     return replace(cfg, **changes)

@@ -34,13 +34,17 @@
 // The copies of q and of the block's first tile are issued before
 // valid_len is read, so the three device-memory latencies overlap.
 // Eight warps: warp w owns query heads w, w + 8, ... (tinyllama's G = 8: one
-// each) and upcasts their q once; a lane scores two keys of a head (fixed
-// summation order over D), max and sum are xor-butterfly reductions
-// (bitwise the same value in every lane), and a lane accumulates kCols
-// adjacent output columns over the tile's keys in order: D / 32 of them
-// when 32 divides D, else 4 (D = 80: lanes 0-19 own 4 columns each, lanes
-// 20-31 sit out the value loop; a lane's 4 columns are 16 bytes in fp32 and
-// 8 in bf16 from a row start on 16 bytes, so the loads stay aligned). After
+// each; at G = 1, the MHA of whisper and phi-3-vision, warp 0 alone scores
+// and the other seven only copy) and upcasts their q once; a lane scores
+// two keys of a head (fixed summation order over D), max and sum are
+// xor-butterfly reductions (bitwise the same value in every lane), and a
+// lane accumulates kCols adjacent output columns over the tile's keys in
+// order: 1, 2 or 4 of them (D = 32, 64, 128: every lane), and 4 at D = 80
+// and 96, where D / 32 is no power of two (lanes 0-19 and 0-23 own 4
+// columns each, the rest sit out the value loop). A lane's 4
+// columns are 16 bytes in fp32 and 8 in bf16 from a row start on 16 bytes,
+// so every load stays aligned and inside the lane's own columns; D / 32 = 3
+// columns at 96 would put a lane's loads off 16 bytes. After
 // cluster.sync() the blocks merge the partials through distributed shared
 // memory (mapa + ld.shared::cluster, all of a thread's remote reads in
 // flight at once), each a slice of the G x D outputs, in rank order; ranks
@@ -58,10 +62,11 @@
 // the value loop stops at the limit, so no value past it is read. That
 // keeps the serving engine's bit-exact contracts (padded == unpadded, a
 // request joining a pool == alone, chained segments == sequential decode).
-// Head sizes 32 (the reduced test models), 64, 80 (h2o-danube) and 128 are
-// compiled. A row of 80 is 10 bf16 or 20 fp32 16-byte copies, and a padded
-// ring row of 176 or 336 bytes keeps 8 lanes' 16-byte loads on distinct
-// banks.
+// Head sizes 32 (the reduced test models), 64, 80 (h2o-danube), 96
+// (phi-3-vision) and 128 are compiled. A row of 80 is 10 bf16 or 20 fp32
+// 16-byte copies, one of 96 12 or 24; a padded ring row of 176 or 336
+// bytes (D 80), 208 or 400 (D 96), an odd multiple of 16 bytes, keeps 8
+// lanes' 16-byte loads on distinct banks.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -189,10 +194,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kTileElems = kTile * kRow;
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte copy
   constexpr int kChunks = D / kPer;                        // 16-byte copies a row
-  // output columns a lane, and the lanes that own columns
-  constexpr int kCols = D % 32 == 0 ? D / 32 : 4;
+  // output columns a lane (a power of two, so a lane's loads stay aligned),
+  // and the lanes that own columns
+  constexpr int kCols = D == 32 ? 1 : D == 64 ? 2 : 4;
   constexpr int kColLanes = D / kCols;
-  static_assert(D % kPer == 0 && D % kCols == 0 && kColLanes <= 32, "head size");
+  // a padded row is an odd multiple of 16 bytes: 8 lanes' 16-byte loads of
+  // consecutive rows fall on distinct banks
+  static_assert(D % kPer == 0 && D % kCols == 0 && kColLanes <= 32 &&
+                    (kRow * sizeof(T)) % 32 == 16,
+                "head size");
   extern __shared__ float4 smem4[];
   T* ring = reinterpret_cast<T*>(smem4);
   T* qs = ring + kStages * 2 * kTileElems;
@@ -411,6 +421,7 @@ extern "C" int preba_decode_attention_smem_bytes(int d, int g, int bf16) {
   if (d == 32) return bf16 ? smem_bytes<__nv_bfloat16, 32>(g) : smem_bytes<float, 32>(g);
   if (d == 64) return bf16 ? smem_bytes<__nv_bfloat16, 64>(g) : smem_bytes<float, 64>(g);
   if (d == 80) return bf16 ? smem_bytes<__nv_bfloat16, 80>(g) : smem_bytes<float, 80>(g);
+  if (d == 96) return bf16 ? smem_bytes<__nv_bfloat16, 96>(g) : smem_bytes<float, 96>(g);
   if (d == 128) return bf16 ? smem_bytes<__nv_bfloat16, 128>(g) : smem_bytes<float, 128>(g);
   return -1;
 }
@@ -425,6 +436,8 @@ extern "C" int preba_decode_attention_max_clusters(int d, int g, int bf16, int k
     return bf16 ? max_clusters<__nv_bfloat16, 64>(g, kh, b) : max_clusters<float, 64>(g, kh, b);
   if (d == 80)
     return bf16 ? max_clusters<__nv_bfloat16, 80>(g, kh, b) : max_clusters<float, 80>(g, kh, b);
+  if (d == 96)
+    return bf16 ? max_clusters<__nv_bfloat16, 96>(g, kh, b) : max_clusters<float, 96>(g, kh, b);
   if (d == 128)
     return bf16 ? max_clusters<__nv_bfloat16, 128>(g, kh, b) : max_clusters<float, 128>(g, kh, b);
   return -static_cast<int>(cudaErrorInvalidValue);
@@ -432,7 +445,7 @@ extern "C" int preba_decode_attention_max_clusters(int d, int g, int bf16, int k
 
 // q [b, h, d], k/v [b, s, kh, d], valid_len [b] int32 -> out [b, h, d];
 // bf16 != 0 for bfloat16 tensors, else float32; all contiguous and 16-byte
-// aligned, h % kh == 0, d in {32, 64, 80, 128}. Launches a grid of (8 kh, b)
+// aligned, h % kh == 0, d in {32, 64, 80, 96, 128}. Launches a grid of (8 kh, b)
 // blocks in clusters of 8. Returns the cudaError_t of the launch.
 extern "C" int preba_decode_attention(const void* q, const void* k, const void* v,
                                       const int* valid_len, void* out, int b, int h,
@@ -450,6 +463,9 @@ extern "C" int preba_decode_attention(const void* q, const void* k, const void* 
   if (d == 80)
     return bf16 ? launch<__nv_bfloat16, 80>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
                 : launch<float, 80>(q, k, v, valid_len, out, b, h, kh, s, scale, st);
+  if (d == 96)
+    return bf16 ? launch<__nv_bfloat16, 96>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
+                : launch<float, 96>(q, k, v, valid_len, out, b, h, kh, s, scale, st);
   if (d == 128)
     return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
                 : launch<float, 128>(q, k, v, valid_len, out, b, h, kh, s, scale, st);

@@ -12,8 +12,8 @@ which replaces the TPU kernel
 src/repro/kernels/decode_attention.py::decode_attention_pallas: a cluster
 of 8 blocks per KV head and sequence splits S and merges in one launch); on
 a CPU tensor it runs the plain PyTorch version below. The kernel is
-compiled for the head sizes in HEAD_DIMS (80 is h2o-danube's); any other
-raises. `LAUNCHES` counts kernel launches.
+compiled for the head sizes in HEAD_DIMS (80 is h2o-danube's, 96
+phi-3-vision's); any other raises. `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 
 LAUNCHES = 0
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 
 
 def _scale(d: int) -> float:

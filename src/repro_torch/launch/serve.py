@@ -15,10 +15,12 @@ instances), or a multi-tenant fleet --tenants tinyllama-1.1b:2,mamba2-370m:2
 (model:slices asks, PREBA's two-family fleet: the attention LM and a Mamba2
 SSM behind one admission queue; a second tenant of the same arch is named
 arch@1). Every entry point serves every arch of SERVED_ARCHS: tinyllama-1.1b,
-mamba2-370m, h2o-danube-1.8b, granite-3-8b, yi-34b, mixtral-8x22b and
-moonshot-v1-16b-a3b (a sliding-window model's prompts stay within its
-window, which the slot pool's ring must hold). CPU run of the kernels'
-plain versions at a reduced size: --device cpu --reduced.
+mamba2-370m, h2o-danube-1.8b, granite-3-8b, yi-34b, mixtral-8x22b,
+moonshot-v1-16b-a3b, jamba-v0.1-52b and phi-3-vision-4.2b (a
+sliding-window model's prompts stay within its window, which the slot
+pool's ring must hold). whisper-base, an encoder-decoder whose prefill
+needs audio frames the engine does not carry, is refused by name. CPU run
+of the kernels' plain versions at a reduced size: --device cpu --reduced.
 
 The closed partition loop (PREBA's MIG lever): measure the knee profiles
 on the card once, then serve with the online partition controller, which
@@ -125,12 +127,26 @@ def _print_fleet(engine, tenanted: bool) -> None:
                   f"dead={ts['dead']} routed_to={ts['routed_to']}")
 
 
+def _servable(arch: str) -> str:
+    """--arch and --tenants: an arch of the package the engine cannot serve
+    (whisper-base) is refused here with the engine's reason."""
+    from repro_torch.configs import MODEL_ARCHS, get_config
+    from repro_torch.serving.engine import check_servable
+
+    if arch in MODEL_ARCHS:
+        try:
+            check_servable(get_config(arch))
+        except ValueError as e:
+            raise argparse.ArgumentTypeError(str(e)) from e
+    return arch
+
+
 def _parser() -> argparse.ArgumentParser:
     from repro_torch.configs import SERVED_ARCHS
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", choices=SERVED_ARCHS)
+    ap.add_argument("--arch", choices=SERVED_ARCHS, type=_servable)
     ap.add_argument("--tenants", default="",
                     help="comma-separated model:slices asks (e.g. "
                          "'tinyllama-1.1b:2,mamba2-370m:2'): a multi-tenant "
@@ -221,7 +237,10 @@ def _tenant_asks(ap, spec: str):
             ap.error(f"--tenants entries are model:slices (got {part!r})")
         if n < 1:
             ap.error(f"--tenants slice asks must be >= 1 (got {part!r})")
-        asks.append((arch.strip(), n))
+        try:
+            asks.append((_servable(arch.strip()), n))
+        except argparse.ArgumentTypeError as e:
+            ap.error(f"--tenants: {e}")
     if spec and not asks:
         ap.error("--tenants given but holds no model:slices entries")
     return asks

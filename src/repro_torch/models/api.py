@@ -1,6 +1,7 @@
-"""Public model API: the decoder of a served family (dense, MoE or SSM) as an
-`nn.Module` over the reference-layout weight tree, and the functions it
-serves with."""
+"""Public model API: the LM of any family (dense, MoE, SSM, the jamba
+hybrid, whisper's encoder-decoder, phi-3-vision's vision-language decoder)
+as an `nn.Module` over the reference-layout weight tree, and the functions
+it serves with."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -31,8 +32,11 @@ def _to_tree(mod: nn.Module) -> Dict[str, Any]:
 
 
 class LM(nn.Module):
-    """The decoder of a served family (`cfg.family`: dense, moe or ssm) for
-    serving. Its weights are registered as (frozen) parameters under the
+    """The LM of `cfg.family` (dense, moe, ssm, hybrid, audio or vlm) for
+    serving. An audio model (whisper) needs `audio_frames` [B, n_audio_ctx,
+    d_model] at prefill and is not served by the engine; a vlm takes
+    `img_embeds` [B, n_img_tokens, d_model] in place of its first token
+    embeddings (not with `pos_offset`). Its weights are registered as (frozen) parameters under the
     reference paths (`body.l0.mixer.wq`, `body.l0.mixer.in_xbc`, ...),
     so `state_dict()` keys read like the JAX package's tree; `tree()` hands
     the same tensors, uncopied, to the functions of `models.lm`."""
@@ -49,15 +53,19 @@ class LM(nn.Module):
         return self._tree
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, pos_offset=None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, pos_offset=None, *, img_embeds=None,
+                audio_frames=None) -> torch.Tensor:
         """Last-position prefill logits [B, 1, V] of a (left-padded) batch."""
-        logits, _ = lm.prefill(self.tree(), tokens, self.cfg, pos_offset=pos_offset)
+        logits, _ = lm.prefill(self.tree(), tokens, self.cfg, pos_offset=pos_offset,
+                               img_embeds=img_embeds, audio_frames=audio_frames)
         return logits
 
     @torch.no_grad()
-    def prefill(self, tokens, *, pos_offset=None, cache_len=None):
+    def prefill(self, tokens, *, pos_offset=None, cache_len=None, img_embeds=None,
+                audio_frames=None):
         return lm.prefill(self.tree(), tokens, self.cfg, pos_offset=pos_offset,
-                          cache_len=cache_len)
+                          cache_len=cache_len, img_embeds=img_embeds,
+                          audio_frames=audio_frames)
 
     @torch.no_grad()
     def decode(self, cache, tokens, pos, *, pos_offset=None):

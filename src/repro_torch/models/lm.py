@@ -1,5 +1,5 @@
-"""The decoder LM of the served families, serving half: prefill, decode
-(every attention step through the flash-decode kernel), run-to-completion
+"""The LM of every family, serving half: prefill, decode (every self- and
+cross-attention step through the flash-decode kernel), run-to-completion
 generate, chunked prefill, and the slot pool of continuous batching.
 
 Plain functions over a parameter tree laid out as the JAX package lays it
@@ -9,13 +9,21 @@ each leaf stacked over the blocks of `params.block_period` layers; GQA heads
 factored as [kv_heads, q_per_kv, head_dim] (``wq [d, kh, g, hd]``,
 ``wk``/``wv [d, kh, hd]``, ``wo [kh, g, hd, d]`` a layer). Each layer is a
 (mixer, ffn) pair of its kind (`cfg.layer_kinds()`): attention + MLP for
-the dense family, attention + MLP or MoE for the MoE family, a Mamba2 SSM
-block and no FFN for the SSM family. Caches mirror the tree: an attention
-layer's ``["mixer"]["k"|"v"]`` is ``[B, ring, kh, hd]`` (with a leading
-block axis under ``body``); an SSM layer's ``["conv"]`` is ``[B, k-1,
-conv_dim]`` (the last k-1 pre-conv inputs, in the activation dtype) and
-``["state"]`` ``[B, h, p, n]`` (fp32 whatever the activation dtype). A
-ring is ``min(sliding_window, cache_len)`` slots (`ring_len`).
+the dense family (and the decoders of whisper and phi-3-vision), attention
++ MLP or MoE for the MoE family, a Mamba2 SSM block and no FFN for the SSM
+family, and for the hybrid (jamba) one attention layer and seven SSM
+layers a block of 8, MoE on every other one. An encoder-decoder (whisper)
+runs its encoder over `audio_frames` first (`encode_audio`) and gives every
+decoder layer a cross-attention sublayer between the mixer and the ffn; a
+vision-language model (phi-3-vision) takes `img_embeds` in place of its
+first `n_img_tokens` token embeddings. Caches mirror the tree: an
+attention layer's ``["mixer"]["k"|"v"]`` is ``[B, ring, kh, hd]`` (with a
+leading block axis under ``body``); an SSM layer's ``["conv"]`` is ``[B,
+k-1, conv_dim]`` (the last k-1 pre-conv inputs, in the activation dtype)
+and ``["state"]`` ``[B, h, p, n]`` (fp32 whatever the activation dtype); a
+cross-attention layer's ``["xattn"]["ck"|"cv"]`` is ``[B, n_audio_ctx,
+kh, hd]``, written by prefill and only read by decode. A ring is
+``min(sliding_window, cache_len)`` slots (`ring_len`).
 
 Where the JAX functions return a new cache, these update the cache (the
 slot pool) in place and return it — the same values, without a copy of the
@@ -99,15 +107,17 @@ def _kv_leaves(cache: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
     return m["k"], m["v"]
 
 
-def _qkv(x: torch.Tensor, p: Tree):
-    """x: [B, S, D] -> q [B, S, kh, g, hd], k/v [B, S, kh, hd]."""
+def _qkv(x: torch.Tensor, p: Tree, kv_x: Optional[torch.Tensor] = None):
+    """x: [B, S, D] -> q [B, S, kh, g, hd], k/v [B, Skv, kh, hd], the keys
+    and values from kv_x [B, Skv, D] (cross-attention) or from x."""
     B, S, D = x.shape
     dt = x.dtype
     wq = p["wq"].to(dt)
     kh, g, hd = wq.shape[1:]
+    src = x if kv_x is None else kv_x
     q = (x @ wq.reshape(D, -1)).view(B, S, kh, g, hd)
-    k = (x @ p["wk"].to(dt).reshape(D, -1)).view(B, S, kh, hd)
-    v = (x @ p["wv"].to(dt).reshape(D, -1)).view(B, S, kh, hd)
+    k = (src @ p["wk"].to(dt).reshape(D, -1)).view(B, src.shape[1], kh, hd)
+    v = (src @ p["wv"].to(dt).reshape(D, -1)).view(B, src.shape[1], kh, hd)
     return q, k, v
 
 
@@ -129,9 +139,12 @@ def _rope4(q: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int, pos_offset=None):
-    """Causal self-attention sublayer over a full prompt (the window mask
-    with a sliding window), emitting its cache.
+def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int = 0, pos_offset=None,
+                  causal: bool = True, window: int = 0, make_cache: bool = True):
+    """Self-attention sublayer over a full sequence: causal (with the window
+    mask when `window` is set) for a decoder, emitting its cache; not
+    causal and without a cache for whisper's encoder (RoPE at positions
+    0..S-1 all the same).
 
     pos_offset: [B] left-pad amounts for ragged serving batches — row b's
     token at padded index j has true position j - pos_offset[b]; negative
@@ -142,7 +155,7 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int, pos_offset=None):
     and the shifted tensors double as the emitted cache. A window ring
     shorter than the prompt keeps the last ring keys at slots pos % ring,
     and refuses pos_offset, as the JAX package does.
-    Returns (out [B, S, D], {"k", "v"} [B, ring, kh, hd])."""
+    Returns (out [B, S, D], {"k", "v"} [B, ring, kh, hd] or None)."""
     B, S, _ = x.shape
     q, k, v = _qkv(x, p)
     s_idx = torch.arange(S, device=x.device)
@@ -163,8 +176,10 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int, pos_offset=None):
         kpos = torch.where(gi < S, s_idx[None, :], torch.full_like(gi, -1))
     kh, g, hd = q.shape[2:]
     o = L.attention(q.reshape(B, S, kh * g, hd), k, v, qpos, kpos,
-                    causal=True, window=cfg.sliding_window)
+                    causal=causal, window=window)
     out = _out(o.reshape(B, S, kh, g, hd), p["wo"])
+    if not make_cache:
+        return out, None
     wc = ring_len(cfg, cache_len)
     if wc >= S:
         # decode headroom: slots S..wc-1 stay empty (masked until decode writes)
@@ -186,11 +201,52 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int, pos_offset=None):
     return out, cache
 
 
+def _xattn_forward(x, p, enc: torch.Tensor, *, pos_offset=None):
+    """Cross-attention sublayer over the encoder output enc [B, Sa, D]: no
+    RoPE on either side and no causal mask, so every query sees every
+    encoder position; a left-pad query (negative true position) is fully
+    masked and emits 0. Returns (out [B, S, D], {"ck", "cv"} [B, Sa, kh,
+    hd]), the keys and values every decode step attends."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, p, enc)
+    qpos = torch.arange(S, device=x.device)
+    if pos_offset is not None:
+        qpos = qpos[None, :] - pos_offset.to(device=x.device, dtype=torch.int64)[:, None]
+    kpos = torch.arange(k.shape[1], device=x.device)
+    kh, g, hd = q.shape[2:]
+    o = L.attention(q.reshape(B, S, kh * g, hd), k, v, qpos, kpos, causal=False, window=0)
+    return _out(o.reshape(B, S, kh, g, hd), p["wo"]), {"ck": k, "cv": v}
+
+
+def encode_audio(params: Tree, audio_frames: Optional[torch.Tensor],
+                 cfg: ModelConfig) -> torch.Tensor:
+    """whisper's encoder over audio_frames [B, n_audio_ctx, d_model] (stub
+    frame embeddings, after the conv front end): per layer a non-causal
+    self-attention roped at positions 0..n_audio_ctx-1 and an MLP, then a
+    final RMSNorm. Returns [B, n_audio_ctx, d_model] in the activation
+    dtype."""
+    if audio_frames is None:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its prefill needs audio_frames "
+            f"[B, {cfg.n_audio_ctx}, {cfg.d_model}] (LM.prefill(..., audio_frames=))")
+    enc = params["encoder"]
+    x = audio_frames.to(device=enc["ln"].device, dtype=_dtype(cfg))
+    for i in range(cfg.enc_layers):
+        bp = _layer(enc["blocks"], i)
+        h = L.rmsnorm(x, bp["mixer"]["ln"], cfg.norm_eps)
+        o, _ = _attn_forward(h, bp["mixer"], cfg, causal=False, make_cache=False)
+        x = x + o
+        h = L.rmsnorm(x, bp["ffn"]["ln"], cfg.norm_eps)
+        x = x + L.mlp(h, bp["ffn"])
+    return L.rmsnorm(x, enc["ln"], cfg.norm_eps)
+
+
 def _mixer_forward(h, p, cfg: ModelConfig, mixer: str, *, cache_len: int,
                    pos_offset=None):
     """One layer's mixer over a full prompt: (out [B, S, D], cache entry)."""
     if mixer == "attn":
-        return _attn_forward(h, p, cfg, cache_len=cache_len, pos_offset=pos_offset)
+        return _attn_forward(h, p, cfg, cache_len=cache_len, pos_offset=pos_offset,
+                             window=cfg.sliding_window)
     o, (conv_tail, fstate) = L.ssm_block(h, p, cfg, return_state=True,
                                          pos_offset=pos_offset)
     return o, {"conv": conv_tail, "state": fstate}
@@ -209,26 +265,47 @@ def _ffn(x, sub: Tree, cfg: ModelConfig, ffn: str) -> torch.Tensor:
 
 
 def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
-            cache_len: int, pos_offset=None) -> Tuple[torch.Tensor, Tree]:
+            cache_len: int, pos_offset=None, img_embeds=None,
+            audio_frames=None) -> Tuple[torch.Tensor, Tree]:
     """Prefill forward: (final hidden [B, S, D], cache tree).
 
     pos_offset: optional [B] left-pad amounts (bucketed serving): row b's
     first pos_offset[b] token slots are padding. Their embeddings are zeroed
     and they are masked out of attention and SSM state, so each row
-    computes what it would at its true length."""
+    computes what it would at its true length.
+    img_embeds: [B, n_img_tokens, D] patch embeddings that replace the
+    first n_img_tokens token embeddings (a vlm); refused with pos_offset,
+    whose left-pad mask would zero them, as the JAX package refuses it.
+    audio_frames: [B, n_audio_ctx, D], the encoder's input (an
+    encoder-decoder needs it)."""
+    if pos_offset is not None and cfg.n_img_tokens and img_embeds is not None:
+        raise ValueError(
+            "pos_offset (left-padded bucketing) is not supported with image "
+            "prefixes: the left-pad mask would zero the leading img_embeds "
+            "slots. Pad such batches on the right by length bucket instead.")
     dt = _dtype(cfg)
     x = params["embed"][tokens].to(dt)
+    if cfg.n_img_tokens and img_embeds is not None:
+        x = torch.cat([img_embeds.to(device=x.device, dtype=dt),
+                       x[:, cfg.n_img_tokens:]], dim=1)
     if pos_offset is not None:
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  >= pos_offset.to(x.device)[:, None])
         x = x * valid[..., None].to(dt)
+    enc = encode_audio(params, audio_frames, cfg) if cfg.enc_layers else None
     entries = []
     for (mixer, ffn), sub in zip(cfg.layer_kinds(), _layers(cfg, params)):
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
         o, c = _mixer_forward(h, sub["mixer"], cfg, mixer, cache_len=cache_len,
                               pos_offset=pos_offset)
-        x = _ffn(x + o, sub, cfg, ffn)
-        entries.append({"mixer": c})
+        x = x + o
+        entry = {"mixer": c}
+        if enc is not None:
+            h = L.rmsnorm(x, sub["xattn"]["ln"], cfg.norm_eps)
+            o, entry["xattn"] = _xattn_forward(h, sub["xattn"], enc, pos_offset=pos_offset)
+            x = x + o
+        x = _ffn(x, sub, cfg, ffn)
+        entries.append(entry)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return x, _assemble(cfg, entries)
 
@@ -242,12 +319,15 @@ def logits_from_hidden(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch
 
 
 def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
-            pos_offset=None, cache_len: Optional[int] = None):
+            img_embeds=None, audio_frames=None, pos_offset=None,
+            cache_len: Optional[int] = None):
     """Full-sequence prefill. Returns (last-position logits [B, 1, V], cache).
-    cache_len: KV slots to allocate (defaults to the prompt length)."""
+    cache_len: KV slots to allocate (defaults to the prompt length);
+    img_embeds, audio_frames: see `forward`."""
     x, cache = forward(params, tokens, cfg,
                        cache_len=tokens.shape[1] if cache_len is None else cache_len,
-                       pos_offset=pos_offset)
+                       pos_offset=pos_offset, img_embeds=img_embeds,
+                       audio_frames=audio_frames)
     return logits_from_hidden(params, x[:, -1:], cfg), cache
 
 
@@ -303,37 +383,63 @@ def _attn_decode(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
     return _out(o.reshape(B, 1, kh, g, hd), p["wo"])
 
 
+def _xattn_decode(x, p, ck: torch.Tensor, cv: torch.Tensor,
+                  valid_len: torch.Tensor) -> torch.Tensor:
+    """Single-token cross-attention over the encoder keys and values ck/cv
+    [B, n_audio_ctx, kh, hd], read only: the JAX package attends every
+    encoder position with no mask and no RoPE, which is the flash-decode
+    kernel's `pos < valid_len` with valid_len = n_audio_ctx on every
+    row."""
+    B, _, D = x.shape
+    wq = p["wq"].to(x.dtype)
+    kh, g, hd = wq.shape[1:]
+    q = (x @ wq.reshape(D, -1)).view(B, kh * g, hd)
+    o = ops.decode_attention(q, ck, cv, valid_len)
+    return _out(o.reshape(B, 1, kh, g, hd), p["wo"])
+
+
 def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
            cfg: ModelConfig, *, pos_offset=None):
     """One decode step. tokens: [B, 1]; pos: the padded write position;
     pos_offset: optional [B] (row b's true position is pos - pos_offset[b]).
     Returns (logits [B, 1, V], cache) — the cache updated in place. An SSM
     layer reads neither position: its step advances each row's conv tail
-    and state."""
+    and state. A cross-attention sublayer reads its encoder keys and
+    values and writes nothing."""
     dt = _dtype(cfg)
     x = params["embed"][tokens].to(dt)
+    B = x.shape[0]
     kinds = cfg.layer_kinds()
-    caches = [c["mixer"] for c in _layers(cfg, cache)]
-    valid_len = None
-    attn = [c for (m, _), c in zip(kinds, caches) if m == "attn"]
+    caches = _layers(cfg, cache)
+    valid_len = xvalid = None
+    attn = [c["mixer"] for (m, _), c in zip(kinds, caches) if m == "attn"]
     if attn:
-        B, wc = x.shape[0], attn[0]["k"].shape[1]
+        wc = attn[0]["k"].shape[1]
         if pos_offset is None:
             qpos = torch.full((B,), pos, dtype=torch.int64, device=x.device)
         else:
             qpos = pos - pos_offset.to(device=x.device, dtype=torch.int64)
         valid_len = torch.clamp(qpos + 1, 0, wc).to(torch.int32)  # the ring's valid prefix
+    if cfg.enc_layers:  # every encoder position, every row
+        xvalid = torch.full((B,), caches[0]["xattn"]["ck"].shape[1], dtype=torch.int32,
+                            device=x.device)
     for (mixer, ffn), sub, c in zip(kinds, _layers(cfg, params), caches):
+        m = c["mixer"]
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
         if mixer == "attn":
-            o = _attn_decode(h, sub["mixer"], cfg, c["k"], c["v"], pos, pos_offset,
+            o = _attn_decode(h, sub["mixer"], cfg, m["k"], m["v"], pos, pos_offset,
                              valid_len)
         else:
-            o, (conv, state) = L.ssm_block_decode(h, sub["mixer"], cfg, c["conv"],
-                                                  c["state"])
-            c["conv"].copy_(conv)
-            c["state"].copy_(state)
-        x = _ffn(x + o, sub, cfg, ffn)
+            o, (conv, state) = L.ssm_block_decode(h, sub["mixer"], cfg, m["conv"],
+                                                  m["state"])
+            m["conv"].copy_(conv)
+            m["state"].copy_(state)
+        x = x + o
+        if "xattn" in sub:
+            h = L.rmsnorm(x, sub["xattn"]["ln"], cfg.norm_eps)
+            x = x + _xattn_decode(h, sub["xattn"], c["xattn"]["ck"], c["xattn"]["cv"],
+                                  xvalid)
+        x = _ffn(x, sub, cfg, ffn)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return logits_from_hidden(params, x, cfg), cache
 
@@ -378,17 +484,22 @@ def decode_segment(params: Tree, cache: Tree, tok: torch.Tensor, pos0: int,
 def _cache_entry(cfg: ModelConfig, mixer: str, max_slots: int, cache_len: int,
                  device) -> Tree:
     """One layer's zero slot-pool entry."""
+    kv = (cfg.n_kv_heads, cfg.hd)
     if mixer == "attn":
-        shape = (max_slots, ring_len(cfg, cache_len), cfg.n_kv_heads, cfg.hd)
-        leaves = {"k": (shape, _dtype(cfg)), "v": (shape, _dtype(cfg))}
+        shape = (max_slots, ring_len(cfg, cache_len), *kv)
+        leaves = {"mixer": {"k": (shape, _dtype(cfg)), "v": (shape, _dtype(cfg))}}
     else:
-        leaves = {
+        leaves = {"mixer": {
             "conv": ((max_slots, cfg.ssm_conv - 1, cfg.conv_dim), _dtype(cfg)),
             "state": ((max_slots, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
                       torch.float32),
-        }
-    return {"mixer": {k: torch.zeros(shape, dtype=dt, device=device)
-                      for k, (shape, dt) in leaves.items()}}
+        }}
+    if cfg.enc_layers:
+        shape = (max_slots, cfg.n_audio_ctx, *kv)
+        leaves["xattn"] = {"ck": (shape, _dtype(cfg)), "cv": (shape, _dtype(cfg))}
+    return {sub: {k: torch.zeros(shape, dtype=dt, device=device)
+                  for k, (shape, dt) in entry.items()}
+            for sub, entry in leaves.items()}
 
 
 def alloc_slot_pool(cfg: ModelConfig, max_slots: int, cache_len: int,
@@ -396,8 +507,9 @@ def alloc_slot_pool(cfg: ModelConfig, max_slots: int, cache_len: int,
     """Zero-initialized slot-pool cache tree, laid out as a prefill cache:
     per attention layer K/V rings [max_slots, ring, kh, hd]; per SSM layer
     the conv tail [max_slots, k-1, conv_dim] in the activation dtype and
-    the state [max_slots, h, p, n] in fp32; body leaves with a leading
-    block axis."""
+    the state [max_slots, h, p, n] in fp32; per cross-attention sublayer
+    the encoder K/V [max_slots, n_audio_ctx, kh, hd]; body leaves with a
+    leading block axis."""
     return _assemble(cfg, [_cache_entry(cfg, m, max_slots, cache_len, device)
                            for m, _ in cfg.layer_kinds()])
 
@@ -437,8 +549,8 @@ def scatter_into_slots(pool: Tree, prefill_cache: Tree, slot_ids: torch.Tensor,
     prefill cache is already true-position indexed, and its ring must hold
     the whole bucket); an SSM conv tail or state is a plain row copy, so
     every admission overwrites the whole row and a reused slot inherits
-    nothing. The clock does not enter: placement is true-position
-    indexed."""
+    nothing; so is a cross-attention layer's encoder K/V. The clock does
+    not enter: placement is true-position indexed."""
     del clock
     any_leaf = next(iter(pool["body"]["l0"]["mixer"].values()))
     slot_ids = slot_ids.to(any_leaf.device)
@@ -490,13 +602,15 @@ def scatter_prefix_into_slots(pool: Tree, prefix_cache: Tree, slot_ids: torch.Te
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """Chunked prefill serves pure attention+MLP stacks with no sliding
-    window, as in the JAX package: a ring smaller than the prompt cannot
-    hold the chunk history, and an MoE layer's expert capacity counts the
-    whole prefill's tokens, so chunking would change which tokens drop.
-    The others admit monolithically."""
-    return cfg.sliding_window == 0 and all(
-        m == "attn" and f == "mlp" for m, f in cfg.layer_kinds())
+    """Chunked prefill serves pure attention+MLP decoder stacks with no
+    sliding window and no non-token context, as in the JAX package: a ring
+    smaller than the prompt cannot hold the chunk history, an MoE layer's
+    expert capacity counts the whole prefill's tokens, so chunking would
+    change which tokens drop, an SSM has no chunk-resume path, and an
+    encoder's output or an image prefix precedes the prompt. The others
+    admit monolithically."""
+    return (cfg.enc_layers == 0 and cfg.sliding_window == 0 and cfg.n_img_tokens == 0
+            and all(m == "attn" and f == "mlp" for m, f in cfg.layer_kinds()))
 
 
 def _attn_chunk(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,

@@ -1,4 +1,4 @@
-"""The served families' weights: their layout, a seeded init, and the
+"""The weights of every family: their layout, a seeded init, and the
 bridge from the JAX package's parameter tree.
 
 The tree is the JAX package's (`lm.model_defs` there), leaf by leaf:
@@ -6,15 +6,19 @@ The tree is the JAX package's (`lm.model_defs` there), leaf by leaf:
 (absent with tied embeddings), the unstacked leading layers under
 ``prefix.l{i}`` (moonshot's `first_k_dense` dense layer) and the rest under
 ``body.l{j}``, each leaf stacked over the blocks of `block_period(cfg)`
-layers (period 1 for every served family: one block a layer, all under
-``body.l0``). A layer is the mixer and the ffn of its kind:
-``mixer.{ln, wq, wk, wv, wo}`` for attention, ``mixer.{ln, in_z, in_xbc,
-in_dt, conv_w, conv_b, dt_bias, A_log, D, norm_w, out_proj}`` for the SSM
-(no ffn), ``ffn.{ln, wi_gate, wi_up, wo}`` for the MLP, and for MoE
-``ffn.{ln, router [d, E], wi_gate/wi_up [E, d, f], wo [E, f, d]}`` plus
-``ffn.shared.{wi_gate, wi_up, wo}`` with shared experts. Same paths and
-shapes on both sides is what lets `from_reference` carry weights across by
-path.
+layers (1 for the dense and SSM families, the MoE stride for mixtral's and
+moonshot's every-layer MoE, 8 for jamba: one attention layer and seven SSM
+layers, MoE on every other one). A layer is the mixer and the ffn of its
+kind: ``mixer.{ln, wq, wk, wv, wo}`` for attention, ``mixer.{ln, in_z,
+in_xbc, in_dt, conv_w, conv_b, dt_bias, A_log, D, norm_w, out_proj}`` for
+the SSM (no ffn in the SSM family), ``ffn.{ln, wi_gate, wi_up, wo}`` for
+the MLP, and for MoE ``ffn.{ln, router [d, E], wi_gate/wi_up [E, d, f],
+wo [E, f, d]}`` plus ``ffn.shared.{wi_gate, wi_up, wo}`` with shared
+experts. An encoder-decoder (whisper) adds to every decoder layer the
+cross-attention ``xattn.{ln, wq, wk, wv, wo}`` and the encoder
+``encoder.blocks.{mixer, ffn}`` (attention and MLP, stacked over
+`enc_layers`) and ``encoder.ln``. Same paths and shapes on both sides is
+what lets `from_reference` carry weights across by path.
 """
 from __future__ import annotations
 
@@ -110,13 +114,19 @@ def _stack(tree: Tree, n: int) -> Tree:
 
 def block_period(cfg: ModelConfig) -> int:
     """Layers a stacked body block holds: the period of the layer-kind
-    pattern past the prefix (the MoE stride; 1 for every served arch)."""
-    return cfg.moe_every if cfg.n_experts and cfg.moe_every > 1 else 1
+    pattern past the prefix, the lcm of the hybrid's attention stride and
+    the MoE stride."""
+    p = cfg.attn_every if cfg.family == "hybrid" and cfg.attn_every else 1
+    if cfg.n_experts and cfg.moe_every > 1:
+        p = math.lcm(p, cfg.moe_every)
+    return p
 
 
 def _sublayer_defs(cfg: ModelConfig, kind: Tuple[str, str]) -> Tree:
     mixer, ffn = kind
     sub: Tree = {"mixer": _attn_defs(cfg) if mixer == "attn" else _ssm_defs(cfg)}
+    if cfg.enc_layers:
+        sub["xattn"] = _attn_defs(cfg)
     if ffn == "mlp":
         sub["ffn"] = _mlp_defs(cfg)
     elif ffn == "moe":
@@ -125,9 +135,9 @@ def _sublayer_defs(cfg: ModelConfig, kind: Tuple[str, str]) -> Tree:
 
 
 def model_defs(cfg: ModelConfig) -> Tree:
-    """Shapes and init kinds of every leaf (the JAX package's model_defs
-    for the served families): the `first_k_dense` prefix layers unstacked,
-    then one stacked block of `block_period` layers."""
+    """Shapes and init kinds of every leaf (the JAX package's model_defs):
+    the `first_k_dense` prefix layers unstacked, then one stacked block of
+    `block_period` layers, and an encoder-decoder's encoder."""
     kinds = cfg.layer_kinds()
     p, npre = block_period(cfg), cfg.first_k_dense
     body_kinds = kinds[npre:]
@@ -145,6 +155,12 @@ def model_defs(cfg: ModelConfig) -> Tree:
         defs["prefix"] = {f"l{i}": _sublayer_defs(cfg, kinds[i]) for i in range(npre)}
     block = {f"l{i}": _sublayer_defs(cfg, k) for i, k in enumerate(body_kinds[:p])}
     defs["body"] = _stack(block, len(body_kinds) // p)
+    if cfg.enc_layers:
+        defs["encoder"] = {
+            "blocks": _stack({"mixer": _attn_defs(cfg), "ffn": _mlp_defs(cfg)},
+                             cfg.enc_layers),
+            "ln": ParamDef((d,), "ones"),
+        }
     return defs
 
 
@@ -193,7 +209,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
     """Seeded weights with the JAX package's shapes and init rules:
     normal(0, 1) * scale, zeros and ones where it has them, and its dt_bias
     and A_log draws. Leaves are drawn in sorted path order from
-    `generator`, which must live on `device`. Torch's generator is not
+    `generator`, which must live on `device`, each in fp32 and cast to
+    `dtype` before the next is drawn: the peak is the tree in `dtype` and
+    one leaf in fp32 (jamba's 8-layer block is ~26.5 GB in bf16, its
+    largest leaf 3.8 GB in fp32). Torch's generator is not
     JAX's, so the values differ from the reference's; a comparison carries
     the reference's own weights with `from_reference`."""
     dt = _dtype(dtype)

@@ -202,6 +202,20 @@ def _map_tree(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Refuse, before anything is built or admitted, a model the engine
+    cannot serve: an encoder-decoder (whisper), whose prefill needs
+    `audio_frames`, which no admission path carries. The JAX package's
+    engine fails on it too, inside prefill_into_slots (its encoder reads
+    audio_frames=None); the port runs it through the model entry points."""
+    if cfg.enc_layers:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its prefill needs audio_frames "
+            f"[B, {cfg.n_audio_ctx}, {cfg.d_model}], which the serving engine's "
+            "admission does not carry; run it through repro_torch.models.api.LM "
+            "(prefill(..., audio_frames=), decode, generate)")
+
+
 class ServingEngine:
     """Single-slice engine: enqueue requests, run_until_idle() drains them
     through dynamic batching -> prefill -> decode (run-to-completion
@@ -236,6 +250,7 @@ class ServingEngine:
                  slice_id: Optional[int] = None,
                  tenant: Optional[str] = None,
                  stream: Optional[torch.cuda.Stream] = None):
+        check_servable(cfg)
         ec = EngineConfig() if ec is None else ec
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -977,6 +992,7 @@ def build_engine(cfg: ModelConfig, *, seed: int = 0, ec: Optional[EngineConfig] 
     seeded ones from `seed`, in cfg.dtype, on `device`."""
     from repro_torch.core.batching import analytical_knee, derive_policy, kv_bytes_per_token
 
+    check_servable(cfg)
     ec = EngineConfig() if ec is None else ec
     dev = resolve_device(device)
     if params is None:

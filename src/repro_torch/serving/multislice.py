@@ -1148,11 +1148,13 @@ def _seeded_params(cfg: ModelConfig, seed: int, dev: torch.device):
 
 
 def _check_served(cfg: ModelConfig) -> None:
-    """Tenants are models of a served arch (SERVED_ARCHS: the dense, MoE
-    and SSM families), each fleet tenant of its own; anything else (jamba,
-    whisper, phi-3-vision) raises."""
+    """Tenants are models of a served arch (SERVED_ARCHS: every arch but
+    whisper's encoder-decoder), each fleet tenant of its own; anything else
+    raises."""
     from repro_torch.configs import SERVED_ARCHS
+    from repro_torch.serving.engine import check_servable
 
+    check_servable(cfg)
     base = cfg.name[:-len("-reduced")] if cfg.name.endswith("-reduced") else cfg.name
     if base not in SERVED_ARCHS:
         raise ValueError(

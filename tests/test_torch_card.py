@@ -402,7 +402,9 @@ def test_image_wrappers_refuse_bad_inputs_on_card(cuda):
 
 DECODE_SHAPES = [(2, 8, 4, 64, 512), (1, 7, 7, 128, 300), (4, 16, 16, 64, 1024),
                  (8, 32, 4, 64, 144), (8, 32, 4, 64, 2048), (4, 4, 2, 32, 74),
-                 (8, 32, 8, 80, 4096), (3, 12, 3, 80, 300)]  # h2o-danube's head size 80
+                 (8, 32, 8, 80, 4096), (3, 12, 3, 80, 300),  # h2o-danube's head size 80
+                 (8, 32, 32, 96, 144), (8, 32, 32, 96, 4096),  # phi-3-vision's: D 96, G 1
+                 (3, 12, 4, 96, 300), (8, 8, 8, 64, 1500)]  # whisper's cross-attention
 
 
 def _decode_inputs(shape, dtype, device, seed, valid=None):
@@ -442,6 +444,18 @@ def test_decode_attention_zero_valid_length_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_whisper_cross_shape_on_card(cuda, dtype):
+    """whisper's cross-attention decode: B 8, H 8, KH 8 (one query head a KV
+    head), D 64, every one of the 1,500 encoder positions valid."""
+    q, k, v, vl = _decode_inputs((8, 8, 8, 64, 1500), dtype, cuda, seed=15, valid=[1500] * 8)
+    got = decode_attention.decode_attention_kernel(q, k, v, vl)
+    want = decode_attention.decode_attention_plain(q, k, v, vl)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
 def test_decode_attention_ignores_positions_past_valid_length_on_card(cuda):
     """A row's result depends on its valid prefix only: other values past
     valid_len, or a longer S, change no bit."""
@@ -461,7 +475,7 @@ BOUNDARY_VALID = (1, 63, 64, 65, 511, 512, 513)  # tiles of 64, cluster rounds o
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("s", [74, 2049])
 def test_decode_attention_at_tile_and_cluster_boundaries_on_card(cuda, s, d, dtype):
     """valid_len on both sides of a 64-key tile and of a round of the 8-block
@@ -530,13 +544,15 @@ def _plain_swapped(fn):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b", "h2o-danube-1.8b",
+                                  "jamba-v0.1-52b", "phi-3-vision-4.2b", "whisper-base"])
 def test_window_and_moe_decode_match_the_plain_path_on_card(cuda, arch):
-    """Reduced fp32 models: a 12-token prompt, then 24 decode steps (the
-    16-slot window ring of danube and mixtral wraps at step 4) with the
-    kernel, and the same with its plain version: logits every step within
-    2e-4, greedy tokens equal, one launch a layer a step. The MoE layers'
-    dispatch (router, capacity, expert einsums) runs on the card in both."""
+    """Reduced fp32 models: a 12-token prompt (whisper's with 24 stub audio
+    frames), then 24 decode steps (the 16-slot window ring of danube and
+    mixtral wraps at step 4) with the kernel, and the same with its plain
+    version: logits every step within 2e-4, greedy tokens equal, one launch
+    an attention layer (self and cross) a step. The MoE layers' dispatch
+    and jamba's SSM layers run on the card in both."""
     from dataclasses import replace
 
     from repro_torch.configs import reduced
@@ -545,11 +561,15 @@ def test_window_and_moe_decode_match_the_plain_path_on_card(cuda, arch):
 
     cfg = replace(reduced(arch), dtype="float32")
     params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
-    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
-                              ).to(cuda)
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12))).to(cuda)
+    ctx = {"audio_frames": torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_audio_ctx, cfg.d_model)).astype(np.float32)).to(cuda)} if cfg.enc_layers else {}
+    n_attn = sum(m == "attn" for m, _ in cfg.layer_kinds()) + (
+        cfg.n_layers if cfg.enc_layers else 0)
 
     def run():
-        logits, cache = lm.prefill(params, prompt, cfg, cache_len=40)
+        logits, cache = lm.prefill(params, prompt, cfg, cache_len=40, **ctx)
         out = [logits]
         tok = torch.argmax(logits, -1)
         for i in range(24):
@@ -560,7 +580,7 @@ def test_window_and_moe_decode_match_the_plain_path_on_card(cuda, arch):
 
     kernels.reset_launch_counts()
     got = run()
-    assert kernels.launch_counts()["decode_attention"] == 24 * cfg.n_layers
+    assert kernels.launch_counts()["decode_attention"] == 24 * n_attn
     want = _plain_swapped(run)
     assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-4)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
@@ -1048,6 +1068,30 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@pytest.fixture(scope="module", params=["phi-3-vision-4.2b", "jamba-v0.1-52b"])
+def family_full_width(request):
+    """chip_smoke.py's phase-16 models: phi-3-vision (32 layers) and jamba
+    (8 of 32 layers: one block), full width, bf16, seed 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the contracts are held on the card")
+    cs = _chip_smoke()
+    yield (cs, *cs.family_model(torch, request.param))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_family_contracts_on_card(family_full_width):
+    """chained segments == sequential decode (tokens, every row's K/V and,
+    in jamba, its SSM conv tails and states, the next logits), bit for bit;
+    join == alone too for phi-3-vision (an MoE token's capacity depends on
+    its decode group, so jamba's join is not held)."""
+    cs, cfg, model = family_full_width
+    res = cs.attn_contracts(torch, np, cfg, model, torch.device("cuda"))
+    assert res["chained_equals_sequential"]["equal"], res
+    if not cfg.n_experts:
+        assert res["join_equals_alone"]["equal"], res
 
 
 @pytest.mark.gpu

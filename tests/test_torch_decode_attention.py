@@ -32,7 +32,11 @@ from repro_torch.serving.engine import EngineConfig, build_engine  # noqa: E402
 
 torch.set_num_threads(1)
 
-SHAPES = [(2, 8, 4, 64, 512), (1, 7, 7, 128, 300), (4, 16, 16, 64, 1024)]
+# (B, H, KH, D, S): the JAX package's test shapes, then head size 96 with one
+# query head a KV head (phi-3-vision's MHA) and whisper's cross-attention
+# over 1,500 encoder positions (MHA, D 64)
+SHAPES = [(2, 8, 4, 64, 512), (1, 7, 7, 128, 300), (4, 16, 16, 64, 1024),
+          (2, 8, 8, 96, 300), (2, 8, 8, 64, 1500)]
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 
 
@@ -162,6 +166,21 @@ def test_engine_never_builds_a_zero_valid_length(monkeypatch):
     vl = torch.stack(seen)
     assert vl.dtype == torch.int32 and int(vl.min()) >= 1
     assert int(vl.max()) <= eng.pool_len
+
+
+def test_every_head_size_the_wrapper_takes_is_compiled():
+    """The wrapper takes D in HEAD_DIMS (96 included: phi-3-vision's), and
+    each of the CUDA source's three entry points dispatches exactly those
+    head sizes."""
+    import re
+    from pathlib import Path
+
+    assert 96 in kda.HEAD_DIMS
+    src = (Path(kda.__file__).parent / "csrc" / "decode_attention.cu").read_text()
+    bodies = src.split('extern "C"')[1:]
+    assert len(bodies) == 3
+    for body in bodies:
+        assert tuple(sorted(int(d) for d in re.findall(r"d == (\d+)", body))) == kda.HEAD_DIMS
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -399,7 +399,7 @@ def test_fleet_entry_points_default_to_cuda_and_refuse_an_unserved_arch(setup):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             MultiSliceEngine(setup["cfg"], setup["pt"][0], _policy(BatchPolicy, 2),
                              n_slices=2)
-    other = dataclasses.replace(setup["cfg"], name="jamba-v0.1-52b")
+    other = dataclasses.replace(setup["cfg"], name="whisper-base")
     with pytest.raises(ValueError, match="not served"):
         build_multislice_engine(n_slices=2, device="cpu",
                                 tenants=[TenantSpec(cfg=other, params=setup["pt"][0])])
