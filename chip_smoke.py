@@ -239,8 +239,28 @@ Phases, each fatal on failure:
    prompt, prefill, generate 16: 32 x 15 launches) and must refuse
    pos_offset with img_embeds. Per arch: weight bytes, cache bytes, a
    decode step's wall and device ms and its launches.
+17. training — tinyllama-1.1b through the port's training path (no kernel
+   of its own: loss, backward and AdamW in plain PyTorch, as the JAX
+   package leaves them to XLA). (a) At full width cut to 2 layers, fp32,
+   TF32 off, batch 2 x 128 of batch_iterator(seed=0): train_loss, every
+   gradient leaf and grad_norm on the card against the CPU on the same
+   weights (the loss within 1e-5 relative, each leaf's max abs difference
+   within 1e-3 of its own max abs, grad_norm within 1e-3); remat off on
+   the card is printed beside it. (b) All 22 layers, bf16 compute over an
+   fp32 master, remat on, batch 4 x 2,048, seeded init_params, AdamW (lr
+   3e-4, 2 warm-up steps) for 20 steps: every loss finite and the mean of
+   the last 3 below the first 3; the median step wall ms after step 2,
+   tokens/s, one step's device ms, launches and top kernels
+   (torch.profiler), max_memory_allocated, and the model-FLOP share (6 N T
+   plus 12 L d_model S T over the H100 SXM data-sheet bf16 dense peak of
+   989 TFLOP/s). (c) At 2 layers, train() fails at step 6 with checkpoints
+   every 5 and restarts in a temporary directory: latest_step 5, the
+   restored leaves bit for bit the saved ones, 5 steps on restart. (d) The
+   trained weights, cast to bf16 after the moments are freed, serve the
+   quickstart's 12 text requests through build_engine: all served once, 0
+   shed, decode attention 22 x the engine's decode steps.
 
-In every serve phase (4, 6, 8-11, 13-16) the decode kernel's launches must
+In every serve phase (4, 6, 8-11, 13-17) the decode kernel's launches must
 equal n_layers x the decode steps the engines executed (their own stats;
 in phase 14 the tinyllama tenant's, in phases 15-16 the attention layers',
 whisper's cross-attention sublayers included): every attention decode step
@@ -251,7 +271,8 @@ Prints one JSON line {"kernels": [...]} (seven kernels; a kernel's launches
 are the sum over the phases that run it — decode_attention's over the seven
 serve phases, the knee pass, the controller's first replay, phase 15's
 six serves and phase 16's two serves, whisper's generate and phi-3-vision's
-image path, the audio kernels' over phases 4, 10, 11, 13, 14, 15 and 16;
+image path, and phase 17's serve of the trained weights; the audio kernels'
+over phases 4, 10, 11, 13, 14, 15 and 16;
 its max_abs_err is the largest over all its shapes; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
 where it falls, so a kernel that loses off its main shape shows), the
@@ -1088,20 +1109,39 @@ def decode_step_phase(torch, np, params):
     return res
 
 
+def _traced(torch, warm, run):
+    """run() under torch.profiler, after one warm() that the profiler
+    traces and throws away (its schedule's warm-up step): CUPTI can miss
+    kernels it sees first after tracing starts, so the recorded window
+    opens with tracing already on. Every kernel has ended before each
+    window closes. Returns (run()'s result, key_averages' CUDA kernel rows:
+    the schedule's "ProfilerStep*" annotation, a device row that spans the
+    whole window, is left out)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        out = run()
+        torch.cuda.synchronize()
+        prof.step()
+    return out, [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.key.startswith("ProfilerStep")]
+
+
 def profile_decode_steps(torch, step, wall_ms: float, n: int = 5):
     """torch.profiler over n decode steps: device time a step (the sum of
     its kernels' times), kernel launches a step, the device's busy share of
     the unprofiled wall time a step, and the kernels that take the most."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def steps():
         for _ in range(n):
             step()
-        torch.cuda.synchronize()
-    kernels_ = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    _, kernels_ = _traced(torch, step, steps)
     dev_ms = sum(e.self_device_time_total for e in kernels_) / 1e3 / n
     top = sorted(kernels_, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     attn = [e for e in kernels_ if "decode_attention" in e.key]
@@ -2335,8 +2375,9 @@ def attn_contracts(torch, np, cfg, model, dev) -> dict:
 def attn_decode_step_profile(torch, model):
     """One decode step at batch 8 over a 144-slot ring of random K/V (rows
     at 10-143 tokens): wall ms (best of two runs of 20 steps) and a
-    torch.profiler pass over 5 steps, which must show one decode attention
-    launch a layer."""
+    torch.profiler pass over 5 steps after a warm one, which must show one
+    decode attention launch a layer, as the wrapper's count of all 6 must."""
+    from repro_torch import kernels
     from repro_torch.models import lm
 
     cfg, dev = model.cfg, torch.device("cuda")
@@ -2361,7 +2402,12 @@ def attn_decode_step_profile(torch, model):
         return 1e3 * (time.perf_counter() - t0) / n
 
     wall = min(steps_ms(), steps_ms())
+    before = kernels.launch_counts()["decode_attention"]
     prof = profile_decode_steps(torch, step, wall)
+    counted = kernels.launch_counts()["decode_attention"] - before
+    if counted != (1 + 5) * n_attn_layers(cfg):
+        fail(f"{cfg.name}: the wrapper counted {counted} decode attention launches over 6 "
+             f"decode steps, {n_attn_layers(cfg)} attention layers")
     if prof["decode_attention_calls_per_step"] != n_attn_layers(cfg):
         fail(f"{cfg.name}: {prof['decode_attention_calls_per_step']} decode attention "
              f"launches a step, {n_attn_layers(cfg)} attention layers")
@@ -2893,6 +2939,304 @@ def families_phase(torch, F, np, card):
     return res
 
 
+# --- 17. training on the card, then serving the trained weights ---------------
+
+TRAIN_ARCH = "tinyllama-1.1b"
+CHECK_LAYERS, CHECK_BATCH, CHECK_SEQ = 2, 2, 128   # (a): card against CPU, fp32
+GRAD_TOL = 1e-3      # a gradient leaf's max abs difference over its own max abs
+LOSS_RTOL = 1e-5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20  # (b): 8,192 tokens a step
+TRAIN_PROFILED_STEP = 10   # the step run under torch.profiler (not in the median)
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 10, 5, 6  # (c)
+QUICK_REQUESTS, QUICK_MAX_NEW = 12, 4                # (d): the quickstart's serve
+BF16_PEAK_FLOPS_S = 989e12  # H100 SXM data sheet, bf16 dense (no sparsity)
+
+
+def _loss_grads(torch, cfg, params, batch, device):
+    """train_loss, every gradient leaf (by path) and their global norm, on
+    `device`."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.training.optimizer import global_norm
+
+    p = tree_map(lambda v: v.detach().requires_grad_(), params)
+    loss, _ = lm.train_loss(p, {k: torch.from_numpy(v).to(device)
+                                for k, v in batch.items()}, cfg)
+    paths, flat = zip(*leaves(p))
+    grads = dict(zip(paths, torch.autograd.grad(loss, flat)))
+    return float(loss.detach()), grads, float(global_norm(grads))
+
+
+def train_check(torch, np) -> dict:
+    """(a) One step of tinyllama-1.1b at full width cut to 2 layers, fp32,
+    TF32 off, batch 2 x 128 of batch_iterator(seed=0): the loss, every
+    gradient leaf and grad_norm on the card against the same weights on the
+    CPU. Gates: the loss within 1e-5 relative, each leaf's max abs
+    difference within 1e-3 of that leaf's max abs, grad_norm within 1e-3
+    relative. The card's step with remat off is printed beside it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_iterator
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CHECK_LAYERS, dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = next(batch_iterator(cfg, DataConfig(CHECK_BATCH, CHECK_SEQ, seed=0)))
+    t0 = time.perf_counter()
+    loss, grads, gnorm = _loss_grads(torch, cfg, params, batch, "cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, grads_c, gnorm_c = _loss_grads(torch, cfg, tree_map(lambda x: x.cpu(), params),
+                                           batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    worst, worst_leaf = 0.0, ""
+    for path, gc_ in grads_c.items():
+        scale = float(gc_.abs().max())
+        d = float((grads[path].cpu() - gc_).abs().max())
+        if not torch.isfinite(grads[path]).all() or d > GRAD_TOL * scale:
+            fail(f"train step: gradient {path} differs card vs CPU by {d:.3e} "
+                 f"(its max abs {scale:.3e}, tolerance {GRAD_TOL} of it)")
+        if d / max(scale, 1e-30) > worst:
+            worst, worst_leaf = d / max(scale, 1e-30), path
+    loss_rel = abs(loss - loss_c) / abs(loss_c)
+    gnorm_rel = abs(gnorm - gnorm_c) / gnorm_c
+    if not np.isfinite(loss) or loss_rel > LOSS_RTOL or gnorm_rel > GRAD_TOL:
+        fail(f"train step: loss {loss} vs CPU {loss_c} (rel {loss_rel:.2e}), grad_norm "
+             f"{gnorm} vs {gnorm_c} (rel {gnorm_rel:.2e})")
+    loss_o, grads_o, _ = _loss_grads(torch, dataclasses.replace(cfg, remat=False), params,
+                                     batch, "cuda")
+    remat_diff = max(float((grads_o[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                     for k, g in grads.items())
+    out = dict(layers=CHECK_LAYERS, batch=[CHECK_BATCH, CHECK_SEQ], loss=loss, loss_cpu=loss_c,
+               loss_rel_err=loss_rel, grad_norm=gnorm, grad_norm_cpu=gnorm_c,
+               grad_norm_rel_err=gnorm_rel, worst_leaf_rel_err=worst, worst_leaf=worst_leaf,
+               leaves=len(grads), remat_off_loss_diff=abs(loss_o - loss),
+               remat_off_worst_leaf_rel_diff=remat_diff, card_s=card_s, cpu_s=cpu_s)
+    print(f"train check (2 layers, fp32): loss {loss:.6f} vs CPU {loss_c:.6f} (rel "
+          f"{loss_rel:.2e}); {len(grads)} gradient leaves, worst {worst:.2e} of its max abs "
+          f"({worst_leaf}); grad_norm rel {gnorm_rel:.2e}; remat off: loss diff "
+          f"{abs(loss_o - loss):.2e}, worst leaf {remat_diff:.2e}")
+    return out
+
+
+def _profile_once(torch, fn):
+    """fn() once under torch.profiler: its device ms, kernel launches and
+    the kernels that take the most device time."""
+    out, ks = _traced(torch, lambda: torch.ones(1, device="cuda").add_(1), fn)
+    top = sorted(ks, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return out, {"device_ms": sum(e.self_device_time_total for e in ks) / 1e3,
+                 "kernel_launches": sum(e.count for e in ks),
+                 "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                                  "ms": e.self_device_time_total / 1e3} for e in top]}
+
+
+def model_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """PaLM's model FLOPs of one train step: 6 N T for the weight products
+    (N = the parameters that multiply: all but the embedding table, which
+    is a gather) plus 12 L d_model S T for attention's score and value
+    products, forward and backward, with no causal discount and no count
+    of the recomputation remat adds."""
+    n = cfg.param_count() - cfg.padded_vocab * cfg.d_model
+    t = batch * seq
+    return 6.0 * n * t + 12.0 * cfg.n_layers * cfg.d_model * seq * t
+
+
+def full_depth_training(torch, np, card) -> tuple:
+    """(b) tinyllama-1.1b, all 22 layers, bf16 compute over an fp32 master,
+    remat on, batch 4 x 2,048 (8,192 tokens a step), seeded init_params,
+    AdamW(lr 3e-4, 2 warm-up steps, 20 in all) for 20 steps. Gates: every
+    loss finite, the mean of the last 3 below the mean of the first 3.
+    Returns (stats, the trained state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import steps
+    from repro_torch.data.pipeline import DataConfig, batch_iterator
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat or cfg.dtype != "bfloat16" or cfg.param_dtype != "float32":
+        fail(f"train: {TRAIN_ARCH} is not bf16 compute over an fp32 master with remat")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = steps.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = steps.make_train_step(cfg, OptConfig(lr=3e-4, warmup_steps=2,
+                                                total_steps=TRAIN_STEPS))
+    it = batch_iterator(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    losses, walls, prof = [], [], None
+    for i in range(TRAIN_STEPS):
+        batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == TRAIN_PROFILED_STEP:
+            (state, m), prof = _profile_once(torch, lambda: step(state, batch))
+        else:
+            state, m = step(state, batch)
+        loss = float(m["loss"])  # waits for the step
+        walls.append(time.perf_counter() - t0)
+        if not np.isfinite(loss):
+            fail(f"train: non-finite loss {loss} at step {i}")
+        losses.append(loss)
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not last < first:
+        fail(f"train: loss did not fall over {TRAIN_STEPS} steps: first 3 {first:.4f}, "
+             f"last 3 {last:.4f}")
+    timed = [w for i, w in enumerate(walls) if i >= 2 and i != TRAIN_PROFILED_STEP]
+    step_s = float(np.median(timed))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out = dict(arch=TRAIN_ARCH, layers=cfg.n_layers, batch=[TRAIN_BATCH, TRAIN_SEQ],
+               steps=TRAIN_STEPS, losses=losses, first3=first, last3=last,
+               step_wall_ms_median=1e3 * step_s, step_wall_ms=[1e3 * w for w in walls],
+               tokens_per_s=tokens / step_s, init_s=init_s,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               model_flops_per_step=flops,
+               model_flop_share=flops / step_s / BF16_PEAK_FLOPS_S,
+               profiled_step=TRAIN_PROFILED_STEP, profile=prof,
+               device_busy_share=prof["device_ms"] / (1e3 * step_s), card=card)
+    print(f"train ({cfg.n_layers} layers, bf16 over fp32, remat, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}): loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 3 {first:.4f}, "
+          f"last 3 {last:.4f}); step {1e3 * step_s:.1f} ms median after step 2, "
+          f"{tokens / step_s:.0f} tokens/s; step {TRAIN_PROFILED_STEP}: device "
+          f"{prof['device_ms']:.1f} ms, {prof['kernel_launches']} launches; peak "
+          f"{out['max_memory_allocated']} bytes; model FLOP share "
+          f"{out['model_flop_share']:.4f} of the H100 SXM data-sheet bf16 dense peak "
+          f"(989 TFLOP/s) | {card}")
+    print("train top kernels: " + json.dumps(prof["top_kernels"]))
+    return out, state
+
+
+def restart_check(torch, np) -> dict:
+    """(c) Full width cut to 2 layers, train() to step 10 with checkpoints
+    every 5, failing at step 6, then restarted in a temporary directory
+    removed afterwards. Gates: latest_step is 5, the restored tree equals
+    the one saved at step 5 bit for bit, and the restart runs 5 steps."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CHECK_LAYERS)
+    dc = DataConfig(CHECK_BATCH, CHECK_SEQ)
+    snaps = {}
+    base = ckpt.AsyncCheckpointer
+
+    class Recording(base):
+        def save(self, step, tree):
+            snaps[step] = tree_map(lambda v: v.detach().to("cpu", copy=True), tree)
+            super().save(step, tree)
+
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainLoopConfig(total_steps=RESTART_STEPS, ckpt_dir=d, ckpt_every=RESTART_EVERY,
+                             log_every=RESTART_STEPS)
+        ckpt.AsyncCheckpointer = Recording
+        try:
+            t0 = time.perf_counter()
+            try:
+                train(cfg, dc, tc, fail_at_step=RESTART_FAIL, device="cuda")
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+            else:
+                fail("restart: the injected failure did not raise")
+            latest = ckpt.latest_step(d)
+            if latest != RESTART_EVERY:
+                fail(f"restart: latest_step {latest}, expected {RESTART_EVERY}")
+            saved = dict(leaves(snaps[RESTART_EVERY]))
+            restored = dict(leaves(ckpt.restore_checkpoint(d, snaps[RESTART_EVERY],
+                                                           device="cpu")))
+            bad = [p for p in saved if saved[p].dtype != restored[p].dtype
+                   or not torch.equal(saved[p], restored[p])]
+            if bad or saved.keys() != restored.keys():
+                fail(f"restart: restored leaves differ from the saved ones: {bad[:5]}")
+            out = train(cfg, dc, tc, device="cuda")
+            wall = time.perf_counter() - t0
+        finally:
+            ckpt.AsyncCheckpointer = base
+        if out["steps"] != RESTART_STEPS - RESTART_EVERY or not np.isfinite(out["losses"]).all():
+            fail(f"restart: ran {out['steps']} steps, losses {out['losses']}")
+        final = ckpt.latest_step(d)
+    res = dict(layers=CHECK_LAYERS, latest_step_after_failure=latest,
+               leaves=len(saved), restored_bit_equal=True, restart_steps=out["steps"],
+               restart_losses=out["losses"], final_step=final, wall_s=wall)
+    print(f"restart (2 layers): failed at step {RESTART_FAIL}, latest_step {latest}, "
+          f"{len(saved)} leaves restored bit for bit, restart ran {out['steps']} steps to "
+          f"step {final}; {wall:.1f} s")
+    return res
+
+
+def trained_serve(torch, np, state) -> dict:
+    """(d) The full-depth state's weights cast to bf16 (the optimizer state
+    freed first) served through build_engine: 12 text requests of the
+    quickstart's WorkloadSpec, submitted at once, run to completion with 4
+    new tokens each. Gates: every request served once, 0 shed, tokens in
+    the vocabulary, decode attention 22 x the engine's decode steps."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.engine import EngineConfig, build_engine
+    from repro_torch.serving.requests import WorkloadSpec, generate_requests
+
+    cfg = get_config(TRAIN_ARCH)
+    master = state.pop("params")
+    state.clear()                              # the moments go first
+    params = tree_map(lambda p: p.to(torch.bfloat16), master)
+    del master
+    torch.cuda.empty_cache()
+    engine = build_engine(cfg, ec=EngineConfig(max_new_tokens=QUICK_MAX_NEW), device="cuda",
+                          params=params)
+
+    def spec(seed):
+        return WorkloadSpec(modality="text", rate_qps=200, mean_len=24, max_len=48, seed=seed)
+
+    warm = generate_requests(spec(5), 2)       # cuBLAS handles, allocator, other rids
+    for i, r in enumerate(warm):
+        r.rid = 40_000 + i
+    _burst(torch, engine, warm)
+    engine.reset_metrics()
+    reqs = generate_requests(spec(0), QUICK_REQUESTS)
+    kernels.reset_launch_counts()              # the trained model's serve starts here
+    done, wall = _burst(torch, engine, reqs)
+    launches = kernels.launch_counts()         # ... and ends here
+    shed = QUICK_REQUESTS - len(done)
+    if shed:
+        fail(f"trained serve: {shed} of {QUICK_REQUESTS} requests not served")
+    _check_tokens(np, done, cfg, QUICK_REQUESTS, QUICK_MAX_NEW, "trained serve")
+    for k in kernels.AUDIO_KERNELS + kernels.IMAGE_KERNELS:
+        if launches[k] != 0:
+            fail(f"{k}: {launches[k]} launches on the trained serve")
+    steps = check_decode_launches(launches, cfg, engine, "trained serve")
+    stats = _serve_stats(np, done, wall, launches, steps)
+    stats["shed"] = shed
+    print(f"trained serve: {len(done)} served, {shed} shed, {stats['tokens_per_s']:.2f} "
+          f"tokens/s, {steps} decode steps, decode attention "
+          f"{launches['decode_attention']} launches")
+    return stats
+
+
+def training_phase(torch, np, card) -> dict:
+    """Phase 17: (a) card against CPU, (b) full-depth training, (c)
+    checkpoint and restart, (d) the trained weights served."""
+    t0 = time.perf_counter()
+    check = train_check(torch, np)
+    full, state = full_depth_training(torch, np, card)
+    restart = restart_check(torch, np)
+    serve = trained_serve(torch, np, state)
+    del state
+    torch.cuda.empty_cache()
+    out = {"check": check, "full_depth": full, "restart": restart, "serve": serve,
+           "phase_s": time.perf_counter() - t0}
+    print(f"training phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -2978,6 +3322,9 @@ def main() -> int:
                      if "serve" in family_stats[a]]
     family_runs = family_serves + [family_stats[a][k] for a in FAMILY_DEPTH
                                    for k in ("generate", "image") if k in family_stats[a]]
+
+    # 17. training on the card (tinyllama-1.1b), then serving the trained weights
+    train_stats = training_phase(torch, np, card)
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
                                                 controller_stats, mt_stats, *new_runs[:5],
@@ -2987,7 +3334,8 @@ def main() -> int:
     decode_run = {"launches": {"decode_attention": sum(
         st["launches"]["decode_attention"]
         for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats,
-                   knee_stats, controller_stats, mt_stats, *new_runs, *family_runs))}}
+                   knee_stats, controller_stats, mt_stats, *new_runs, *family_runs,
+                   train_stats["serve"]))}}
 
     line = []
     for name, shape_rows, main_of, run in (
@@ -3029,7 +3377,8 @@ def main() -> int:
              "fleet": fleet_stats_, "chaos": chaos_stats, "knee": knee_stats,
              "controller": controller_stats, "two_model_fleet": mt_stats,
              "new_archs": new_stats,
-             "families": {k: v for k, v in family_stats.items() if k != "kernel_rows"}},
+             "families": {k: v for k, v in family_stats.items() if k != "kernel_rows"},
+             "training": train_stats},
             indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")

@@ -67,7 +67,8 @@ class ModelConfig:
 
     # numerics
     dtype: str = "bfloat16"       # activation/compute dtype
-    param_dtype: str = "float32"  # master params; serving casts to dtype
+    param_dtype: str = "float32"  # master params (train); serving casts to dtype
+    remat: bool = True            # recompute each layer in the backward pass (train)
 
     # --- derived -----------------------------------------------------------
     @property

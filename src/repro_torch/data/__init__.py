@@ -1,1 +1,2 @@
-"""Audio preprocessing on the host (numpy)."""
+"""Host-side data: audio and image preprocessing (numpy) and the synthetic
+training batches."""

@@ -1,0 +1,53 @@
+"""Training launcher, on one NVIDIA GPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
+        --steps 20 --batch 4 --seq 2048
+
+A CPU run at a reduced size: --device cpu --reduced [--steps 20 --batch 4
+--seq 64]. The production mesh flags of the JAX package's launcher
+(--production-mesh, --multi-pod) are refused: the port has no device mesh
+yet.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", help="CPU-sized config")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="refused: needs the device mesh the port does not have yet")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="refused: needs the device mesh the port does not have yet")
+    args = ap.parse_args(argv)
+    for flag in ("production_mesh", "multi_pod"):
+        if getattr(args, flag):
+            ap.error(f"--{flag.replace('_', '-')} needs a device mesh, which this port "
+                     "does not have yet (one device: omit the flag)")
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+
+    cfg = reduced(args.arch) if args.reduced else get_config(args.arch)
+    dc = DataConfig(global_batch=args.batch, seq_len=args.seq)
+    tc = TrainLoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                         microbatches=args.microbatches)
+    out = train(cfg, dc, tc, OptConfig(lr=args.lr, total_steps=args.steps),
+                device=args.device)
+    print(f"done: {out['steps']} steps, final loss {out['losses'][-1]:.4f}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

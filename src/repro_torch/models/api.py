@@ -1,7 +1,7 @@
 """Public model API: the LM of any family (dense, MoE, SSM, the jamba
 hybrid, whisper's encoder-decoder, phi-3-vision's vision-language decoder)
-as an `nn.Module` over the reference-layout weight tree, and the functions
-it serves with."""
+as an `nn.Module` over the reference-layout weight tree, the functions it
+serves with, and the training loss (`train_loss`)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -11,6 +11,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.models.lm import forward, train_loss  # noqa: F401  (re-exports)
 from repro_torch.models.params import from_reference, init_params, leaves  # noqa: F401
 
 

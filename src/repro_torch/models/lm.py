@@ -1,6 +1,8 @@
-"""The LM of every family, serving half: prefill, decode (every self- and
-cross-attention step through the flash-decode kernel), run-to-completion
-generate, chunked prefill, and the slot pool of continuous batching.
+"""The LM of every family: the training forward and its chunked loss
+(`train_loss`, each layer recomputed in the backward pass when `cfg.remat`
+is set), prefill, decode (every self- and cross-attention step through the
+flash-decode kernel), run-to-completion generate, chunked prefill, and the
+slot pool of continuous batching.
 
 Plain functions over a parameter tree laid out as the JAX package lays it
 out (`models/params.py`): the unstacked leading layers under
@@ -46,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -242,32 +245,62 @@ def encode_audio(params: Tree, audio_frames: Optional[torch.Tensor],
 
 
 def _mixer_forward(h, p, cfg: ModelConfig, mixer: str, *, cache_len: int,
-                   pos_offset=None):
-    """One layer's mixer over a full prompt: (out [B, S, D], cache entry)."""
+                   pos_offset=None, make_cache: bool = True):
+    """One layer's mixer over a full prompt: (out [B, S, D], cache entry,
+    or None without make_cache)."""
     if mixer == "attn":
         return _attn_forward(h, p, cfg, cache_len=cache_len, pos_offset=pos_offset,
-                             window=cfg.sliding_window)
+                             window=cfg.sliding_window, make_cache=make_cache)
+    if not make_cache:
+        return L.ssm_block(h, p, cfg, pos_offset=pos_offset), None
     o, (conv_tail, fstate) = L.ssm_block(h, p, cfg, return_state=True,
                                          pos_offset=pos_offset)
     return o, {"conv": conv_tail, "state": fstate}
 
 
-def _ffn(x, sub: Tree, cfg: ModelConfig, ffn: str) -> torch.Tensor:
-    """The layer's FFN with its residual: the MLP, the MoE experts (their
-    aux loss is a training term, dropped at serving) or none (SSM)."""
+def _ffn(x, sub: Tree, cfg: ModelConfig, ffn: str):
+    """The layer's FFN with its residual: the MLP, the MoE experts or none
+    (SSM). Returns (x, the MoE router's aux loss or None); serving drops the
+    aux loss, training sums it."""
     if ffn == "none":
-        return x
+        return x, None
     h = L.rmsnorm(x, sub["ffn"]["ln"], cfg.norm_eps)
     if ffn == "moe":
-        y, _ = L.moe(h, sub["ffn"], cfg)
-        return x + y
-    return x + L.mlp(h, sub["ffn"])
+        y, aux = L.moe(h, sub["ffn"], cfg)
+        return x + y, aux
+    return x + L.mlp(h, sub["ffn"]), None
+
+
+def _sublayer(x, sub: Tree, enc, cfg: ModelConfig, kind: Tuple[str, str], *,
+              train: bool, cache_len: int, pos_offset):
+    """One layer over a full sequence: its mixer, the cross-attention
+    sublayer of an encoder-decoder, and its FFN. Returns (x, the MoE aux
+    loss or None, cache entry); training builds no cache (entry None)."""
+    mixer, ffn = kind
+    h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
+    o, c = _mixer_forward(h, sub["mixer"], cfg, mixer, cache_len=cache_len,
+                          pos_offset=pos_offset, make_cache=not train)
+    x = x + o
+    entry = None if train else {"mixer": c}
+    if enc is not None:
+        h = L.rmsnorm(x, sub["xattn"]["ln"], cfg.norm_eps)
+        o, c = _xattn_forward(h, sub["xattn"], enc, pos_offset=pos_offset)
+        x = x + o
+        if entry is not None:
+            entry["xattn"] = c
+    x, aux = _ffn(x, sub, cfg, ffn)
+    return x, aux, entry
 
 
 def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
-            cache_len: int, pos_offset=None, img_embeds=None,
-            audio_frames=None) -> Tuple[torch.Tensor, Tree]:
-    """Prefill forward: (final hidden [B, S, D], cache tree).
+            mode: str = "prefill", cache_len: int = 0, pos_offset=None,
+            img_embeds=None, audio_frames=None):
+    """mode "prefill": (final hidden [B, S, D], cache tree); mode "train":
+    (final hidden [B, S, D], aux), aux the fp32 sum of every MoE layer's
+    router loss (0 without MoE), and no cache. In training with `cfg.remat`
+    each layer runs under `torch.utils.checkpoint`: the backward pass keeps
+    only the layer inputs and recomputes the rest (the JAX package's
+    per-sublayer and per-block `jax.checkpoint`).
 
     pos_offset: optional [B] left-pad amounts (bucketed serving): row b's
     first pos_offset[b] token slots are padding. Their embeddings are zeroed
@@ -278,11 +311,14 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     whose left-pad mask would zero them, as the JAX package refuses it.
     audio_frames: [B, n_audio_ctx, D], the encoder's input (an
     encoder-decoder needs it)."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"mode must be 'train' or 'prefill', not {mode!r}")
     if pos_offset is not None and cfg.n_img_tokens and img_embeds is not None:
         raise ValueError(
             "pos_offset (left-padded bucketing) is not supported with image "
             "prefixes: the left-pad mask would zero the leading img_embeds "
             "slots. Pad such batches on the right by length bucket instead.")
+    train = mode == "train"
     dt = _dtype(cfg)
     x = params["embed"][tokens].to(dt)
     if cfg.n_img_tokens and img_embeds is not None:
@@ -293,20 +329,21 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
                  >= pos_offset.to(x.device)[:, None])
         x = x * valid[..., None].to(dt)
     enc = encode_audio(params, audio_frames, cfg) if cfg.enc_layers else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     entries = []
-    for (mixer, ffn), sub in zip(cfg.layer_kinds(), _layers(cfg, params)):
-        h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
-        o, c = _mixer_forward(h, sub["mixer"], cfg, mixer, cache_len=cache_len,
-                              pos_offset=pos_offset)
-        x = x + o
-        entry = {"mixer": c}
-        if enc is not None:
-            h = L.rmsnorm(x, sub["xattn"]["ln"], cfg.norm_eps)
-            o, entry["xattn"] = _xattn_forward(h, sub["xattn"], enc, pos_offset=pos_offset)
-            x = x + o
-        x = _ffn(x, sub, cfg, ffn)
+    for kind, sub in zip(cfg.layer_kinds(), _layers(cfg, params)):
+        kw = dict(train=train, cache_len=cache_len, pos_offset=pos_offset)
+        if train and cfg.remat:
+            x, a, entry = checkpoint(_sublayer, x, sub, enc, cfg, kind, **kw,
+                                     use_reentrant=False)
+        else:
+            x, a, entry = _sublayer(x, sub, enc, cfg, kind, **kw)
+        if train and a is not None:
+            aux = aux + a.float()
         entries.append(entry)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    if train:
+        return x, aux
     return x, _assemble(cfg, entries)
 
 
@@ -439,7 +476,7 @@ def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
             h = L.rmsnorm(x, sub["xattn"]["ln"], cfg.norm_eps)
             x = x + _xattn_decode(h, sub["xattn"], c["xattn"]["ck"], c["xattn"]["cv"],
                                   xvalid)
-        x = _ffn(x, sub, cfg, ffn)
+        x, _ = _ffn(x, sub, cfg, ffn)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return logits_from_hidden(params, x, cfg), cache
 
@@ -676,3 +713,55 @@ def prefill_chunk_into_slots(params: Tree, tokens: torch.Tensor, pool: Tree,
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     logits = logits_from_hidden(params, x[:, -1:], cfg)
     return torch.argmax(logits, -1), pool
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over the sequence to bound the logits' memory)
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(params: Tree, xc: torch.Tensor, lc: torch.Tensor, cfg: ModelConfig):
+    """One chunk's (sum of nll, sum of lse^2, count) over its labelled
+    positions: fp32 logits [B, c, V], labels < 0 ignored."""
+    logits = logits_from_hidden(params, xc, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return torch.sum((lse - gold) * mask), torch.sum(lse * lse * mask), torch.sum(mask)
+
+
+def softmax_xent_chunked(params: Tree, x: torch.Tensor, labels: torch.Tensor,
+                         cfg: ModelConfig, chunk: int = 2048):
+    """x: [B, S, D] final hidden; labels [B, S] (-100 = ignore). Mean
+    cross-entropy and mean squared log-partition (the z-loss term) over the
+    labelled positions, computed over sequence chunks of c = min(chunk, S),
+    lowered until it divides S, as the JAX package chunks them. Each chunk
+    is checkpointed: its fp32 logits [B, c, V] are recomputed in the
+    backward pass, never kept. Returns (nll, z2), fp32 scalars."""
+    B, S, _ = x.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    nll_sum, z_sum, count = (torch.zeros((), dtype=torch.float32, device=x.device)
+                             for _ in range(3))
+    labels = labels.to(x.device)
+    for i in range(0, S, c):
+        n, z, k = checkpoint(_xent_chunk, params, x[:, i:i + c], labels[:, i:i + c], cfg,
+                             use_reentrant=False)
+        nll_sum, z_sum, count = nll_sum + n, z_sum + z, count + k
+    count = torch.clamp(count, min=1.0)
+    return nll_sum / count, z_sum / count
+
+
+def train_loss(params: Tree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               z_loss_weight: float = 1e-4):
+    """The training objective of a batch {"tokens", "labels"} (plus
+    "img_embeds" or "audio_frames" where the family takes them): the mean
+    token cross-entropy, z_loss_weight times the z-loss term, and the MoE
+    router losses. Returns (loss, {"loss", "nll", "aux"}), fp32 scalars."""
+    x, aux = forward(params, batch["tokens"], cfg, mode="train",
+                     img_embeds=batch.get("img_embeds"),
+                     audio_frames=batch.get("audio_frames"))
+    nll, z2 = softmax_xent_chunked(params, x, batch["labels"], cfg)
+    loss = nll + z_loss_weight * z2 + aux
+    return loss, {"loss": loss, "nll": nll, "aux": aux}

@@ -175,6 +175,22 @@ def leaves(tree: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any
             yield path, v
 
 
+def tree_map(fn, *trees: Mapping[str, Any]) -> Tree:
+    """fn over the leaves of one or more trees of nested dicts that share
+    one structure, called in sorted path order (the order of `leaves`); a
+    new tree of that structure."""
+    return {k: (tree_map(fn, *(t[k] for t in trees)) if isinstance(trees[0][k], Mapping)
+                else fn(*(t[k] for t in trees)))
+            for k in sorted(trees[0])}
+
+
+def unflatten(tree: Mapping[str, Any], values) -> Tree:
+    """`values`, given in leaf order (sorted paths), placed into tree's
+    structure."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)
+
+
 def _set(tree: Tree, path: str, value) -> None:
     *head, last = path.split(".")
     for k in head:

@@ -36,11 +36,14 @@ from repro_torch.core.batching.buckets import Request  # noqa: E402
 from repro_torch.core.dpu.runtime import DpuConfig  # noqa: E402
 from repro_torch.core.dpu.service import DpuService, DpuServiceConfig  # noqa: E402
 from repro_torch.data import preprocess_cpu as pp  # noqa: E402
+from repro_torch.data.pipeline import DataConfig  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.params import from_reference  # noqa: E402
 from repro_torch.serving import requests as trequests  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, build_engine  # noqa: E402
 from repro_torch.serving.faults import ShedReason, replay_virtual  # noqa: E402
 from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime  # noqa: E402
+from repro_torch.training.train_loop import TrainLoopConfig, train  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -278,6 +281,7 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py",
+                                   "examples/quickstart_torch.py",
                                    "src/repro_torch/core/control/partition.py",
                                    "src/repro_torch/serving/simulator.py"])
 def test_port_imports_neither_jax_nor_the_jax_package(where):
@@ -296,6 +300,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(where):
     lambda: DpuService(DpuServiceConfig(dpu=DpuConfig(backend="dpu", modality="image"))),
     lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main(
         ["--arch", ARCH, "--reduced", "--continuous", "--requests", "1"]),
+    lambda: train(reduced(ARCH), DataConfig(2, 8), TrainLoopConfig(total_steps=1)),
+    lambda: launch_train.main(["--arch", ARCH, "--reduced", "--steps", "1"]),
 ])
 def test_entry_points_default_to_cuda_and_refuse_the_cpu(entry):
     if torch.cuda.is_available():
