@@ -259,6 +259,28 @@ Phases, each fatal on failure:
    trained weights, cast to bf16 after the moments are freed, serve the
    quickstart's 12 text requests through build_engine: all served once, 0
    shed, decode attention 22 x the engine's decode steps.
+18. tensor-parallel serve — tinyllama-1.1b, seed-0 weights, through
+   core/steps.py's sharded serve steps on spawned ranks that share the card
+   (gloo on CUDA tensors, collectives staged through host memory: NCCL
+   refuses two ranks on one GPU; with a card a rank, NCCL): each rank cuts
+   the head-padded weights to its shards (shard_params) and runs prefill
+   of 8 x 64 prompts and 16 decode steps, the decode kernel on its local
+   heads. (a) mesh (1, 2), all 22 layers, bf16, greedy on both sides: the
+   first tokens equal the unsharded port's on the card except near-ties
+   (top-2 gap < 3e-2), counted; the agreement over all 17 tokens printed.
+   (b) mesh (1, 8), 2 layers, fp32: head padding active (4 KV heads
+   replicated to 8: H 4, KH 1 a rank); (c) mesh (2, 2), 2 layers, fp32,
+   rows split over data. In (b) and (c) the ranks are fed the unsharded
+   run's tokens, and every step's logits must lie within 1e-4 of the
+   unsharded logits' max abs and their greedy tokens equal except
+   near-ties (top-2 gap < 1e-4), counted. The 2-layer model is under 1B
+   parameters, which takes the seq-sharded small-serve layout; its ranks
+   force that rule off, since the 22-layer model (1.1B) takes this head
+   layout. Gated on every rank: decode-attention launches = layers x 16,
+   and parameter bytes within 1% of the sharded leaves / tp + the
+   replicated leaves. Printed: the backend, the world size, per-rank
+   weight bytes, and the decode step's wall ms unsharded (tp 1, in this
+   process) and at tp 2 (rank 0 of (a)).
 
 In every serve phase (4, 6, 8-11, 13-17) the decode kernel's launches must
 equal n_layers x the decode steps the engines executed (their own stats;
@@ -271,7 +293,8 @@ Prints one JSON line {"kernels": [...]} (seven kernels; a kernel's launches
 are the sum over the phases that run it — decode_attention's over the seven
 serve phases, the knee pass, the controller's first replay, phase 15's
 six serves and phase 16's two serves, whisper's generate and phi-3-vision's
-image path, and phase 17's serve of the trained weights; the audio kernels'
+image path, phase 17's serve of the trained weights, and phase 18's ranks'
+decode steps, summed over ranks; the audio kernels'
 over phases 4, 10, 11, 13, 14, 15 and 16;
 its max_abs_err is the largest over all its shapes; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
@@ -283,6 +306,7 @@ as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -3237,6 +3261,294 @@ def training_phase(torch, np, card) -> dict:
     return out
 
 
+TP_ARCH = "tinyllama-1.1b"
+TP_ROWS, TP_PROMPT, TP_STEPS = 8, 64, 16
+TP_FP32_TOL = 1e-4   # max abs logit difference over the unsharded logits' max abs (fp32)
+# case: (mesh (data, model), depth or None for all layers, dtype)
+TP_CASES = {"a": ((1, 2), None, "bfloat16"), "b": ((1, 8), 2, "float32"),
+            "c": ((2, 2), 2, "float32")}
+TP_CASE_A4 = ((1, 4), None, "bfloat16")   # case (a) at tp 4: four cards, one a rank, NCCL
+# decode attention (B, H, KH, D, S, dtype) at tp 2 on h2o-danube-1.8b's
+# heads (head size 80, its 4,096-slot window ring) and phi-3-vision's (head
+# size 96, a 144-slot ring): the families the CPU tests serve sharded at
+# reduced size, whose rank shapes no phase-18 case runs
+TP_FAMILY_DECODE_SHAPES = [(8, 16, 4, 80, 4096, "bfloat16"), (8, 16, 16, 96, 144, "bfloat16")]
+
+
+def tp_config(case):
+    from repro_torch.configs import get_config
+
+    _, depth, dtype = case
+    cfg = get_config(TP_ARCH)
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers, dtype=dtype)
+
+
+def tp_weights(torch, cfg, device):
+    """Seed-0 weights in cfg.dtype, the same in every process on the card
+    (`params.iter_params` draws the same bits leaf by leaf)."""
+    from repro_torch.models.params import init_params
+
+    return init_params(cfg, torch.Generator(device).manual_seed(0), device, cfg.dtype)
+
+
+def tp_rank_shape(case):
+    """(B, H, KH, D, S, dtype): the decode attention each rank of a case
+    launches: its rows, its share of the head-padded heads, the ring."""
+    from repro_torch.configs import serve_config
+    from repro_torch.models.params import ring_len
+
+    (data, tp), _, dtype = case
+    cfg = tp_config(case)
+    scfg = serve_config(cfg, tp)
+    return (TP_ROWS // data, scfg.n_heads // tp, scfg.n_kv_heads // tp, cfg.hd,
+            ring_len(cfg, TP_PROMPT + TP_STEPS), dtype)
+
+
+def tp_kernel_rows(torch, F, np, cases):
+    """Decode attention at every rank shape of `cases` and the four-card
+    case, and at TP_FAMILY_DECODE_SHAPES: held against its plain version,
+    timed and bounded as phase 7 does."""
+    from repro_torch.kernels import decode_attention as kd
+
+    rng = np.random.default_rng(1818)
+    shapes = dict.fromkeys([tp_rank_shape(c) for c in (*cases.values(), TP_CASE_A4)]
+                           + TP_FAMILY_DECODE_SHAPES)
+    rows = [decode_row(torch, F, np, kd, rng, shape)[0] for shape in shapes]
+    torch.cuda.synchronize()
+    report_decode_rows(rows)
+    return rows
+
+
+def tp_decode(torch, prefill, decode, params, tokens, forced):
+    """Prefill, then TP_STEPS decode steps, step i fed forced[:, i]
+    (teacher forcing). Returns (the 17 logits [B, V] on the card, each
+    decode step's wall ms)."""
+    logits, cache = prefill(params, {"tokens": tokens, "cache_len": TP_PROMPT + TP_STEPS})
+    out, walls = [logits[:, 0]], []
+    for i in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(params, {"cache": cache, "tokens": forced[:, i:i + 1],
+                                        "pos": TP_PROMPT + i})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits[:, 0])
+    return out, walls
+
+
+def tp_rank(rank, world, backend, case, tokens, forced):
+    """One rank of a phase-18 case: its mesh; its shards of the seed-0
+    weights, cut leaf by leaf as each is drawn on the card, so that besides
+    the shards only one full leaf is ever on the card; the sharded prefill
+    and decode, with every decode attention of the first and the last step
+    held against its plain version on the rank's own q, K/V ring and
+    valid_len. Returns plain data."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.core import steps
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import iter_params, leaves, param_specs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape, depth, dtype = case
+    if depth is not None:
+        # the depth cut puts the model under 1B parameters, the small-serve
+        # layout's rule; the full-depth model (1.1B) takes the head layout
+        shd._small_serve = lambda cfg: False
+    cfg = tp_config(case)
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    local = steps.shard_params(
+        iter_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda", cfg.dtype), cfg, mesh)
+    peak = torch.cuda.max_memory_allocated() - base
+    scfg = steps.tp_serve_cfg(cfg, mesh)
+    tp = shape[1]
+    sharded = replicated = leaf_peak = 0
+    elt = param_specs(cfg, dtype=cfg.dtype)["embed"].element_size()
+    true_numel = {k: v.numel() for k, v in leaves(param_specs(cfg))}
+    pl = steps.serve_param_shardings(scfg, mesh)
+    for (path, spec), (_, p) in zip(leaves(param_specs(scfg, dtype=scfg.dtype)), leaves(pl)):
+        nbytes = spec.numel() * spec.element_size()
+        if any(x != shd.Replicate() for x in p):
+            sharded += nbytes
+        else:
+            replicated += nbytes
+        # one leaf in flight: drawn in fp32, cast, padded, its shard copied
+        leaf_peak = max(leaf_peak, true_numel[path] * (4 + elt) + nbytes * (1 + 1 / tp))
+    local_bytes = sum(t.numel() * t.element_size() for _, t in leaves(local))
+    toks = steps.shard_batch(torch.from_numpy(tokens).cuda(), mesh)
+    forced_t = steps.shard_batch(torch.from_numpy(forced).cuda(), mesh)
+    prefill, decode = steps.sharded_prefill(cfg, mesh), steps.sharded_decode(cfg, mesh)
+    layers, calls, held = cfg.n_layers, [0], []
+    kernel = ops.decode_attention
+
+    def decode_attention(q, k, v, valid_len):
+        out = kernel(q, k, v, valid_len)
+        i = calls[0]
+        calls[0] += 1
+        if i < layers or i >= layers * (TP_STEPS - 1):   # the first and the last step
+            want = kd.decode_attention_plain(q, k, v, valid_len)
+            err = errors(torch, f"decode_attention/{dtype}", out.float(), want.float())
+            held.append((tuple(q.shape) + (k.shape[2], k.shape[1]), err[0], err[2]))
+        return out
+
+    ops.decode_attention = decode_attention
+    kernels.reset_launch_counts()
+    try:
+        logits, walls = tp_decode(torch, prefill, decode, local, toks, forced_t)
+    finally:
+        ops.decode_attention = kernel
+    launches = kernels.launch_counts()["decode_attention"]
+    stacked = torch.stack(logits).float()                     # [17, B_local, V]
+    coord = mesh.get_coordinate()
+    wq = local["body"]["l0"]["mixer"]["wq"]
+    return dict(
+        rank=rank, world=world, backend=backend, coord=list(coord),
+        heads=int(wq.shape[-3] * wq.shape[-2]), kv_heads=int(wq.shape[-3]),
+        serve_heads=(scfg.n_heads, scfg.n_kv_heads), local_bytes=local_bytes,
+        expected_bytes=sharded / tp + replicated, peak_bytes=peak,
+        peak_bound=local_bytes + leaf_peak, launches=launches, step_ms=walls,
+        # (B, H, D, KH, S) of each held call, its max abs error, within tolerance
+        held=[(b, h, d, kh, s) for (b, h, d, kh, s), _, _ in held],
+        held_err=max(e for _, e, _ in held), held_ok=all(ok for *_, ok in held),
+        tokens=stacked.argmax(-1).cpu().numpy(),
+        # every model rank holds the same gathered logits: one a data shard returns them
+        logits=stacked.cpu().numpy() if coord[1] == 0 else None)
+
+
+def tp_case(torch, np, name, case, card):
+    """One case: the unsharded port in this process (greedy), then the
+    ranks, fed its tokens."""
+    from repro_torch.core import steps
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.params import leaves
+
+    shape, _, dtype = case
+    cfg = tp_config(case)
+    tokens = np.random.default_rng(18).integers(0, cfg.vocab, (TP_ROWS, TP_PROMPT))
+    params = tp_weights(torch, cfg, "cuda")
+    full_bytes = sum(t.numel() * t.element_size() for _, t in leaves(params))
+    prefill, decode = steps.make_prefill(cfg), steps.make_decode(cfg)
+    logits, cache = prefill(params, {"tokens": torch.from_numpy(tokens).cuda(),
+                                     "cache_len": TP_PROMPT + TP_STEPS})
+    greedy = [logits.argmax(-1)]
+    for i in range(TP_STEPS - 1):
+        logits, cache = decode(params, {"cache": cache, "tokens": greedy[-1],
+                                        "pos": TP_PROMPT + i})
+        greedy.append(logits.argmax(-1))
+    forced = torch.cat(greedy, 1).cpu().numpy()                # [B, TP_STEPS]
+    del cache
+    # the unsharded run on the same inputs as the ranks: teacher-forced
+    ref, ref_walls = tp_decode(torch, prefill, decode, params,
+                               torch.from_numpy(tokens).cuda(), torch.from_numpy(forced).cuda())
+    ref = torch.stack(ref).float()
+    ref_top2 = torch.topk(ref, 2, dim=-1).values
+    ref_tokens = ref.argmax(-1).cpu().numpy()                  # [17, B]
+    ref_gaps = (ref_top2[..., 0] - ref_top2[..., 1]).cpu().numpy()
+    ref = ref.cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    fp32 = dtype == "float32"
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, world, (case, tokens, forced), device="cuda", timeout=600)
+    wall_s = time.perf_counter() - t0
+    rows = TP_ROWS // shape[0]
+    rank_shape = tp_rank_shape(case)
+    b, h, kh, d, s, _ = rank_shape
+    for r in ranks:
+        want = cfg.n_layers * TP_STEPS
+        if r["launches"] != want:
+            fail(f"tensor-parallel ({name}): rank {r['rank']} ran decode attention "
+                 f"{r['launches']} times, not {cfg.n_layers} layers x {TP_STEPS} steps")
+        if abs(r["local_bytes"] - r["expected_bytes"]) > 0.01 * r["expected_bytes"]:
+            fail(f"tensor-parallel ({name}): rank {r['rank']} holds {r['local_bytes']} "
+                 f"weight bytes, not {r['expected_bytes']:.0f} (sharded / tp + replicated)")
+        if r["peak_bytes"] > r["peak_bound"]:
+            fail(f"tensor-parallel ({name}): rank {r['rank']} reached {r['peak_bytes']} "
+                 f"bytes on the card while cutting its weights, over its shards and one "
+                 f"leaf in flight ({r['peak_bound']:.0f})")
+        if len(r["held"]) != 2 * cfg.n_layers or set(r["held"]) != {(b, h, d, kh, s)}:
+            fail(f"tensor-parallel ({name}): rank {r['rank']} held {len(r['held'])} decode "
+                 f"attention calls at {sorted(set(r['held']))}, not {2 * cfg.n_layers} at "
+                 f"the rank shape {rank_shape}")
+        if not r["held_ok"]:
+            fail(f"tensor-parallel ({name}): rank {r['rank']}'s decode attention differs "
+                 f"from its plain version on the rank's inputs by {r['held_err']:.3e}, beyond "
+                 f"{TOL[f'decode_attention/{dtype}']}")
+    got_tokens = np.zeros_like(ref_tokens)
+    logit_err = 0.0
+    for r in ranks:
+        sl = slice(r["coord"][0] * rows, (r["coord"][0] + 1) * rows)
+        if r["coord"][1] != 0 and not np.array_equal(r["tokens"], got_tokens[:, sl]):
+            fail(f"tensor-parallel ({name}): the model ranks of data shard "
+                 f"{r['coord'][0]} disagree")
+        got_tokens[:, sl] = r["tokens"]
+        if r["logits"] is not None:
+            logit_err = max(logit_err, float(np.abs(r["logits"] - ref[:, sl]).max()))
+    tie = NEAR_TIE if not fp32 else TP_FP32_TOL
+    # every step's greedy token, both sides teacher-forced
+    diff = np.argwhere(got_tokens != ref_tokens)
+    for k, row in diff:
+        if ref_gaps[k, row] >= tie:
+            fail(f"tensor-parallel ({name}): row {row} step {k} token {got_tokens[k, row]} "
+                 f"vs unsharded {ref_tokens[k, row]}, top-2 gap {ref_gaps[k, row]:.3e} "
+                 f">= {tie}")
+    scale = float(np.abs(ref).max())
+    if fp32 and not logit_err <= TP_FP32_TOL * scale:
+        fail(f"tensor-parallel ({name}): logits {logit_err:.3e} from the unsharded port's "
+             f"(max abs {scale:.3e}, tolerance {TP_FP32_TOL} of it)")
+    r0 = ranks[0]
+    tp = shape[1]
+    if r0["kv_heads"] * tp != max(cfg.n_kv_heads, tp) or r0["heads"] * tp < cfg.n_heads:
+        fail(f"tensor-parallel ({name}): {r0['heads']} q heads and {r0['kv_heads']} KV "
+             f"heads a rank at tp {tp} (serve heads {r0['serve_heads']})")
+    out = dict(
+        mesh=list(shape), layers=cfg.n_layers, dtype=dtype, backend=r0["backend"],
+        world=world, serve_heads=list(r0["serve_heads"]),
+        rank_heads=[r0["heads"], r0["kv_heads"]], rank_kernel_shape=list(rank_shape[:5]),
+        rank_weight_bytes=[r["local_bytes"] for r in ranks],
+        expected_weight_bytes=r0["expected_bytes"],
+        rank_peak_bytes_while_cutting=[r["peak_bytes"] for r in ranks],
+        peak_bound_bytes=r0["peak_bound"],
+        full_weight_bytes=full_bytes,
+        launches_per_rank=[r["launches"] for r in ranks],
+        launches=sum(r["launches"] for r in ranks),
+        held_calls_per_rank=len(r0["held"]),
+        held_max_abs_err=max(r["held_err"] for r in ranks),
+        near_ties=int(len(diff)), checked_tokens=int(got_tokens.size),
+        agreement=float((got_tokens == ref_tokens).mean()),
+        max_abs_logit_err=logit_err, ref_max_abs_logit=scale,
+        step_ms_tp1=float(np.median(ref_walls[1:-1])),
+        step_ms=float(np.median(r0["step_ms"][1:-1])), ranks_wall_s=wall_s, card=card)
+    print(f"tensor-parallel ({name}): " + json.dumps(out))
+    return out
+
+
+def tensor_parallel_phase(torch, F, np, card, cases=None) -> dict:
+    """Phase 18: decode attention at the ranks' shapes, then the sharded
+    serve steps on spawned ranks (TP_CASES)."""
+    t0 = time.perf_counter()
+    cases = cases or TP_CASES
+    out = {"kernel_rows": tp_kernel_rows(torch, F, np, cases)}
+    for name, case in cases.items():
+        out[name] = tp_case(torch, np, name, case, card)
+    out["launches"] = {"decode_attention": sum(out[n]["launches"] for n in cases)}
+    out["phase_s"] = time.perf_counter() - t0
+    for name in cases:
+        v = out[name]
+        print(f"tensor-parallel ({name}): backend {v['backend']}, world {v['world']}, "
+              f"decode step {v['step_ms_tp1']:.2f} ms at tp 1, {v['step_ms']:.2f} ms at tp "
+              f"{v['mesh'][1]} | {card}")
+    print(f"tensor-parallel phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -3325,6 +3637,10 @@ def main() -> int:
 
     # 17. training on the card (tinyllama-1.1b), then serving the trained weights
     train_stats = training_phase(torch, np, card)
+
+    # 18. tensor-parallel serving on ranks that share the card
+    tp_stats = tensor_parallel_phase(torch, F, np, card)
+    decode_rows += tp_stats["kernel_rows"]
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
                                                 controller_stats, mt_stats, *new_runs[:5],
@@ -3335,7 +3651,7 @@ def main() -> int:
         st["launches"]["decode_attention"]
         for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats,
                    knee_stats, controller_stats, mt_stats, *new_runs, *family_runs,
-                   train_stats["serve"]))}}
+                   train_stats["serve"], tp_stats))}}
 
     line = []
     for name, shape_rows, main_of, run in (
@@ -3378,7 +3694,8 @@ def main() -> int:
              "controller": controller_stats, "two_model_fleet": mt_stats,
              "new_archs": new_stats,
              "families": {k: v for k, v in family_stats.items() if k != "kernel_rows"},
-             "training": train_stats},
+             "training": train_stats,
+             "tensor_parallel": {k: v for k, v in tp_stats.items() if k != "kernel_rows"}},
             indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")

@@ -6,11 +6,15 @@ engine admits. whisper-base is the tenth: its prefill needs
 package's), so it runs through `LM.prefill(..., audio_frames=)`,
 `decode` and `generate` only."""
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     ModelConfig,
+    ShapeConfig,
     get_config,
     list_archs,
     reduced,
     register,
+    serve_config,
+    shape_applicable,
 )
 
 from repro_torch.configs import (  # noqa: F401

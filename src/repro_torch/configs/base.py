@@ -149,6 +149,35 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Shape configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell is in-family: a 500k-token decode only
+    for an arch whose long-context decode is subquadratic."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic():
+        return False, "long_500k skipped: pure full-attention arch (see DESIGN.md)"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -211,3 +240,22 @@ def reduced(name_or_cfg) -> ModelConfig:
     cfg = get_config(name_or_cfg) if isinstance(name_or_cfg, str) else name_or_cfg
     reducer = _REDUCERS.get(cfg.name, _default_reduce)
     return replace(reducer(cfg), name=cfg.name + "-reduced")
+
+
+def serve_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """Head-padded config for tensor-parallel serving over `tp` ranks.
+
+    When n_kv_heads < tp, KV heads are replicated rep = tp // n_kv_heads
+    times (so the kv axis shards evenly) and q heads are re-factored and
+    zero-padded into [kv_eff, g_eff] slots (`models/serve_pad.py`); the
+    padded wo rows are zero, so the outputs are exact. Raises when tp is
+    not a multiple of n_kv_heads."""
+    if cfg.family == "ssm" or cfg.n_kv_heads % tp == 0 or tp <= 1:
+        return cfg
+    kh = cfg.n_kv_heads
+    if tp % kh:
+        raise ValueError(f"tp={tp} not a multiple of kv_heads={kh} for {cfg.name}")
+    rep = tp // kh
+    g = cfg.n_heads // kh
+    g_eff = -(-g // rep)
+    return replace(cfg, n_kv_heads=tp, n_heads=tp * g_eff)

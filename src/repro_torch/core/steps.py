@@ -1,20 +1,37 @@
 """Step factories: the train step (loss, backward, AdamW), prefill and
-decode, as the train loop and the serving paths call them.
+decode, as the train loop and the serving paths call them, and the sharding
+the JAX package attaches to them on a device mesh.
 
 The train step differentiates with respect to a `cfg.dtype` copy of the
 fp32 master weights (the JAX package's bf16 gradient tree), hands fp32
-gradients to AdamW, and accumulates fp32 gradients over microbatches. The
-factories that attach a device mesh's shardings wait for the port's
-distributed slice."""
+gradients to AdamW, and accumulates fp32 gradients over microbatches.
+
+On a mesh, the JAX package lowers each step with shardings and lets GSPMD
+insert the collectives. Here each rank runs the same model functions on its
+own local shards: `shard_params` cuts the (head-padded) weights by the
+serve rules' placements, and `sharded_prefill` / `sharded_decode` set the
+ambient mesh, under which the model closes each sharded contraction with
+an all-reduce over the `model` axis (`distributed/ctx.py`): heads, KV heads,
+MLP and vocab over `model`, batch and cache rows over `data`. The decode
+kernel runs on each rank's local heads. The train side's fields and
+shardings (`_train_fields`, `train_state_shardings`) are rules only: no
+sharded train step runs them yet."""
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Shard
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, serve_config
+from repro_torch.distributed import ctx as dctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
-from repro_torch.models.params import init_params, leaves, tree_map, unflatten
+from repro_torch.models.params import (_set, cache_axes, cache_specs, init_params,
+                                       leaves, param_axes, param_specs, tree_map,
+                                       unflatten)
+from repro_torch.models.serve_pad import padded_leaves
 from repro_torch.training.optimizer import OptConfig, adamw_update, init_opt_state
 
 Tree = Dict[str, Any]
@@ -27,6 +44,61 @@ TRAIN_MICROBATCHES = {
     "moonshot-v1-16b-a3b": 4,
     "yi-34b": 1,
 }
+
+
+def _moe_fields(cfg: ModelConfig, mesh, group_axes) -> dict:
+    """The MoE distribution fields the JAX package's step configs set:
+    their names and values. Nothing here reads them yet: expert-parallel
+    MoE is ROADMAP Queue 1 item 7.2."""
+    sizes = shd.axis_sizes(mesh)
+    if not cfg.n_experts or math.prod(sizes.values()) == 1:
+        return {}
+    ep = "data" if cfg.n_experts % sizes["data"] == 0 else ""
+    return {"moe_shard_constraints": True, "moe_ep_axis": ep,
+            "moe_group_axes": tuple(group_axes)}
+
+
+def _train_fields(cfg: ModelConfig, mesh, batch: int) -> dict:
+    """The distribution fields the JAX package's `_train_cfg` sets on the
+    train config: the attention batch-DP axes when the (micro)batch can
+    occupy the whole mesh; the MoE fields, groups on the data axes. Rules
+    only, kept as a dict until the sharded train step (ROADMAP Queue 1
+    item 7.1) reads them."""
+    sizes = shd.axis_sizes(mesh)
+    n = math.prod(sizes.values())
+    fields = {}
+    if n > 1 and batch >= n // 2:
+        fields["attn_dp_axes"] = tuple(sizes)
+    dp = ("pod", "data") if "pod" in sizes else ("data",)
+    fields.update(_moe_fields(cfg, mesh, dp))
+    return fields
+
+
+def _serve_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
+    """The head-padded serve config for the mesh's `model` axis (small
+    models keep their heads: they shard the cache along its sequence). The
+    JAX package's `_serve_cfg` also sets the MoE fields, which are
+    `_moe_fields` here."""
+    if not shd._small_serve(cfg):
+        cfg = serve_config(cfg, int(shd.axis_sizes(mesh).get("model", 1)))
+    return cfg
+
+
+def train_state_specs(cfg: ModelConfig) -> Tree:
+    """The train state's shapes and types as meta tensors: the weights in
+    cfg.param_dtype, fp32 moments, an int32 step."""
+    p = param_specs(cfg)
+    f32 = lambda t: tree_map(lambda s: torch.empty(s.shape, dtype=torch.float32,
+                                                   device="meta"), t)
+    return {"params": p, "opt": {"mu": f32(p), "nu": f32(p),
+                                 "step": torch.empty((), dtype=torch.int32, device="meta")}}
+
+
+def train_state_shardings(cfg: ModelConfig, mesh) -> Tree:
+    rules = shd.train_rules(mesh, cfg)
+    pshard = shd.tree_shardings(param_specs(cfg), param_axes(cfg), rules, mesh)
+    return {"params": pshard,
+            "opt": {"mu": pshard, "nu": pshard, "step": shd.scalar_sharding(mesh)}}
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator, device) -> Tree:
@@ -90,12 +162,14 @@ def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None,
 
 
 def make_prefill(cfg: ModelConfig):
-    """prefill_fn(params, {"tokens", and "img_embeds" or "audio_frames"})
-    -> (last-position logits [B, 1, V], cache)."""
+    """prefill_fn(params, {"tokens", and "img_embeds" or "audio_frames",
+    and "cache_len", the KV slots to allocate, the prompt length if not
+    given}) -> (last-position logits [B, 1, V], cache)."""
     @torch.no_grad()
     def prefill_fn(params: Tree, inputs: Dict[str, Any]):
         return lm.prefill(params, inputs["tokens"], cfg, img_embeds=inputs.get("img_embeds"),
-                          audio_frames=inputs.get("audio_frames"))
+                          audio_frames=inputs.get("audio_frames"),
+                          cache_len=inputs.get("cache_len"))
 
     return prefill_fn
 
@@ -106,5 +180,133 @@ def make_decode(cfg: ModelConfig):
     @torch.no_grad()
     def decode_fn(params: Tree, inputs: Dict[str, Any]):
         return lm.decode(params, inputs["cache"], inputs["tokens"], int(inputs["pos"]), cfg)
+
+    return decode_fn
+
+
+# ---------------------------------------------------------------------------
+# Serve on a mesh: tensor parallel over `model`, rows over `data`
+# ---------------------------------------------------------------------------
+
+# What the sharded serve steps refuse, and the slice of ROADMAP Queue 1
+# item 7 that will take it.
+_FAMILY_SLICE = ("item 7.2, expert-parallel MoE (moe_shard_map) and tensor-parallel "
+                 "serving of the MoE, SSM, hybrid and encoder-decoder families")
+_NOT_YET = (
+    (lambda c: c.n_experts > 0, "experts", _FAMILY_SLICE),
+    (lambda c: any(m == "ssm" for m, _ in c.layer_kinds()), "SSM layers", _FAMILY_SLICE),
+    (lambda c: c.enc_layers > 0, "an encoder", _FAMILY_SLICE),
+    (lambda c: shd._small_serve(c), "under 1B parameters, which takes the small-serve "
+     "layout", "item 7.3, the seq-sharded small-model layout"),
+)
+
+
+def serve_param_shardings(cfg: ModelConfig, mesh) -> Tree:
+    """The serve placements of every weight of `cfg` (a serve config)."""
+    rules = shd.serve_rules(mesh, cfg)
+    return shd.tree_shardings(param_specs(cfg, dtype=cfg.dtype), param_axes(cfg), rules,
+                              mesh)
+
+
+def serve_cache_shardings(cfg: ModelConfig, mesh, batch: int, cache_len: int) -> Tree:
+    rules = shd.serve_rules(mesh, cfg)
+    return shd.tree_shardings(cache_specs(cfg, batch, cache_len),
+                              cache_axes(cfg, batch, cache_len), rules, mesh)
+
+
+def tp_serve_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
+    """`_serve_cfg` for the sharded serve steps, which take the dense
+    attention families (dense, window, vision-language) at 1B parameters or
+    more. Raises, naming the slice still to come, for a config with experts,
+    SSM layers or an encoder, or one that takes the small-serve layout; and
+    for a layout the model's collectives cannot close: with a `model` axis
+    wider than 1, every head, KV-head, MLP and vocab dim must be cut over
+    it."""
+    for test, what, slice_ in _NOT_YET:
+        if test(cfg):
+            raise NotImplementedError(
+                f"{cfg.name} has {what}: tensor-parallel serving of it waits for "
+                f"ROADMAP Queue 1 {slice_}")
+    scfg = _serve_cfg(cfg, mesh)
+    sizes = shd.axis_sizes(mesh)
+    if sizes.get("model", 1) > 1:
+        m = list(sizes).index("model")
+        rules = shd.serve_rules(mesh, scfg)
+        all_axes = dict(leaves(param_axes(scfg)))
+        for path, spec in leaves(param_specs(scfg, dtype=scfg.dtype)):
+            axes = all_axes[path]
+            pl = shd.spec_for(spec.shape, axes, rules, mesh)
+            for d, ax in enumerate(axes):
+                if ax in ("kv_heads", "mlp", "vocab") and pl[m] != Shard(d):
+                    raise ValueError(
+                        f"{cfg.name} on {sizes}: {path} dim {d} ({ax}, "
+                        f"{spec.shape[d]}) is not cut over the model axis")
+    return scfg
+
+
+def _coordinate(mesh, coordinate):
+    return list(mesh.get_coordinate()) if coordinate is None else list(coordinate)
+
+
+def shard_params(params, cfg: ModelConfig, mesh, coordinate=None) -> Tree:
+    """This rank's local shards of the weights of `cfg`, leaf by leaf: each
+    leaf head-padded for the mesh's `model` axis (`serve_pad.padded_leaves`)
+    and cut by its serve placements, on the leaf's device. `params` is a
+    full tree, or an iterable of (path, leaf) in sorted path order, such as
+    `params.iter_params` drawing on the card: each leaf is padded and cut as
+    it comes, so besides the shards kept only the current full leaf (and
+    its padded copy) is ever alive. A cut leaf is a copy of its own; a
+    replicated one is the same tensor. coordinate: the rank's index a mesh
+    dim (default: this process's)."""
+    scfg = tp_serve_cfg(cfg, mesh)
+    tp = int(shd.axis_sizes(mesh).get("model", 1))
+    coord = _coordinate(mesh, coordinate)
+    placements = dict(leaves(serve_param_shardings(scfg, mesh)))
+    items = leaves(params) if isinstance(params, dict) else params
+    out: Tree = {}
+    for path, t in padded_leaves(items, cfg, tp):
+        pl = placements.pop(path)
+        if any(isinstance(p, Shard) for p in pl):
+            t = shd.local_shard(t, pl, mesh, coord).clone(memory_format=torch.contiguous_format)
+        _set(out, path, t)
+    if placements:
+        raise ValueError(f"{cfg.name}: weights missing from the tree: {sorted(placements)}")
+    return out
+
+
+def shard_batch(x: torch.Tensor, mesh, coordinate=None) -> torch.Tensor:
+    """This rank's rows of a batch-major input (tokens, img_embeds): cut
+    over the data axes, the same on every `model` rank; all of them when
+    the data axes do not divide the batch."""
+    pl = shd.spec_for(x.shape, ("batch",) + (None,) * (x.dim() - 1), shd.serve_rules(mesh),
+                      mesh)
+    return shd.local_shard(x, pl, mesh, _coordinate(mesh, coordinate)).contiguous()
+
+
+def sharded_prefill(cfg: ModelConfig, mesh):
+    """The tensor-parallel prefill (the JAX package's `lower_prefill`):
+    prefill_fn(local params, inputs as `make_prefill` takes them, cut by
+    `shard_batch`) -> (logits [B_local, 1, V], this rank's cache: its rows
+    and KV heads). Runs `make_prefill` of `tp_serve_cfg(cfg, mesh)` under
+    the mesh."""
+    fn = make_prefill(tp_serve_cfg(cfg, mesh))
+
+    def prefill_fn(params: Tree, inputs: Dict[str, Any]):
+        with dctx.mesh_context(mesh):
+            return fn(params, inputs)
+
+    return prefill_fn
+
+
+def sharded_decode(cfg: ModelConfig, mesh):
+    """The tensor-parallel decode step (the JAX package's `lower_decode`):
+    decode_fn(local params, {"cache": this rank's cache, "tokens" [B_local,
+    1], "pos"}) -> (logits [B_local, 1, V], cache updated in place). The
+    decode-attention kernel runs on the rank's local heads."""
+    fn = make_decode(tp_serve_cfg(cfg, mesh))
+
+    def decode_fn(params: Tree, inputs: Dict[str, Any]):
+        with dctx.mesh_context(mesh):
+            return fn(params, inputs)
 
     return decode_fn

@@ -5,8 +5,9 @@
 
 A CPU run at a reduced size: --device cpu --reduced [--steps 20 --batch 4
 --seq 64]. The production mesh flags of the JAX package's launcher
-(--production-mesh, --multi-pod) are refused: the port has no device mesh
-yet.
+(--production-mesh, --multi-pod) build that mesh (launch/mesh.py), which
+needs a world of 256 (512) ranks and says so in a smaller one; training on
+it waits for the sharded train step, so the launcher then stops there.
 """
 from __future__ import annotations
 
@@ -25,14 +26,21 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="refused: needs the device mesh the port does not have yet")
+                    help="the 16 x 16 mesh (256 ranks); no sharded train step yet")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: needs the device mesh the port does not have yet")
+                    help="the 2 x 16 x 16 mesh (512 ranks); no sharded train step yet")
     args = ap.parse_args(argv)
-    for flag in ("production_mesh", "multi_pod"):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} needs a device mesh, which this port "
-                     "does not have yet (one device: omit the flag)")
+    if args.production_mesh or args.multi_pod:
+        from repro_torch.launch.mesh import make_production_mesh
+
+        flag = "--multi-pod" if args.multi_pod else "--production-mesh"
+        try:
+            make_production_mesh(multi_pod=args.multi_pod, device=args.device)
+        except ValueError as e:
+            ap.error(f"{flag}: {e}")
+        ap.error(f"{flag}: training on a device mesh waits for the sharded train step "
+                 "with allreduce_compressed (ROADMAP Queue 1 item 7.1); one device: "
+                 "omit the flag")
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.data.pipeline import DataConfig

@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx as dctx
+
 NEG_INF = -1e30
 
 
@@ -173,11 +175,13 @@ def attention(q, k, v, qpos, kpos, *, causal=True, window=0, pos0=0, kv_block=51
 
 
 def mlp(x: torch.Tensor, p) -> torch.Tensor:
-    """SiLU-gated MLP: (silu(x Wg) * (x Wu)) Wo."""
+    """SiLU-gated MLP: (silu(x Wg) * (x Wu)) Wo. Over a shard of the hidden
+    units (a tensor-parallel rank's), Wo's product is partial and closes
+    with a sum over the mesh's `model` axis (the identity on one device)."""
     dt = x.dtype
     g = x @ p["wi_gate"].to(dt)
     u = x @ p["wi_up"].to(dt)
-    return (F.silu(g) * u) @ p["wo"].to(dt)
+    return dctx.matmul_model(F.silu(g) * u, p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------

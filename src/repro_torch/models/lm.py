@@ -41,6 +41,14 @@ its prompt KV lands on ring slots 0..n-1, and every decode step writes row
 b's slot (clock - pos_offset[b]) mod ring — so the decode step never changes
 shape as requests come and go, and a row's KV layout is the layout of an
 isolated per-request cache no matter WHEN it joined.
+
+Tensor parallel. Under a mesh (`core/steps.sharded_prefill`/`sharded_decode`
+set it) the same functions run on one rank's shards: its KV heads and
+their query heads, its MLP hidden units and its rows of the vocab. The
+products that contract over a shard (the attention output, the MLP's wo)
+and the vocab-sharded embedding and logits close over the mesh's `model`
+axis through `distributed/ctx.py`; with no mesh those calls return their
+input.
 """
 from __future__ import annotations
 
@@ -51,19 +59,16 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx as dctx
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.params import block_period
+from repro_torch.models.params import block_period, cache_specs, ring_len, tree_map
 
 Tree = Dict[str, Any]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def ring_len(cfg: ModelConfig, cache_len: int) -> int:
-    return min(cfg.sliding_window, cache_len) if cfg.sliding_window else cache_len
 
 
 def _layer(tree: Tree, i: int) -> Tree:
@@ -125,10 +130,32 @@ def _qkv(x: torch.Tensor, p: Tree, kv_x: Optional[torch.Tensor] = None):
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """o: [B, S, kh, g, hd] -> [B, S, D]."""
+    """o: [B, S, kh, g, hd] -> [B, S, D]. Over a shard of the heads (a
+    tensor-parallel rank's), the product is partial and closes with a sum
+    over the mesh's `model` axis (the identity on one device)."""
     B, S = o.shape[:2]
     w = wo.to(o.dtype)
-    return o.reshape(B, S, -1) @ w.reshape(-1, w.shape[-1])
+    return dctx.matmul_model(o.reshape(B, S, -1), w.reshape(-1, w.shape[-1]))
+
+
+def _embed(params: Tree, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings [..., D] in the activation dtype. Over a vocab shard
+    (a tensor-parallel rank holds rows [r n, (r + 1) n) of the table), a
+    masked local lookup, then the sum over the `model` axis, which is exact:
+    one rank holds each row and the others add zeros."""
+    table, dt = params["embed"], _dtype(cfg)
+    n = table.shape[0]
+    if n == cfg.padded_vocab:
+        return table[tokens].to(dt)
+    rank, size = dctx.model_coordinate()
+    if n * size != cfg.padded_vocab:
+        raise ValueError(f"embedding shard of {n} rows on a model axis of {size}: the "
+                         f"table has {cfg.padded_vocab} (set the mesh with "
+                         "distributed.ctx.mesh_context)")
+    local = tokens - rank * n
+    hit = (local >= 0) & (local < n)
+    x = table[torch.where(hit, local, torch.zeros_like(local))].to(dt)
+    return dctx.all_reduce_model(x * hit[..., None].to(dt))
 
 
 def _rope4(q: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
@@ -320,7 +347,7 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
             "slots. Pad such batches on the right by length bucket instead.")
     train = mode == "train"
     dt = _dtype(cfg)
-    x = params["embed"][tokens].to(dt)
+    x = _embed(params, tokens, cfg)
     if cfg.n_img_tokens and img_embeds is not None:
         x = torch.cat([img_embeds.to(device=x.device, dtype=dt),
                        x[:, cfg.n_img_tokens:]], dim=1)
@@ -349,9 +376,16 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def logits_from_hidden(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """fp32 logits [..., vocab]: products of the activation-dtype inputs
-    accumulated in fp32 (the JAX package's preferred_element_type=f32)."""
+    accumulated in fp32 (the JAX package's preferred_element_type=f32).
+    Over a vocab shard the local columns are gathered along the vocab over
+    the `model` axis first, and the padded vocab is stripped after."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = x.float() @ w.to(x.dtype).float()
+    if logits.shape[-1] != cfg.padded_vocab:
+        logits = dctx.gather_model_last(logits)
+        if logits.shape[-1] != cfg.padded_vocab:
+            raise ValueError(f"vocab shard of {w.shape[-1]} columns with no mesh of "
+                             f"{cfg.padded_vocab // w.shape[-1]} model ranks set")
     return logits[..., : cfg.vocab]  # strip the padded vocab slots
 
 
@@ -443,8 +477,7 @@ def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
     layer reads neither position: its step advances each row's conv tail
     and state. A cross-attention sublayer reads its encoder keys and
     values and writes nothing."""
-    dt = _dtype(cfg)
-    x = params["embed"][tokens].to(dt)
+    x = _embed(params, tokens, cfg)
     B = x.shape[0]
     kinds = cfg.layer_kinds()
     caches = _layers(cfg, cache)
@@ -518,37 +551,16 @@ def decode_segment(params: Tree, cache: Tree, tok: torch.Tensor, pos0: int,
 # ---------------------------------------------------------------------------
 
 
-def _cache_entry(cfg: ModelConfig, mixer: str, max_slots: int, cache_len: int,
-                 device) -> Tree:
-    """One layer's zero slot-pool entry."""
-    kv = (cfg.n_kv_heads, cfg.hd)
-    if mixer == "attn":
-        shape = (max_slots, ring_len(cfg, cache_len), *kv)
-        leaves = {"mixer": {"k": (shape, _dtype(cfg)), "v": (shape, _dtype(cfg))}}
-    else:
-        leaves = {"mixer": {
-            "conv": ((max_slots, cfg.ssm_conv - 1, cfg.conv_dim), _dtype(cfg)),
-            "state": ((max_slots, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
-                      torch.float32),
-        }}
-    if cfg.enc_layers:
-        shape = (max_slots, cfg.n_audio_ctx, *kv)
-        leaves["xattn"] = {"ck": (shape, _dtype(cfg)), "cv": (shape, _dtype(cfg))}
-    return {sub: {k: torch.zeros(shape, dtype=dt, device=device)
-                  for k, (shape, dt) in entry.items()}
-            for sub, entry in leaves.items()}
-
-
 def alloc_slot_pool(cfg: ModelConfig, max_slots: int, cache_len: int,
                     device: torch.device) -> Tree:
-    """Zero-initialized slot-pool cache tree, laid out as a prefill cache:
-    per attention layer K/V rings [max_slots, ring, kh, hd]; per SSM layer
-    the conv tail [max_slots, k-1, conv_dim] in the activation dtype and
-    the state [max_slots, h, p, n] in fp32; per cross-attention sublayer
-    the encoder K/V [max_slots, n_audio_ctx, kh, hd]; body leaves with a
-    leading block axis."""
-    return _assemble(cfg, [_cache_entry(cfg, m, max_slots, cache_len, device)
-                           for m, _ in cfg.layer_kinds()])
+    """Zero-initialized slot-pool cache tree, laid out as a prefill cache
+    (`params.cache_defs`): per attention layer K/V rings [max_slots, ring,
+    kh, hd]; per SSM layer the conv tail [max_slots, k-1, conv_dim] in the
+    activation dtype and the state [max_slots, h, p, n] in fp32; per
+    cross-attention sublayer the encoder K/V [max_slots, n_audio_ctx, kh,
+    hd]; body leaves with a leading block axis."""
+    return tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype, device=device),
+                    cache_specs(cfg, max_slots, cache_len))
 
 
 def _scatter_rows(pool: Tree, pre: Tree, keep: torch.Tensor, rows: torch.Tensor,
@@ -703,7 +715,7 @@ def prefill_chunk_into_slots(params: Tree, tokens: torch.Tensor, pool: Tree,
     qpos = (start.to(device=dev, dtype=torch.int64)[:, None]
             + torch.arange(C, device=dev)[None, :]) - off[:, None]
     valid = qpos >= 0
-    x = params["embed"][tokens].to(dt) * valid[..., None].to(dt)
+    x = _embed(params, tokens, cfg) * valid[..., None].to(dt)
     for sub, c in zip(_layers(cfg, params), _layers(cfg, pool)):
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
         x = x + _attn_chunk(h, sub["mixer"], cfg, c["mixer"]["k"], c["mixer"]["v"],

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +37,14 @@ Tree = Dict[str, Any]
 @dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # a logical axis a dim (distributed/sharding.py)
     init: str = "normal"  # normal | zeros | ones | dt_bias | a_log
     scale: float = 0.02
     expert: bool = False  # a routed expert's leaf (active_param_count)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
 
 
 def _attn_defs(cfg: ModelConfig) -> Tree:
@@ -47,11 +52,12 @@ def _attn_defs(cfg: ModelConfig) -> Tree:
     g = cfg.n_heads // kh
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     return {
-        "ln": ParamDef((d,), "ones"),
-        "wq": ParamDef((d, kh, g, hd)),
-        "wk": ParamDef((d, kh, hd)),
-        "wv": ParamDef((d, kh, hd)),
-        "wo": ParamDef((kh, g, hd, d), scale=out_scale),
+        "ln": ParamDef((d,), (None,), "ones"),
+        "wq": ParamDef((d, kh, g, hd), ("embed", "kv_heads", None, "head_dim")),
+        "wk": ParamDef((d, kh, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, kh, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((kh, g, hd, d), ("kv_heads", None, "head_dim", "embed"),
+                       scale=out_scale),
     }
 
 
@@ -59,10 +65,10 @@ def _mlp_defs(cfg: ModelConfig) -> Tree:
     d = cfg.d_model
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     return {
-        "ln": ParamDef((d,), "ones"),
-        "wi_gate": ParamDef((d, cfg.d_ff)),
-        "wi_up": ParamDef((d, cfg.d_ff)),
-        "wo": ParamDef((cfg.d_ff, d), scale=out_scale),
+        "ln": ParamDef((d,), (None,), "ones"),
+        "wi_gate": ParamDef((d, cfg.d_ff), ("embed", "mlp")),
+        "wi_up": ParamDef((d, cfg.d_ff), ("embed", "mlp")),
+        "wo": ParamDef((cfg.d_ff, d), ("mlp", "embed"), scale=out_scale),
     }
 
 
@@ -71,18 +77,19 @@ def _moe_defs(cfg: ModelConfig) -> Tree:
     f = cfg.moe_d_ff or cfg.d_ff
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     defs: Tree = {
-        "ln": ParamDef((d,), "ones"),
-        "router": ParamDef((d, e)),
-        "wi_gate": ParamDef((e, d, f), expert=True),
-        "wi_up": ParamDef((e, d, f), expert=True),
-        "wo": ParamDef((e, f, d), scale=out_scale, expert=True),
+        "ln": ParamDef((d,), (None,), "ones"),
+        "router": ParamDef((d, e), ("embed", None)),
+        "wi_gate": ParamDef((e, d, f), ("expert", "expert_embed", "expert_mlp"), expert=True),
+        "wi_up": ParamDef((e, d, f), ("expert", "expert_embed", "expert_mlp"), expert=True),
+        "wo": ParamDef((e, f, d), ("expert", "expert_mlp", "expert_embed"), scale=out_scale,
+                       expert=True),
     }
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * f
         defs["shared"] = {
-            "wi_gate": ParamDef((d, fs)),
-            "wi_up": ParamDef((d, fs)),
-            "wo": ParamDef((fs, d), scale=out_scale),
+            "wi_gate": ParamDef((d, fs), ("embed", "mlp")),
+            "wi_up": ParamDef((d, fs), ("embed", "mlp")),
+            "wo": ParamDef((fs, d), ("mlp", "embed"), scale=out_scale),
         }
     return defs
 
@@ -92,23 +99,24 @@ def _ssm_defs(cfg: ModelConfig) -> Tree:
     di, cd, h = cfg.d_inner, cfg.conv_dim, cfg.n_ssm_heads
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     return {
-        "ln": ParamDef((d,), "ones"),
-        "in_z": ParamDef((d, di)),
-        "in_xbc": ParamDef((d, cd)),
-        "in_dt": ParamDef((d, h)),
-        "conv_w": ParamDef((cd, cfg.ssm_conv), scale=0.1),
-        "conv_b": ParamDef((cd,), "zeros"),
-        "dt_bias": ParamDef((h,), "dt_bias"),
-        "A_log": ParamDef((h,), "a_log"),
-        "D": ParamDef((h,), "ones"),
-        "norm_w": ParamDef((di,), "ones"),
-        "out_proj": ParamDef((di, d), scale=out_scale),
+        "ln": ParamDef((d,), (None,), "ones"),
+        "in_z": ParamDef((d, di), ("embed", "ssm_inner")),
+        "in_xbc": ParamDef((d, cd), ("embed", "ssm_conv")),
+        "in_dt": ParamDef((d, h), ("embed", "ssm_heads")),
+        "conv_w": ParamDef((cd, cfg.ssm_conv), ("ssm_conv", None), scale=0.1),
+        "conv_b": ParamDef((cd,), ("ssm_conv",), "zeros"),
+        "dt_bias": ParamDef((h,), ("ssm_heads",), "dt_bias"),
+        "A_log": ParamDef((h,), ("ssm_heads",), "a_log"),
+        "D": ParamDef((h,), ("ssm_heads",), "ones"),
+        "norm_w": ParamDef((di,), ("ssm_inner",), "ones"),
+        "out_proj": ParamDef((di, d), ("ssm_inner", "embed"), scale=out_scale),
     }
 
 
 def _stack(tree: Tree, n: int) -> Tree:
     return {k: (_stack(v, n) if isinstance(v, dict)
-                else ParamDef((n,) + v.shape, v.init, v.scale, v.expert))
+                else ParamDef((n,) + v.shape, ("layers",) + v.axes, v.init, v.scale,
+                              v.expert))
             for k, v in tree.items()}
 
 
@@ -146,11 +154,11 @@ def model_defs(cfg: ModelConfig) -> Tree:
                          f"a multiple of the block period {p}")
     d = cfg.d_model
     defs: Tree = {
-        "embed": ParamDef((cfg.padded_vocab, d)),
-        "final_ln": ParamDef((d,), "ones"),
+        "embed": ParamDef((cfg.padded_vocab, d), ("vocab", "embed")),
+        "final_ln": ParamDef((d,), (None,), "ones"),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, cfg.padded_vocab))
+        defs["lm_head"] = ParamDef((d, cfg.padded_vocab), ("embed", "vocab"))
     if npre:
         defs["prefix"] = {f"l{i}": _sublayer_defs(cfg, kinds[i]) for i in range(npre)}
     block = {f"l{i}": _sublayer_defs(cfg, k) for i, k in enumerate(body_kinds[:p])}
@@ -159,9 +167,87 @@ def model_defs(cfg: ModelConfig) -> Tree:
         defs["encoder"] = {
             "blocks": _stack({"mixer": _attn_defs(cfg), "ffn": _mlp_defs(cfg)},
                              cfg.enc_layers),
-            "ln": ParamDef((d,), "ones"),
+            "ln": ParamDef((d,), (None,), "ones"),
         }
     return defs
+
+
+def param_axes(cfg: ModelConfig) -> Tree:
+    """Every leaf's logical axes (the JAX package's `param_axes`): a name
+    a dim, or None for a dim no rule shards."""
+    return tree_map(lambda pd: pd.axes, model_defs(cfg))
+
+
+def param_specs(cfg: ModelConfig, dtype=None) -> Tree:
+    """Every leaf's shape and type as a tensor on the meta device (nothing
+    is allocated), in `dtype` or cfg.param_dtype."""
+    dt = _dtype(dtype or cfg.param_dtype)
+    return tree_map(lambda pd: torch.empty(pd.shape, dtype=dt, device="meta"),
+                    model_defs(cfg))
+
+
+def ring_len(cfg: ModelConfig, cache_len: int) -> int:
+    """KV slots an attention layer keeps: the window, if one is shorter."""
+    return min(cfg.sliding_window, cache_len) if cfg.sliding_window else cache_len
+
+
+@dataclass(frozen=True)
+class CacheDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: str
+
+
+def _sublayer_cache_defs(cfg: ModelConfig, mixer: str, batch: int, cache_len: int) -> Tree:
+    kv = ("batch", "seq", "kv_heads", "head_dim")
+    kh, hd = cfg.n_kv_heads, cfg.hd
+    if mixer == "attn":
+        ring = ring_len(cfg, cache_len)
+        sub: Tree = {"mixer": {n: CacheDef((batch, ring, kh, hd), kv, cfg.dtype)
+                               for n in ("k", "v")}}
+    else:
+        sub = {"mixer": {
+            "conv": CacheDef((batch, cfg.ssm_conv - 1, cfg.conv_dim),
+                             ("batch", None, "ssm_conv"), cfg.dtype),
+            "state": CacheDef((batch, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+                              ("batch", "ssm_heads", None, None), "float32"),
+        }}
+    if cfg.enc_layers:
+        sub["xattn"] = {n: CacheDef((batch, cfg.n_audio_ctx, kh, hd), kv, cfg.dtype)
+                        for n in ("ck", "cv")}
+    return sub
+
+
+def cache_defs(cfg: ModelConfig, batch: int, cache_len: int) -> Tree:
+    """The cache tree of `batch` rows and `cache_len` slots (the JAX
+    package's `cache_defs`): per attention layer the K/V rings [batch, ring,
+    kh, hd], per SSM layer the conv tail [batch, k-1, conv_dim] in the
+    activation dtype and the state [batch, h, p, n] in fp32, per
+    cross-attention sublayer the encoder K/V [batch, n_audio_ctx, kh, hd];
+    the prefix layers unstacked, the body's stacked over the blocks. A
+    prefill cache and the slot pool both have this layout."""
+    kinds = cfg.layer_kinds()
+    p, npre = block_period(cfg), cfg.first_k_dense
+    defs: Tree = {}
+    if npre:
+        defs["prefix"] = {f"l{i}": _sublayer_cache_defs(cfg, kinds[i][0], batch, cache_len)
+                          for i in range(npre)}
+    block = {f"l{i}": _sublayer_cache_defs(cfg, kinds[npre + i][0], batch, cache_len)
+             for i in range(p)}
+    nb = (len(kinds) - npre) // p
+    defs["body"] = tree_map(lambda cd: CacheDef((nb,) + cd.shape, ("layers",) + cd.axes,
+                                                cd.dtype), block)
+    return defs
+
+
+def cache_axes(cfg: ModelConfig, batch: int, cache_len: int) -> Tree:
+    return tree_map(lambda cd: cd.axes, cache_defs(cfg, batch, cache_len))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Tree:
+    """The cache tree's shapes and types as meta tensors."""
+    return tree_map(lambda cd: torch.empty(cd.shape, dtype=_dtype(cd.dtype), device="meta"),
+                    cache_defs(cfg, batch, cache_len))
 
 
 def leaves(tree: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -231,11 +317,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
     largest leaf 3.8 GB in fp32). Torch's generator is not
     JAX's, so the values differ from the reference's; a comparison carries
     the reference's own weights with `from_reference`."""
-    dt = _dtype(dtype)
     out: Tree = {}
-    for path, pd in leaves(model_defs(cfg)):
-        _set(out, path, _draw(pd, generator, device).to(dt))
+    for path, leaf in iter_params(cfg, generator, device, dtype):
+        _set(out, path, leaf)
     return out
+
+
+def iter_params(cfg: ModelConfig, generator: torch.Generator, device,
+                dtype="float32") -> Iterator[Tuple[str, torch.Tensor]]:
+    """`init_params` one leaf at a time: (path, leaf) in sorted path order,
+    each leaf drawn when asked for, with the same bits. A consumer that
+    keeps only part of each leaf (`core.steps.shard_params`) never holds
+    the whole tree."""
+    dt = _dtype(dtype)
+    for path, pd in leaves(model_defs(cfg)):
+        yield path, _draw(pd, generator, device).to(dt)
 
 
 def from_reference(tree: Mapping[str, Any], cfg: ModelConfig, device,

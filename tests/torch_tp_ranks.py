@@ -1,0 +1,96 @@
+"""Rank workers of tests/test_torch_tp_serve.py. Spawned ranks import this
+module, not the test module, so they start without JAX: they run the
+port only, and the test compares their results with the JAX package."""
+import dataclasses
+import os
+
+import torch
+
+from repro_torch.configs import reduced
+from repro_torch.core import steps
+from repro_torch.launch import mesh as tmesh
+from repro_torch.models.params import from_reference, leaves
+
+ROWS, PROMPT, STEPS = 4, 16, 8
+# name: (arch, fields replaced in its reduced config). The yi-like ratio (6
+# q heads, 2 KV heads) gets zero q slots at tp 4; h2o-danube's 16-slot
+# window ring wraps during the decode steps; phi-3-vision's first 8 prompt
+# positions take img_embeds.
+CONFIGS = {"tinyllama": ("tinyllama-1.1b", {}),
+           "yi-like": ("tinyllama-1.1b", dict(n_heads=6, n_kv_heads=2, head_dim=16)),
+           "h2o-danube": ("h2o-danube-1.8b", {}),
+           "phi-3-vision": ("phi-3-vision-4.2b", {})}
+
+
+def config(name):
+    """The reduced config of CONFIGS[name] at fp32."""
+    arch, fields = CONFIGS[name]
+    return dataclasses.replace(reduced(arch), dtype="float32", **fields)
+
+
+def port_run(params, prompts, forced, prefill, decode, img_embeds=None):
+    """Prefill (with img_embeds where given), then STEPS decode steps fed
+    forced[:, i]: the logits [1 + STEPS, B, V] (numpy) and the cache."""
+    inputs = {"tokens": prompts, "cache_len": PROMPT + STEPS}
+    if img_embeds is not None:
+        inputs["img_embeds"] = img_embeds
+    logits, cache = prefill(params, inputs)
+    out = [logits[:, 0]]
+    for i in range(STEPS):
+        logits, cache = decode(params, {"cache": cache, "tokens": forced[:, i:i + 1],
+                                        "pos": PROMPT + i})
+        out.append(logits[:, 0])
+    return torch.stack(out).numpy(), cache
+
+
+def serve_rank(rank, world, backend, shape, refs):
+    """One rank: every config of `refs` ({name: (the JAX package's weights
+    as numpy, prompts, img_embeds or None, greedy tokens)}) through the
+    sharded steps on its shards, which `shard_params` cuts from the whole
+    tree and, leaf by leaf, from a stream of its leaves (the two must agree
+    bit for bit). On (2, 2) also: DTensor's cut of a dim over ('pod',
+    'data') against sharding.local_shard, and make_slice_mesh over the
+    world."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed import sharding as shd
+
+    torch.set_num_threads(1)
+    shd._small_serve = lambda cfg: False   # the head layout of full-width models
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    out = {"backend": backend, "coord": list(mesh.get_coordinate())}
+    for name, (jp, prompts, img, toks) in refs.items():
+        cfg = config(name)
+        full = from_reference(jp, cfg, "cpu")
+        local = steps.shard_params(full, cfg, mesh)
+        streamed = steps.shard_params(iter(list(leaves(full))), cfg, mesh)
+        del full
+        logits, cache = port_run(
+            local, steps.shard_batch(torch.from_numpy(prompts), mesh),
+            steps.shard_batch(torch.from_numpy(toks), mesh),
+            steps.sharded_prefill(cfg, mesh), steps.sharded_decode(cfg, mesh),
+            None if img is None else steps.shard_batch(torch.from_numpy(img), mesh))
+        out[name] = dict(logits=logits,
+                         params={k: tuple(v.shape) for k, v in leaves(local)},
+                         cache={k: tuple(v.shape) for k, v in leaves(cache)},
+                         streamed_equal=all(torch.equal(v, w) for (_, v), (_, w)
+                                            in zip(leaves(local), leaves(streamed))))
+    if shape == (2, 2):
+        cube = init_device_mesh("cpu", (2, 2, 1), mesh_dim_names=("pod", "data", "model"))
+        full = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+        pl = (Shard(0), Shard(0), Replicate())
+        dt = distribute_tensor(full, cube, list(pl))
+        out["dtensor_order"] = torch.equal(
+            dt.to_local(), shd.local_shard(full, pl, cube, cube.get_coordinate()))
+        sl = tmesh.make_slice_mesh(range(world), device="cpu")
+        out["slice_mesh"] = (tuple(sl.mesh_dim_names), tuple(sl.shape))
+    return out
+
+
+def die_rank(rank, world, backend):
+    """Rank 1 dies; rank 0 waits on it in a collective."""
+    if rank == 1:
+        os._exit(3)
+    torch.distributed.barrier()
+    return rank
