@@ -281,6 +281,33 @@ Phases, each fatal on failure:
    replicated leaves. Printed: the backend, the world size, per-rank
    weight bytes, and the decode step's wall ms unsharded (tp 1, in this
    process) and at tp 2 (rank 0 of (a)).
+19. tensor-parallel families — the MoE, SSM and hybrid families at full
+   width through core/steps.sharded_prefill and sharded_decode on spawned
+   gloo ranks that share the card: (d) moonshot-v1-16b-a3b, 8 of 48
+   layers, mesh (2, 2), its 64 experts over 2 data ranks (expert
+   parallel); (e) mixtral-8x22b, 1 of 56 layers and 2 decode steps, (3,
+   2), weight-gather (8 experts, d_model over 3 data ranks: each forward
+   gathers the layer's expert leaves through host memory), 12 rows; (f)
+   mamba2-370m, all 48 layers, (1, 2) and (1, 4); (g) jamba-v0.1-52b, 8
+   of 32 layers, (2, 2). First decode attention at the ranks' new shapes,
+   held, timed and bounded as in phase 7. Each case runs the unsharded
+   port in this process, fp32 then bf16 (seed-0 weights, 8 x 32 prompts,
+   12 for (e), 8 greedy decode steps, 2 for (e)), each freed before the
+   next, then the ranks (CUDA allocator on expandable segments), which
+   draw their shards leaf by leaf on the card in turns and run both
+   dtypes, fed the unsharded greedy tokens. fp32 runs with capacity factor
+   E / top_k (no choice can drop): every step's logits must lie within
+   1e-4 of the unsharded logits' max abs and the tokens equal except
+   near-ties under it. bf16 runs at the config's capacity (1.25):
+   agreement and near-ties printed, gated for mamba2 only (near-ties
+   under 3e-2 exempt), since local MoE groups drop other tokens by design.
+   Gated on every rank and dtype: decode-attention launches = attention
+   layers x decode steps, each of its first and last step's calls held
+   against the plain version on the rank's inputs at the rank shape, MoE
+   layers run, weight bytes equal to its share of every cut leaf plus the
+   replicated leaves, and the peak device bytes while cutting at most its
+   shards plus one leaf in flight. `fam_four_card`, not run by default,
+   serves jamba at full depth on four cards (NCCL).
 
 In every serve phase (4, 6, 8-11, 13-17) the decode kernel's launches must
 equal n_layers x the decode steps the engines executed (their own stats;
@@ -293,8 +320,8 @@ Prints one JSON line {"kernels": [...]} (seven kernels; a kernel's launches
 are the sum over the phases that run it — decode_attention's over the seven
 serve phases, the knee pass, the controller's first replay, phase 15's
 six serves and phase 16's two serves, whisper's generate and phi-3-vision's
-image path, phase 17's serve of the trained weights, and phase 18's ranks'
-decode steps, summed over ranks; the audio kernels'
+image path, phase 17's serve of the trained weights, and phase 18's and
+phase 19's ranks' decode steps, summed over ranks; the audio kernels'
 over phases 4, 10, 11, 13, 14, 15 and 16;
 its max_abs_err is the largest over all its shapes; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
@@ -309,6 +336,8 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -3336,6 +3365,51 @@ def tp_decode(torch, prefill, decode, params, tokens, forced):
     return out, walls
 
 
+def rank_weight_bytes(torch, cfg, scfg, mesh):
+    """(the weight bytes a rank holds under the serve placements of `scfg`,
+    the serve config of `cfg`: its share of each cut leaf plus every
+    replicated leaf; the most that one leaf in flight adds while the rank
+    cuts its weights: drawn in fp32, cast, padded, its shard copied)."""
+    from repro_torch.core import steps
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.params import leaves, param_specs
+
+    sizes = list(shd.axis_sizes(mesh).values())
+    elt = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    true_numel = {k: v.numel() for k, v in leaves(param_specs(cfg))}
+    pl = steps.serve_param_shardings(scfg, mesh)
+    expected = leaf_peak = 0
+    for (path, spec), (_, p) in zip(leaves(param_specs(scfg, dtype=scfg.dtype)), leaves(pl)):
+        nbytes = spec.numel() * spec.element_size()
+        n = math.prod(s for s, x in zip(sizes, p) if x != shd.Replicate())
+        expected += nbytes // n
+        leaf_peak = max(leaf_peak, true_numel[path] * (4 + elt) + nbytes * (1 + 1 / n))
+    return expected, leaf_peak
+
+
+def held_decode_attention(torch, kernel, dtype, per_step, n_steps):
+    """A stand-in for ops.decode_attention that calls `kernel` and holds
+    every call of the first and the last decode step (per_step calls a
+    step) against the plain version on the same inputs. Returns (the
+    stand-in, the list it fills: ((B, H, D, KH, S), max abs error, within
+    tolerance) a held call)."""
+    from repro_torch.kernels import decode_attention as kd
+
+    calls, held = [0], []
+
+    def decode_attention(q, k, v, valid_len):
+        out = kernel(q, k, v, valid_len)
+        i = calls[0]
+        calls[0] += 1
+        if i < per_step or i >= per_step * (n_steps - 1):   # the first and the last step
+            want = kd.decode_attention_plain(q, k, v, valid_len)
+            err = errors(torch, f"decode_attention/{dtype}", out.float(), want.float())
+            held.append((tuple(q.shape) + (k.shape[2], k.shape[1]), err[0], err[2]))
+        return out
+
+    return decode_attention, held
+
+
 def tp_rank(rank, world, backend, case, tokens, forced):
     """One rank of a phase-18 case: its mesh; its shards of the seed-0
     weights, cut leaf by leaf as each is drawn on the card, so that besides
@@ -3349,9 +3423,8 @@ def tp_rank(rank, world, backend, case, tokens, forced):
     from repro_torch import kernels
     from repro_torch.core import steps
     from repro_torch.distributed import sharding as shd
-    from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import ops
-    from repro_torch.models.params import iter_params, leaves, param_specs
+    from repro_torch.models.params import iter_params, leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     shape, depth, dtype = case
@@ -3367,37 +3440,14 @@ def tp_rank(rank, world, backend, case, tokens, forced):
         iter_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda", cfg.dtype), cfg, mesh)
     peak = torch.cuda.max_memory_allocated() - base
     scfg = steps.tp_serve_cfg(cfg, mesh)
-    tp = shape[1]
-    sharded = replicated = leaf_peak = 0
-    elt = param_specs(cfg, dtype=cfg.dtype)["embed"].element_size()
-    true_numel = {k: v.numel() for k, v in leaves(param_specs(cfg))}
-    pl = steps.serve_param_shardings(scfg, mesh)
-    for (path, spec), (_, p) in zip(leaves(param_specs(scfg, dtype=scfg.dtype)), leaves(pl)):
-        nbytes = spec.numel() * spec.element_size()
-        if any(x != shd.Replicate() for x in p):
-            sharded += nbytes
-        else:
-            replicated += nbytes
-        # one leaf in flight: drawn in fp32, cast, padded, its shard copied
-        leaf_peak = max(leaf_peak, true_numel[path] * (4 + elt) + nbytes * (1 + 1 / tp))
+    expected, leaf_peak = rank_weight_bytes(torch, cfg, scfg, mesh)
     local_bytes = sum(t.numel() * t.element_size() for _, t in leaves(local))
     toks = steps.shard_batch(torch.from_numpy(tokens).cuda(), mesh)
     forced_t = steps.shard_batch(torch.from_numpy(forced).cuda(), mesh)
     prefill, decode = steps.sharded_prefill(cfg, mesh), steps.sharded_decode(cfg, mesh)
-    layers, calls, held = cfg.n_layers, [0], []
     kernel = ops.decode_attention
-
-    def decode_attention(q, k, v, valid_len):
-        out = kernel(q, k, v, valid_len)
-        i = calls[0]
-        calls[0] += 1
-        if i < layers or i >= layers * (TP_STEPS - 1):   # the first and the last step
-            want = kd.decode_attention_plain(q, k, v, valid_len)
-            err = errors(torch, f"decode_attention/{dtype}", out.float(), want.float())
-            held.append((tuple(q.shape) + (k.shape[2], k.shape[1]), err[0], err[2]))
-        return out
-
-    ops.decode_attention = decode_attention
+    ops.decode_attention, held = held_decode_attention(torch, kernel, dtype, cfg.n_layers,
+                                                       TP_STEPS)
     kernels.reset_launch_counts()
     try:
         logits, walls = tp_decode(torch, prefill, decode, local, toks, forced_t)
@@ -3411,7 +3461,7 @@ def tp_rank(rank, world, backend, case, tokens, forced):
         rank=rank, world=world, backend=backend, coord=list(coord),
         heads=int(wq.shape[-3] * wq.shape[-2]), kv_heads=int(wq.shape[-3]),
         serve_heads=(scfg.n_heads, scfg.n_kv_heads), local_bytes=local_bytes,
-        expected_bytes=sharded / tp + replicated, peak_bytes=peak,
+        expected_bytes=expected, peak_bytes=peak,
         peak_bound=local_bytes + leaf_peak, launches=launches, step_ms=walls,
         # (B, H, D, KH, S) of each held call, its max abs error, within tolerance
         held=[(b, h, d, kh, s) for (b, h, d, kh, s), _, _ in held],
@@ -3549,6 +3599,419 @@ def tensor_parallel_phase(torch, F, np, card, cases=None) -> dict:
     return out
 
 
+# --- phase 19: tensor-parallel serving of the MoE, SSM and hybrid families ---
+
+FAM_TP_PROMPT, FAM_TP_STEPS = 32, 8
+# case: (arch, mesh (data, model), layers or None for all of them, rows,
+# decode steps). (d) EP: 64 experts over 2 data ranks; (e) weight-gather: 8
+# experts, which 3 data ranks do not divide, d_model 6,144 cut over them,
+# 12 rows so each data rank routes 4 tokens a decode step (moe_shard_map's
+# minimum); one layer and two steps, since each forward gathers the
+# layer's three expert leaves (1.6 GB each a rank in fp32) through gloo's
+# host staging, ~4 s a leaf on the card; (f) the SSM block's channels and
+# heads over 2 and 4 model ranks; (g) one whole block of jamba's 8 layers
+# (attention, SSM, MoE, MLP), EP.
+FAM_TP_CASES = {"d": ("moonshot-v1-16b-a3b", (2, 2), 8, 8, FAM_TP_STEPS),
+                "e": ("mixtral-8x22b", (3, 2), 1, 12, 2),
+                "f2": ("mamba2-370m", (1, 2), None, 8, FAM_TP_STEPS),
+                "f4": ("mamba2-370m", (1, 4), None, 8, FAM_TP_STEPS),
+                "g": ("jamba-v0.1-52b", (2, 2), 8, 8, FAM_TP_STEPS)}
+FAM_TP_DTYPES = ("float32", "bfloat16")
+# Not in the default script: jamba at full depth (32 layers, ~103 GB of
+# bf16 weights, more than one card holds) on four cards, NCCL, a card a
+# rank (`fam_four_card`).
+FAM_TP_FOUR_CARD = ("jamba-v0.1-52b", (2, 2), None, 8, FAM_TP_STEPS)
+
+
+def _fam_case(name):
+    return FAM_TP_FOUR_CARD if name == "g4" else FAM_TP_CASES[name]
+
+
+def fam_config(name, dtype, no_drop=None):
+    """A case's config in `dtype`. With no_drop (the default at fp32) an
+    MoE's capacity factor is E / top_k, so C >= the group: an expert can
+    take every token of its group and no choice drops, in the ranks' local
+    groups or the unsharded global ones; otherwise it is the config's own
+    (1.25)."""
+    from repro_torch.configs import get_config
+
+    arch, _, depth, *_ = _fam_case(name)
+    cfg = get_config(arch)
+    fields = dict(n_layers=depth or cfg.n_layers, dtype=dtype)
+    if (dtype == "float32" if no_drop is None else no_drop) and cfg.n_experts:
+        fields["capacity_factor"] = cfg.n_experts / cfg.top_k
+    return dataclasses.replace(cfg, **fields)
+
+
+def fam_rank_shapes(name):
+    """The decode attention (B, H, KH, D, S, dtype) each rank of a case
+    launches, one a dtype (none for an attention-free model)."""
+    from repro_torch.configs import serve_config
+    from repro_torch.models.params import ring_len
+
+    _, (data, tp), _, rows, steps = _fam_case(name)
+    cfg = fam_config(name, "bfloat16")
+    if not n_attn_layers(cfg):
+        return []
+    scfg = serve_config(cfg, tp)
+    return [(rows // data, scfg.n_heads // tp, scfg.n_kv_heads // tp, cfg.hd,
+             ring_len(cfg, FAM_TP_PROMPT + steps), dt) for dt in FAM_TP_DTYPES]
+
+
+def fam_kernel_rows(torch, F, np, cases):
+    """Decode attention at every rank shape of `cases`, fp32 and bf16: held
+    against its plain version and SDPA, timed and bounded as phase 7 does."""
+    from repro_torch.kernels import decode_attention as kd
+
+    rng = np.random.default_rng(1919)
+    shapes = dict.fromkeys(s for n in cases for s in fam_rank_shapes(n))
+    rows = [decode_row(torch, F, np, kd, rng, shape)[0] for shape in shapes]
+    torch.cuda.synchronize()
+    report_decode_rows(rows)
+    return rows
+
+
+def fam_unsharded(torch, np, cfg, tokens, n_steps):
+    """The unsharded port on the card, seed-0 weights in cfg.dtype: prefill
+    and n_steps greedy decode steps. Returns (logits [1 + steps, B, V]
+    fp32 numpy, the tokens fed to the steps [B, steps], each step's wall
+    ms); the weights are freed before it returns."""
+    from repro_torch.core import steps
+
+    params = tp_weights(torch, cfg, "cuda")
+    prefill, decode = steps.make_prefill(cfg), steps.make_decode(cfg)
+    logits, cache = prefill(params, {"tokens": torch.from_numpy(tokens).cuda(),
+                                     "cache_len": FAM_TP_PROMPT + n_steps})
+    out, toks, walls = [logits[:, 0].float()], [logits.argmax(-1)], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(params, {"cache": cache, "tokens": toks[-1],
+                                        "pos": FAM_TP_PROMPT + i})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits[:, 0].float())
+        toks.append(logits.argmax(-1))
+    ref = torch.stack(out).cpu().numpy()
+    forced = torch.cat(toks[:n_steps], 1).cpu().numpy()
+    return ref, forced, walls
+
+
+def fam_pass(torch, name, dtype, mesh, tokens, forced, no_drop=None) -> dict:
+    """One dtype of a case on this rank: its shards of the seed-0 weights,
+    cut leaf by leaf as each is drawn on the card, the ranks taking turns
+    (a stacked leaf spans every layer: six ranks' leaves in flight at once
+    would not fit the card beside the shards); the sharded prefill and
+    the case's decode steps fed `forced` (the global rows, or this
+    rank's rows as a tensor; None: its own greedy tokens), with every
+    decode attention of the first and the last step held against its plain
+    version on the rank's own inputs; the MoE layer's dispatches counted.
+    Plain data."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import steps
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import iter_params, leaves
+
+    _, shape, _, rows, n_steps = _fam_case(name)
+    cfg = fam_config(name, dtype, no_drop)
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            free_before = torch.cuda.mem_get_info()[0]
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            local = steps.shard_params(iter_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                                   "cuda", cfg.dtype), cfg, mesh)
+            peak = torch.cuda.max_memory_allocated() - base
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()   # the leaf in flight, back to the card for the next rank
+        dist.barrier()
+    expected, leaf_peak = rank_weight_bytes(torch, cfg, steps.tp_serve_cfg(cfg, mesh), mesh)
+    local_bytes = sum(t.numel() * t.element_size() for _, t in leaves(local))
+    toks = steps.shard_batch(torch.from_numpy(tokens).cuda(), mesh)
+    forced_t = (forced if forced is None or isinstance(forced, torch.Tensor)
+                else steps.shard_batch(torch.from_numpy(forced).cuda(), mesh))
+    prefill = steps.sharded_prefill(cfg, mesh, batch=rows)
+    decode = steps.sharded_decode(cfg, mesh, batch=rows)
+    per_step = n_attn_layers(cfg)
+    kernel, shard_map, dispatch = ops.decode_attention, L.moe_shard_map, [0, 0]
+    decode_attention, held = held_decode_attention(torch, kernel, dtype, per_step, n_steps)
+
+    def counted_shard_map(*a, **kw):
+        dispatch[0] += 1
+        return shard_map(*a, **kw)
+
+    moe = L.moe
+
+    def counted_moe(*a, **kw):
+        dispatch[1] += 1
+        return moe(*a, **kw)
+
+    ops.decode_attention, L.moe_shard_map, L.moe = decode_attention, counted_shard_map, counted_moe
+    kernels.reset_launch_counts()
+    try:
+        logits, walls = [], []
+        out, cache = prefill(local, {"tokens": toks,
+                                     "cache_len": FAM_TP_PROMPT + n_steps})
+        logits.append(out[:, 0].float())
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fed = out.argmax(-1) if forced_t is None else forced_t[:, i:i + 1]
+            out, cache = decode(local, {"cache": cache, "tokens": fed,
+                                        "pos": FAM_TP_PROMPT + i})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            logits.append(out[:, 0].float())
+    finally:
+        ops.decode_attention, L.moe_shard_map, L.moe = kernel, shard_map, moe
+    launches = kernels.launch_counts()["decode_attention"]
+    stacked = torch.stack(logits)                              # [1 + steps, B_local, V]
+    coord = mesh.get_coordinate()
+    res = dict(
+        local_bytes=local_bytes, expected_bytes=expected, peak_bytes=peak,
+        card_free_before_draw=free_before,
+        peak_bound=local_bytes + leaf_peak, launches=launches, step_ms=walls,
+        per_step=per_step, moe_calls=dispatch[1], shard_map_calls=dispatch[0],
+        held=[(b, h, d, kh, s) for (b, h, d, kh, s), _, _ in held],
+        held_err=max((e for _, e, _ in held), default=0.0),
+        held_ok=all(ok for *_, ok in held),
+        tokens=stacked.argmax(-1).cpu().numpy(),
+        # every model rank holds the same gathered logits: one a data shard returns them
+        logits=stacked.cpu().numpy() if coord[1] == 0 else None)
+    del local, cache, out, logits, stacked
+    torch.cuda.empty_cache()
+    return res
+
+
+def fam_rank(rank, world, backend, name, tokens, forced):
+    """One rank of a phase-19 case: its mesh, then each dtype's pass
+    (`fam_pass`), fed that dtype's unsharded greedy tokens. The four-card
+    case ("g4") instead runs bf16 greedy at the config's capacity, then
+    bf16 at capacity E / top_k fed those tokens ("nodrop")."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, shape, _, _, steps = _fam_case(name)
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    out = dict(rank=rank, world=world, backend=backend, coord=list(mesh.get_coordinate()))
+    if name == "g4":
+        out["bfloat16"] = fam_pass(torch, name, "bfloat16", mesh, tokens, None, no_drop=False)
+        fed = torch.from_numpy(out["bfloat16"]["tokens"][:steps].T.copy()).cuda()
+        out["nodrop"] = fam_pass(torch, name, "bfloat16", mesh, tokens, fed, no_drop=True)
+        return out
+    for dt in FAM_TP_DTYPES:
+        out[dt] = fam_pass(torch, name, dt, mesh, tokens, forced[dt])
+    return out
+
+
+def fam_run_ranks(run_ranks, world, args):
+    """`run_ranks(fam_rank)` with the ranks' CUDA allocator on expandable
+    segments: a rank's shards, carved from the segment of a freed full
+    leaf, would otherwise pin the whole segment, and the ranks' pinned
+    segments together outgrow the card (they read the setting from the
+    environment they are started with)."""
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    prev = os.environ.get(key)
+    os.environ[key] = "expandable_segments:True"
+    try:
+        return run_ranks(fam_rank, world, args, device="cuda", timeout=1500)
+    finally:
+        if prev is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = prev
+
+
+def fam_case(torch, np, name, card) -> dict:
+    """One case: the unsharded port in this process, fp32 then bf16, each
+    freed before the next; then the ranks, fed its greedy tokens. Gates the
+    fp32 logits, mamba2's bf16 tokens, the kernel checks, launches and the
+    weight and peak bytes a rank."""
+    from repro_torch.launch.mesh import run_ranks
+
+    arch, shape, _, rows, n_steps = FAM_TP_CASES[name]
+    tokens = np.random.default_rng(19).integers(
+        0, fam_config(name, "float32").vocab, (rows, FAM_TP_PROMPT))
+    refs, forced = {}, {}
+    for dt in FAM_TP_DTYPES:
+        refs[dt] = fam_unsharded(torch, np, fam_config(name, dt), tokens, n_steps)
+        forced[dt] = refs[dt][1]
+        torch.cuda.empty_cache()   # every tensor of the run is gone: its segments go back
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    ranks = fam_run_ranks(run_ranks, world, (name, tokens, forced))
+    wall_s = time.perf_counter() - t0
+    local_rows = rows // shape[0]
+    out = dict(arch=arch, mesh=list(shape), world=world, backend=ranks[0]["backend"],
+               ranks_wall_s=wall_s, card=card)
+    for dt in FAM_TP_DTYPES:
+        cfg = fam_config(name, dt)
+        ref, _, ref_walls = refs[dt]
+        where = f"tensor-parallel families ({name}, {arch}, {dt})"
+        # (B, H, D, KH, S), as a held call records it
+        want_held = {(b, h, d, kh, s) for b, h, kh, d, s, t in fam_rank_shapes(name) if t == dt}
+        for r in ranks:
+            v = r[dt]
+            if v["launches"] != v["per_step"] * n_steps:
+                fail(f"{where}: rank {r['rank']} ran decode attention {v['launches']} times, "
+                     f"not {v['per_step']} attention layers x {n_steps} steps")
+            if v["local_bytes"] != v["expected_bytes"]:
+                fail(f"{where}: rank {r['rank']} holds {v['local_bytes']} weight bytes, not "
+                     f"{v['expected_bytes']} (its share of each cut leaf + the replicated)")
+            if v["peak_bytes"] > v["peak_bound"]:
+                fail(f"{where}: rank {r['rank']} reached {v['peak_bytes']} bytes on the card "
+                     f"while cutting its weights, over its shards and one leaf in flight "
+                     f"({v['peak_bound']:.0f})")
+            if (len(v["held"]) != 2 * v["per_step"]
+                    or (v["held"] and set(v["held"]) != want_held)):
+                fail(f"{where}: rank {r['rank']} held {len(v['held'])} decode attention "
+                     f"calls at {sorted(set(v['held']))}, not {2 * v['per_step']} at "
+                     f"{sorted(want_held)}")
+            if not v["held_ok"]:
+                fail(f"{where}: rank {r['rank']}'s decode attention differs from its plain "
+                     f"version on the rank's inputs by {v['held_err']:.3e}, beyond "
+                     f"{TOL[f'decode_attention/{dt}']}")
+            moe_layers = sum(1 for _, f in cfg.layer_kinds() if f == "moe")
+            if v["moe_calls"] != moe_layers * (1 + n_steps):
+                fail(f"{where}: rank {r['rank']} ran {v['moe_calls']} MoE layers, not "
+                     f"{moe_layers} x {1 + n_steps} steps")
+        ref_tokens = ref.argmax(-1)                                     # [1 + steps, B]
+        top2 = np.sort(ref, axis=-1)[..., -2:]
+        gaps = top2[..., 1] - top2[..., 0]
+        got_tokens = np.zeros_like(ref_tokens)
+        logit_err = 0.0
+        for r in ranks:
+            v = r[dt]
+            sl = slice(r["coord"][0] * local_rows, (r["coord"][0] + 1) * local_rows)
+            if r["coord"][1] != 0 and not np.array_equal(v["tokens"], got_tokens[:, sl]):
+                fail(f"{where}: the model ranks of data shard {r['coord'][0]} disagree")
+            got_tokens[:, sl] = v["tokens"]
+            if v["logits"] is not None:
+                logit_err = max(logit_err, float(np.abs(v["logits"] - ref[:, sl]).max()))
+        scale = float(np.abs(ref).max())
+        diff = np.argwhere(got_tokens != ref_tokens)
+        fp32 = dt == "float32"
+        tie = TP_FP32_TOL if fp32 else NEAR_TIE
+        gated = fp32 or cfg.family == "ssm"
+        if fp32 and not logit_err <= TP_FP32_TOL * scale:
+            fail(f"{where}: logits {logit_err:.3e} from the unsharded port's (max abs "
+                 f"{scale:.3e}, tolerance {TP_FP32_TOL} of it)")
+        if gated:
+            for k, row in diff:
+                if gaps[k, row] >= tie:
+                    fail(f"{where}: row {row} step {k} token {got_tokens[k, row]} vs "
+                         f"unsharded {ref_tokens[k, row]}, top-2 gap {gaps[k, row]:.3e} "
+                         f">= {tie}")
+        r0 = ranks[0][dt]
+        out[dt] = dict(
+            layers=cfg.n_layers, capacity_factor=cfg.capacity_factor if cfg.n_experts else None,
+            rank_weight_bytes=[r[dt]["local_bytes"] for r in ranks],
+            expected_weight_bytes=[r[dt]["expected_bytes"] for r in ranks],
+            rank_peak_bytes_while_cutting=[r[dt]["peak_bytes"] for r in ranks],
+            card_free_bytes_before_draw=[r[dt]["card_free_before_draw"] for r in ranks],
+            peak_bound_bytes=[r[dt]["peak_bound"] for r in ranks],
+            launches_per_rank=[r[dt]["launches"] for r in ranks],
+            launches=sum(r[dt]["launches"] for r in ranks),
+            moe_calls=r0["moe_calls"], shard_map_calls=r0["shard_map_calls"],
+            held_calls_per_rank=len(r0["held"]),
+            held_max_abs_err=max(r[dt]["held_err"] for r in ranks),
+            tokens_gated=gated, near_ties=int(len(diff)), checked_tokens=int(got_tokens.size),
+            agreement=float((got_tokens == ref_tokens).mean()),
+            max_abs_logit_err=logit_err, ref_max_abs_logit=scale,
+            # the median past the first and the last step, where there are more than two
+            step_ms_unsharded=float(np.median(ref_walls[1:-1] or ref_walls)),
+            step_ms=float(np.median(r0["step_ms"][1:-1] or r0["step_ms"])))
+    print(f"tensor-parallel families ({name}): " + json.dumps(out))
+    return out
+
+
+def fam_four_card(torch, np, card) -> dict:
+    """jamba-v0.1-52b at full depth at (2, 2) on four cards (NCCL, a card a
+    rank): no card holds the unsharded model, so nothing is held against
+    it. Gated per rank as `fam_case` gates (launches, exact weight bytes,
+    the peak while cutting, the held kernel calls); printed: bytes and
+    peak a rank, the decode step's ms, and the teacher-forced agreement of
+    the no-drop pass (capacity E / top_k) with the greedy tokens of the
+    pass at the config's capacity, which is what the dropped choices
+    change."""
+    from repro_torch.launch.mesh import run_ranks
+
+    arch, shape, _, rows, n_steps = FAM_TP_FOUR_CARD
+    tokens = np.random.default_rng(19).integers(
+        0, fam_config("g4", "bfloat16").vocab, (rows, FAM_TP_PROMPT))
+    t0 = time.perf_counter()
+    ranks = fam_run_ranks(run_ranks, 4, ("g4", tokens, None))
+    wall_s = time.perf_counter() - t0
+    where = f"four-card {arch}"
+    if any(r["backend"] != "nccl" for r in ranks):
+        fail(f"{where}: ranks on {[r['backend'] for r in ranks]}, not NCCL a card a rank")
+    want_held = {(b, h, d, kh, s) for b, h, kh, d, s, t in fam_rank_shapes("g4")
+                 if t == "bfloat16"}
+    for r in ranks:
+        for key in ("bfloat16", "nodrop"):
+            v = r[key]
+            if v["launches"] != v["per_step"] * n_steps:
+                fail(f"{where} ({key}): rank {r['rank']} ran decode attention "
+                     f"{v['launches']} times, not {v['per_step']} x {n_steps}")
+            if v["local_bytes"] != v["expected_bytes"]:
+                fail(f"{where} ({key}): rank {r['rank']} holds {v['local_bytes']} weight "
+                     f"bytes, not {v['expected_bytes']}")
+            if v["peak_bytes"] > v["peak_bound"]:
+                fail(f"{where} ({key}): rank {r['rank']} reached {v['peak_bytes']} bytes "
+                     f"while cutting, over {v['peak_bound']:.0f}")
+            if len(v["held"]) != 2 * v["per_step"] or set(v["held"]) != want_held \
+                    or not v["held_ok"]:
+                fail(f"{where} ({key}): rank {r['rank']}'s held decode attention calls "
+                     f"{sorted(set(v['held']))} (error {v['held_err']:.3e})")
+    free = np.concatenate([r["bfloat16"]["tokens"] for r in ranks if r["coord"][1] == 0], 1)
+    forced = np.concatenate([r["nodrop"]["tokens"] for r in ranks if r["coord"][1] == 0], 1)
+    r0 = ranks[0]
+    out = dict(arch=arch, layers=fam_config("g4", "bfloat16").n_layers, mesh=list(shape),
+               backend=r0["backend"], ranks_wall_s=wall_s, card=card,
+               rank_weight_bytes=[r["bfloat16"]["local_bytes"] for r in ranks],
+               rank_peak_bytes_while_cutting=[r["bfloat16"]["peak_bytes"] for r in ranks],
+               peak_bound_bytes=[r["bfloat16"]["peak_bound"] for r in ranks],
+               launches=sum(r[k]["launches"] for r in ranks for k in ("bfloat16", "nodrop")),
+               held_max_abs_err=max(r[k]["held_err"] for r in ranks
+                                    for k in ("bfloat16", "nodrop")),
+               step_ms=float(np.median(r0["bfloat16"]["step_ms"][1:-1])),
+               step_ms_nodrop=float(np.median(r0["nodrop"]["step_ms"][1:-1])),
+               nodrop_agreement=float((free == forced).mean()),
+               checked_tokens=int(free.size))
+    print(f"four-card: " + json.dumps(out))
+    return out
+
+
+def tp_families_phase(torch, F, np, card, cases=None) -> dict:
+    """Phase 19: decode attention at the new rank shapes, then each case of
+    FAM_TP_CASES on spawned ranks that share the card (gloo)."""
+    t0 = time.perf_counter()
+    cases = cases or list(FAM_TP_CASES)
+    out = {"kernel_rows": fam_kernel_rows(torch, F, np, cases)}
+    for name in cases:
+        out[name] = fam_case(torch, np, name, card)
+    out["launches"] = {"decode_attention": sum(out[n][dt]["launches"] for n in cases
+                                               for dt in FAM_TP_DTYPES)}
+    out["phase_s"] = time.perf_counter() - t0
+    for name in cases:
+        v = out[name]
+        for dt in FAM_TP_DTYPES:
+            w = v[dt]
+            print(f"tensor-parallel families ({name}, {dt}): {v['arch']} {w['layers']} layers "
+                  f"on {tuple(v['mesh'])} ({v['backend']}), decode step "
+                  f"{w['step_ms_unsharded']:.2f} ms unsharded, {w['step_ms']:.2f} ms sharded; "
+                  f"logit err {w['max_abs_logit_err']:.3e} of {w['ref_max_abs_logit']:.3e}, "
+                  f"agreement {w['agreement']:.3f} ({w['near_ties']} differ) | {card}")
+    print(f"tensor-parallel families phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -3641,6 +4104,10 @@ def main() -> int:
     # 18. tensor-parallel serving on ranks that share the card
     tp_stats = tensor_parallel_phase(torch, F, np, card)
     decode_rows += tp_stats["kernel_rows"]
+
+    # 19. tensor-parallel serving of the MoE, SSM and hybrid families
+    fam_tp_stats = tp_families_phase(torch, F, np, card)
+    decode_rows += fam_tp_stats["kernel_rows"]
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
                                                 controller_stats, mt_stats, *new_runs[:5],
@@ -3651,7 +4118,7 @@ def main() -> int:
         st["launches"]["decode_attention"]
         for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats,
                    knee_stats, controller_stats, mt_stats, *new_runs, *family_runs,
-                   train_stats["serve"], tp_stats))}}
+                   train_stats["serve"], tp_stats, fam_tp_stats))}}
 
     line = []
     for name, shape_rows, main_of, run in (
@@ -3695,7 +4162,9 @@ def main() -> int:
              "new_archs": new_stats,
              "families": {k: v for k, v in family_stats.items() if k != "kernel_rows"},
              "training": train_stats,
-             "tensor_parallel": {k: v for k, v in tp_stats.items() if k != "kernel_rows"}},
+             "tensor_parallel": {k: v for k, v in tp_stats.items() if k != "kernel_rows"},
+             "tensor_parallel_families": {k: v for k, v in fam_tp_stats.items()
+                                          if k != "kernel_rows"}},
             indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")

@@ -11,11 +11,16 @@ insert the collectives. Here each rank runs the same model functions on its
 own local shards: `shard_params` cuts the (head-padded) weights by the
 serve rules' placements, and `sharded_prefill` / `sharded_decode` set the
 ambient mesh, under which the model closes each sharded contraction with
-an all-reduce over the `model` axis (`distributed/ctx.py`): heads, KV heads,
-MLP and vocab over `model`, batch and cache rows over `data`. The decode
-kernel runs on each rank's local heads. The train side's fields and
-shardings (`_train_fields`, `train_state_shardings`) are rules only: no
-sharded train step runs them yet."""
+the collectives of `distributed/ctx.py`: heads, KV heads, MLP, vocab and
+the Mamba2 block's channels and heads over `model`, batch and cache rows
+over `data`; MoE experts over `data` when it divides them (expert
+parallel), else their d_model dim over `data` (gathered per layer), their
+hidden units over `model` (`layers.moe_shard_map`). The decode kernel runs
+on each rank's local heads. The serve steps take every family but the
+encoder-decoder and models under 1B parameters, whose seq-sharded layout
+is still to come. The train side's fields and shardings (`_train_fields`,
+`train_state_shardings`) are rules only: no sharded train step runs them
+yet."""
 from __future__ import annotations
 
 import math
@@ -48,8 +53,10 @@ TRAIN_MICROBATCHES = {
 
 def _moe_fields(cfg: ModelConfig, mesh, group_axes) -> dict:
     """The MoE distribution fields the JAX package's step configs set:
-    their names and values. Nothing here reads them yet: expert-parallel
-    MoE is ROADMAP Queue 1 item 7.2."""
+    their names and values. The JAX package's GSPMD placements read them;
+    this package's MoE layer reads the ambient mesh instead (expert
+    parallel when E divides the `data` axis, groups over the data axes, as
+    `moe_shard_map` decides in both packages), so they stay a dict."""
     sizes = shd.axis_sizes(mesh)
     if not cfg.n_experts or math.prod(sizes.values()) == 1:
         return {}
@@ -78,7 +85,7 @@ def _serve_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
     """The head-padded serve config for the mesh's `model` axis (small
     models keep their heads: they shard the cache along its sequence). The
     JAX package's `_serve_cfg` also sets the MoE fields, which are
-    `_moe_fields` here."""
+    `_moe_fields` here (a dict: the MoE layer reads the mesh)."""
     if not shd._small_serve(cfg):
         cfg = serve_config(cfg, int(shd.axis_sizes(mesh).get("model", 1)))
     return cfg
@@ -190,15 +197,16 @@ def make_decode(cfg: ModelConfig):
 
 # What the sharded serve steps refuse, and the slice of ROADMAP Queue 1
 # item 7 that will take it.
-_FAMILY_SLICE = ("item 7.2, expert-parallel MoE (moe_shard_map) and tensor-parallel "
-                 "serving of the MoE, SSM, hybrid and encoder-decoder families")
+_SMALL_SLICE = "item 7.3, the seq-sharded small-model layout"
 _NOT_YET = (
-    (lambda c: c.n_experts > 0, "experts", _FAMILY_SLICE),
-    (lambda c: any(m == "ssm" for m, _ in c.layer_kinds()), "SSM layers", _FAMILY_SLICE),
-    (lambda c: c.enc_layers > 0, "an encoder", _FAMILY_SLICE),
+    (lambda c: c.enc_layers > 0, "an encoder", _SMALL_SLICE + " and the encoder-decoder "
+     "family (its cross-attention cache)"),
     (lambda c: shd._small_serve(c), "under 1B parameters, which takes the small-serve "
-     "layout", "item 7.3, the seq-sharded small-model layout"),
+     "layout", _SMALL_SLICE),
 )
+# the logical axes a leaf must have cut over a `model` axis wider than 1:
+# the dims whose contractions the model's collectives close
+_MODEL_CUT = ("kv_heads", "mlp", "vocab", "expert_mlp", "ssm_inner", "ssm_conv", "ssm_heads")
 
 
 def serve_param_shardings(cfg: ModelConfig, mesh) -> Tree:
@@ -209,19 +217,26 @@ def serve_param_shardings(cfg: ModelConfig, mesh) -> Tree:
 
 
 def serve_cache_shardings(cfg: ModelConfig, mesh, batch: int, cache_len: int) -> Tree:
+    """The serve placements of a cache of `cfg`: rows over the data axes,
+    KV heads over `model`, an SSM layer's conv channels and heads over
+    `model`."""
     rules = shd.serve_rules(mesh, cfg)
     return shd.tree_shardings(cache_specs(cfg, batch, cache_len),
                               cache_axes(cfg, batch, cache_len), rules, mesh)
 
 
 def tp_serve_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
-    """`_serve_cfg` for the sharded serve steps, which take the dense
-    attention families (dense, window, vision-language) at 1B parameters or
-    more. Raises, naming the slice still to come, for a config with experts,
-    SSM layers or an encoder, or one that takes the small-serve layout; and
-    for a layout the model's collectives cannot close: with a `model` axis
-    wider than 1, every head, KV-head, MLP and vocab dim must be cut over
-    it."""
+    """`_serve_cfg` for the sharded serve steps, which take the dense,
+    window, vision-language, MoE, SSM and hybrid families at 1B parameters
+    or more (an SSM model at any size: the small-serve rule exempts it).
+    Raises, naming the slice still to come, for a config with an encoder or
+    one that takes the small-serve layout; and for a layout the model's
+    collectives cannot close: with a `model` axis wider than 1, every head,
+    KV-head, MLP, vocab, expert hidden-unit and SSM channel and head dim
+    must be cut over it (and an MoE's d_model over it too, where the
+    experts reduce-scatter along d); with a `data` axis wider than 1, an
+    MoE's experts (or, when the axis does not divide them, their d_model
+    dim) must be cut over `data`."""
     for test, what, slice_ in _NOT_YET:
         if test(cfg):
             raise NotImplementedError(
@@ -229,18 +244,28 @@ def tp_serve_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
                 f"ROADMAP Queue 1 {slice_}")
     scfg = _serve_cfg(cfg, mesh)
     sizes = shd.axis_sizes(mesh)
+    names = list(sizes)
+    need = {}
     if sizes.get("model", 1) > 1:
-        m = list(sizes).index("model")
+        need["model"] = _MODEL_CUT
+        if scfg.n_experts and scfg.d_model % sizes["model"]:
+            raise ValueError(f"{cfg.name} on {sizes}: d_model {scfg.d_model} does not cut "
+                             f"over the model axis for the experts' reduce-scatter")
+    if scfg.n_experts and sizes.get("data", 1) > 1:
+        ep = scfg.n_experts % sizes["data"] == 0
+        need["data"] = ("expert",) if ep else ("expert_embed",)
+    if need:
         rules = shd.serve_rules(mesh, scfg)
         all_axes = dict(leaves(param_axes(scfg)))
         for path, spec in leaves(param_specs(scfg, dtype=scfg.dtype)):
             axes = all_axes[path]
             pl = shd.spec_for(spec.shape, axes, rules, mesh)
             for d, ax in enumerate(axes):
-                if ax in ("kv_heads", "mlp", "vocab") and pl[m] != Shard(d):
-                    raise ValueError(
-                        f"{cfg.name} on {sizes}: {path} dim {d} ({ax}, "
-                        f"{spec.shape[d]}) is not cut over the model axis")
+                for axis, cut in need.items():
+                    if ax in cut and pl[names.index(axis)] != Shard(d):
+                        raise ValueError(
+                            f"{cfg.name} on {sizes}: {path} dim {d} ({ax}, "
+                            f"{spec.shape[d]}) is not cut over the {axis} axis")
     return scfg
 
 
@@ -283,30 +308,50 @@ def shard_batch(x: torch.Tensor, mesh, coordinate=None) -> torch.Tensor:
     return shd.local_shard(x, pl, mesh, _coordinate(mesh, coordinate)).contiguous()
 
 
-def sharded_prefill(cfg: ModelConfig, mesh):
+def _rows_cut(mesh, batch: Optional[int], local: int) -> bool:
+    """Whether a rank's `local` rows are its cut of the global batch over
+    the data axes (`shard_batch` cuts only a batch they divide): by the
+    global `batch` where given, else taken as cut."""
+    n_dp = math.prod(v for k, v in shd.axis_sizes(mesh).items() if k in ("pod", "data"))
+    if batch is None:
+        return True
+    cut = batch % n_dp == 0
+    if local != (batch // n_dp if cut else batch):
+        raise ValueError(f"{local} rows on this rank are not shard_batch's rows of a "
+                         f"batch of {batch} over {n_dp} data ranks")
+    return cut
+
+
+def sharded_prefill(cfg: ModelConfig, mesh, batch: Optional[int] = None):
     """The tensor-parallel prefill (the JAX package's `lower_prefill`):
     prefill_fn(local params, inputs as `make_prefill` takes them, cut by
-    `shard_batch`) -> (logits [B_local, 1, V], this rank's cache: its rows
-    and KV heads). Runs `make_prefill` of `tp_serve_cfg(cfg, mesh)` under
-    the mesh."""
+    `shard_batch`) -> (logits [B_local, 1, V], this rank's cache: its rows,
+    KV heads and SSM channels and heads). Runs `make_prefill` of
+    `tp_serve_cfg(cfg, mesh)` under the mesh. batch: the global batch's
+    rows; the MoE layer, which routes tokens in groups across rows, needs
+    it when the data axes may not divide it (`shard_batch` then gives every
+    data rank every row). Without it the rows are taken as cut."""
     fn = make_prefill(tp_serve_cfg(cfg, mesh))
 
     def prefill_fn(params: Tree, inputs: Dict[str, Any]):
-        with dctx.mesh_context(mesh):
+        cut = _rows_cut(mesh, batch, inputs["tokens"].shape[0])
+        with dctx.mesh_context(mesh, rows_cut=cut):
             return fn(params, inputs)
 
     return prefill_fn
 
 
-def sharded_decode(cfg: ModelConfig, mesh):
+def sharded_decode(cfg: ModelConfig, mesh, batch: Optional[int] = None):
     """The tensor-parallel decode step (the JAX package's `lower_decode`):
     decode_fn(local params, {"cache": this rank's cache, "tokens" [B_local,
     1], "pos"}) -> (logits [B_local, 1, V], cache updated in place). The
-    decode-attention kernel runs on the rank's local heads."""
+    decode-attention kernel runs on the rank's local heads. batch: as
+    `sharded_prefill`'s."""
     fn = make_decode(tp_serve_cfg(cfg, mesh))
 
     def decode_fn(params: Tree, inputs: Dict[str, Any]):
-        with dctx.mesh_context(mesh):
+        cut = _rows_cut(mesh, batch, inputs["tokens"].shape[0])
+        with dctx.mesh_context(mesh, rows_cut=cut):
             return fn(params, inputs)
 
     return decode_fn

@@ -3,29 +3,40 @@ sharded contractions with.
 
 The sharded serve steps (`core/steps.py`) set the mesh around a call of the
 model's own functions (`models/lm.py`), which then run on this rank's local
-shards. Each collective here works over the mesh's `model` axis; with no
-mesh set, or a `model` axis of size 1, it is the identity and returns its
-input, so every single-device path computes what it did without it.
+shards. The collectives work over the mesh's `model` axis (the attention,
+MLP, SSM and vocab contractions), its `data` axis (the expert-parallel
+all-to-all) or its data axes, `pod` and `data` (the MoE's token groups and
+its weight gather). With no mesh set, or an axis of size 1, each is the
+identity and returns its input, so every single-device path computes what
+it did without it. The mesh context also says whether the rows a rank
+holds are its data shard of the batch or the whole batch (`rows_cut`):
+the data axes cut a batch only when they divide it (`steps.shard_batch`),
+and the MoE layer, the one layer that mixes rows, needs to know which.
 
-Every collective is an all-reduce. A gather is written as an all-reduce
-into a zero-filled buffer, which is exact (one rank contributes each
-element and the others add zeros): gloo, the backend of ranks that share
-one card, offers only `broadcast` and `all_reduce` on CUDA tensors.
+Every collective is an all-reduce. A gather or an all-to-all is written as
+an all-reduce into a zero-filled buffer, which is exact (one rank
+contributes each element and the others add zeros); a reduce-scatter is an
+all-reduce (in fp32 for 16-bit inputs) sliced and rounded once. gloo, the
+backend of ranks that share one card, offers only `broadcast` and
+`all_reduce` on CUDA tensors. Over the data axes a sum runs over `data`,
+then over `pod`.
 
-The JAX package also keeps a `shard_map` version shim here. It has no
-counterpart in this package: GSPMD and `shard_map` hand each device its
-shard of the arrays, and here a rank already holds its shards
-(`core/steps.shard_params`) and runs plain functions on them.
+The JAX package also keeps a `shard_map` version shim here, for its
+`moe_shard_map`. This package has none: its `models/layers.moe_shard_map`
+runs on the shards a rank already holds (`core/steps.shard_params`) and
+calls the collectives below where the JAX version's `shard_map` body calls
+`all_to_all`, `psum_scatter`, `all_gather` and `pmean`.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 _MESH = None
+_ROWS_CUT = True
 
 
 def set_mesh(mesh) -> None:
@@ -38,45 +49,96 @@ def get_mesh():
 
 
 @contextmanager
-def mesh_context(mesh):
-    global _MESH
-    prev = _MESH
-    _MESH = mesh
+def mesh_context(mesh, rows_cut: bool = True):
+    """Set `mesh` for the body. rows_cut: the batch a rank holds is its cut
+    over the data axes (False: every data rank holds the whole batch)."""
+    global _MESH, _ROWS_CUT
+    prev = _MESH, _ROWS_CUT
+    _MESH, _ROWS_CUT = mesh, rows_cut
     try:
         yield
     finally:
-        _MESH = prev
+        _MESH, _ROWS_CUT = prev
 
 
-def _model_axis() -> Optional[Tuple[object, int, int]]:
+def rows_cut() -> bool:
+    return _ROWS_CUT
+
+
+def _axis(name: str) -> Optional[Tuple[object, int, int]]:
     """(process group, this rank's coordinate, size) of the ambient mesh's
-    `model` axis, or None with no mesh or a `model` axis of size 1."""
+    axis `name`, or None with no mesh, no such axis, or one of size 1."""
     mesh = _MESH
     names = getattr(mesh, "mesh_dim_names", None) or ()
-    if "model" not in names:
+    if name not in names:
         return None
-    size = mesh.size(names.index("model"))
+    size = mesh.size(names.index(name))
     if size == 1:
         return None
-    return mesh.get_group("model"), mesh.get_local_rank("model"), size
+    return mesh.get_group(name), mesh.get_local_rank(name), size
+
+
+def _model_axis():
+    return _axis("model")
+
+
+def mesh_size() -> int:
+    """Ranks in the ambient mesh (1 with none)."""
+    return 1 if _MESH is None else int(_MESH.size())
+
+
+def coordinate(names: Sequence[str]) -> Tuple[int, int]:
+    """(this rank's index over the axes `names`, folded major to minor, and
+    their combined size); (0, 1) with no mesh."""
+    idx, n = 0, 1
+    for name in names:
+        ax = _axis(name)
+        if ax is not None:
+            idx, n = idx * ax[2] + ax[1], n * ax[2]
+    return idx, n
+
+
+DP = ("pod", "data")  # the data axes, major to minor; a missing one counts as size 1
 
 
 def model_coordinate() -> Tuple[int, int]:
     """(this rank's coordinate on the `model` axis, the axis' size); (0, 1)
     with no mesh."""
-    axis = _model_axis()
-    return (0, 1) if axis is None else (axis[1], axis[2])
+    return coordinate(("model",))
+
+
+def _sum_(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+    """All-reduce x in place over each axis of `names` in turn."""
+    for name in names:
+        ax = _axis(name)
+        if ax is not None:
+            dist.all_reduce(x, group=ax[0])
+    return x
+
+
+def _summable(x: torch.Tensor) -> torch.Tensor:
+    """x as a collective sums it: fp32 for 16-bit types, contiguous."""
+    return (x.float() if x.dtype in (torch.bfloat16, torch.float16) else x).contiguous()
+
+
+def all_reduce(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+    """The sum of x over the axes `names`. A 16-bit input is summed in fp32
+    and rounded back once; an fp32 one is summed in place where it is
+    contiguous (NCCL takes only contiguous tensors)."""
+    if coordinate(names)[1] == 1:
+        return x
+    return _sum_(_summable(x), names).to(x.dtype)
 
 
 def all_reduce_model(x: torch.Tensor) -> torch.Tensor:
-    """The sum of x over the `model` axis. A 16-bit input is summed in fp32
-    and rounded back once; an fp32 one is summed in place."""
-    axis = _model_axis()
-    if axis is None:
-        return x
-    y = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x.contiguous()
-    dist.all_reduce(y, group=axis[0])
-    return y.to(x.dtype)
+    """The sum of x over the `model` axis (`all_reduce`)."""
+    return all_reduce(x, ("model",))
+
+
+def pmean(x: torch.Tensor, names: Sequence[str] = DP) -> torch.Tensor:
+    """The mean of x over the axes `names` (the JAX package's `pmean`)."""
+    n = coordinate(names)[1]
+    return x if n == 1 else all_reduce(x, names) / n
 
 
 def matmul_model(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -96,15 +158,51 @@ def matmul_model(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return all_reduce_model(y.reshape(*a.shape[:-1], w.shape[-1])).to(a.dtype)
 
 
+def gather(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
+    """x of every rank over the axes `names`, concatenated along `dim` in
+    their folded order (the JAX package's tiled `all_gather`)."""
+    idx, n = coordinate(names)
+    if n == 1:
+        return x
+    dim = dim % x.dim()
+    k = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = k * n
+    full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    full.narrow(dim, idx * k, k).copy_(x)
+    return _sum_(full, names)
+
+
 def gather_model_last(x: torch.Tensor) -> torch.Tensor:
     """x [..., n] of every rank on the `model` axis, concatenated in axis
     order along the last dim -> [..., n * size]."""
-    axis = _model_axis()
-    if axis is None:
+    return gather(x, -1, ("model",))
+
+
+def reduce_scatter_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum of x over the `model` axis, of which this rank keeps chunk
+    `rank` along `dim` (the JAX package's tiled `psum_scatter`): an fp32
+    all-reduce for 16-bit inputs, sliced and rounded once."""
+    ax = _model_axis()
+    if ax is None:
         return x
-    group, rank, size = axis
-    n = x.shape[-1]
-    full = torch.zeros(*x.shape[:-1], n * size, dtype=x.dtype, device=x.device)
-    full[..., rank * n:(rank + 1) * n] = x
-    dist.all_reduce(full, group=group)
-    return full
+    _, rank, size = ax
+    y = _sum_(_summable(x), ("model",))
+    k = x.shape[dim] // size
+    return y.narrow(dim, rank * k, k).to(x.dtype).contiguous()
+
+
+def all_to_all_data(x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The JAX package's tiled `all_to_all` over the `data` axis: x is cut
+    into `size` chunks along split_dim, chunk k goes to data rank k, and
+    each rank concatenates what it receives along concat_dim in data-rank
+    order. Every rank's x is gathered (into zeros, exact) and each takes
+    its own chunk of each."""
+    ax = _axis("data")
+    if ax is None:
+        return x
+    _, rank, size = ax
+    full = gather(x[None], 0, ("data",))          # [size, *x.shape]
+    k = x.shape[split_dim] // size
+    return torch.cat([full[s].narrow(split_dim, rank * k, k) for s in range(size)],
+                     dim=concat_dim)

@@ -5,6 +5,15 @@ GShard mixture-of-experts (the router, the capacity dispatch mask, the
 grouped einsum dispatch and the sort-based one), and the Mamba2 block
 (causal depthwise conv, the chunked SSD scan, the one-token SSM step).
 
+On a tensor-parallel rank (a mesh set by `core/steps.sharded_prefill` /
+`sharded_decode`) the same functions run on the rank's shards and close
+their cut contractions through `distributed/ctx.py`: the MLP's and the
+Mamba2 block's row-parallel products, the Mamba2 block's gated RMSNorm and
+its conv channels (cut over `model` across the x | B | C split, gathered
+whole), and the MoE experts, through `moe_shard_map` (the JAX package's,
+experts over `data`) or the dispatch over the global groups, as the JAX
+package's `moe()` picks.
+
 Plain functions on tensors. The compute dtype is the activation dtype;
 norms, RoPE, the attention softmax, the router and the SSM scan run in
 fp32. The mask and the softmax follow the JAX package's order (scores in
@@ -231,11 +240,47 @@ def _dispatch_mask(gate_idx: torch.Tensor, gate_vals: torch.Tensor, E: int, C: i
 
 def _expert_ffn(xe: torch.Tensor, p) -> torch.Tensor:
     """xe: [G, E, C, D] dispatched token slots -> each expert's SiLU-gated
-    MLP of its slots, [G, E, C, D]."""
+    MLP of its slots, [G, E, C, D].
+
+    On a rank's shards (a mesh of more than one rank set) the result is this
+    rank's part of that sum, which `_close_experts` completes: the experts
+    the rank holds (a cut of E over `data`; the others' slots stay zero),
+    over its cut of each expert's hidden units (over `model`). Weights whose
+    d_model dim is cut over `data` (the serve rules' layout when the data
+    axis does not divide E) are gathered whole first, in the compute dtype,
+    as the JAX package's weight-gather mode gathers them."""
     dt = xe.dtype
-    g = torch.einsum("gecd,edf->gecf", xe, p["wi_gate"].to(dt))
-    u = torch.einsum("gecd,edf->gecf", xe, p["wi_up"].to(dt))
-    return torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["wo"].to(dt))
+    wg, wu, wo = p["wi_gate"].to(dt), p["wi_up"].to(dt), p["wo"].to(dt)
+    E, D, el = xe.shape[1], xe.shape[3], wg.shape[0]
+    if el == E:
+        return _gathered_ffn(xe, wg, wu, wo, D)
+    e0 = dctx.coordinate(("data",))[0] * el
+    out = torch.zeros_like(xe)
+    out[:, e0:e0 + el] = _gathered_ffn(xe[:, e0:e0 + el], wg, wu, wo, D)
+    return out
+
+
+def _gather_d(w: torch.Tensor, dim: int, D: int) -> torch.Tensor:
+    """An expert leaf whose d_model dim `dim` is cut over `data`, gathered
+    whole (the leaf itself when it is not cut)."""
+    return w if w.shape[dim] == D else dctx.gather(w, dim, ("data",))
+
+
+def _gathered_ffn(xe, wg, wu, wo, D: int) -> torch.Tensor:
+    """The experts' MLP of xe [G, e, C, D] on this rank's leaves, a leaf's
+    cut d_model dim gathered just before its product and freed after."""
+    g = torch.einsum("gecd,edf->gecf", xe, _gather_d(wg, 1, D))
+    u = torch.einsum("gecd,edf->gecf", xe, _gather_d(wu, 1, D))
+    return torch.einsum("gecf,efd->gecd", F.silu(g) * u, _gather_d(wo, 2, D))
+
+
+def _close_experts(y: torch.Tensor, p, n_experts: int) -> torch.Tensor:
+    """Sum a rank's part of the routed experts' output (`_expert_ffn`) over
+    the ranks that hold the other parts: over `model` (the hidden units)
+    and, when the experts are cut over `data`, over `data`. The identity
+    with no mesh."""
+    names = ("model", "data") if p["wi_gate"].shape[0] != n_experts else ("model",)
+    return dctx.all_reduce(y, names)
 
 
 def moe_capacity(cfg, tokens: int) -> int:
@@ -264,7 +309,7 @@ def moe_gshard_einsum(x: torch.Tensor, p, cfg):
     combine = dispatch * wte[..., None].to(x.dtype)
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
     ye = _expert_ffn(xe, p)
-    y = torch.einsum("gtec,gecd->gtd", combine, ye)
+    y = _close_experts(torch.einsum("gtec,gecd->gtd", combine, ye), p, E)
     return y.reshape(B, S, D), aux * cfg.router_aux_weight
 
 
@@ -305,14 +350,97 @@ def moe_sort(x: torch.Tensor, p, cfg):
     contrib = torch.where(ok[:, None], ye[torch.clamp(slot, max=last)] * w[:, None],
                           torch.zeros((), dtype=x.dtype, device=x.device))
     y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add_(0, tok_of, contrib)
+    y = _close_experts(y, p, E)
     return y.reshape(B, S, D), aux * cfg.router_aux_weight
 
 
+def moe_shard_map(x: torch.Tensor, p, cfg):
+    """The routed experts on a rank's shards, with the collectives of the
+    JAX package's `moe_shard_map` (its `shard_map` body, rank by rank).
+
+    Token groups are local: the global batch's T tokens go in groups of
+    min(moe_group_size, T / n_dp) over the data axes (`pod`, `data`; n_dp
+    ranks), each data rank routing its own G / n_dp groups with capacity C
+    a group, and the aux loss is the mean of the ranks' losses. So where
+    tokens drop, this differs from the unsharded layer by design, as the
+    JAX package's does. x is this rank's rows (`ctx.rows_cut()`) or, when
+    the data axes did not divide the batch, every row, of which the rank
+    routes its tokens' share and gathers the output back.
+
+      * EP mode (E % |data| == 0): the rank holds experts [E / |data|, D,
+        F / |model|]. Dispatched slots go all-to-all over `data` (E split,
+        groups concatenated), each rank computes its experts, reduce-
+        scatters the row-parallel `wo` product over `model` along d, sends
+        its d-shard back through the all-to-all and combines it.
+      * weight-gather mode (otherwise): tokens stay on their rank; the
+        layer's leaves, cut over `data` along d_model, are gathered whole.
+
+    Either way the combined [groups, t, D / |model|] output is gathered
+    over `model`. Returns (y [B, S, D], aux loss)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    i_dp, n_dp = dctx.coordinate(dctx.DP)
+    n_data = dctx.coordinate(("data",))[1]
+    cut = dctx.rows_cut()
+    T = B * S * (n_dp if cut else 1)
+    tl = T // n_dp
+    group = min(cfg.moe_group_size, tl)
+    G = T // group
+    if T % n_dp or G * group != T or G % n_dp:
+        raise ValueError(f"{T} tokens do not cut into {n_dp} data ranks' groups of {group}")
+    g_loc = G // n_dp
+    x2 = x.reshape(-1, D)
+    xl = (x2 if cut else x2[i_dp * tl:(i_dp + 1) * tl]).reshape(g_loc, group, D)
+    dt = x.dtype
+    gate_vals, gate_idx, _, aux = _router(xl.reshape(tl, D), p, E, K)
+    C = moe_capacity(cfg, group)
+    dispatch, wte = _dispatch_mask(gate_idx.reshape(g_loc, group, K),
+                                   gate_vals.reshape(g_loc, group, K), E, C, dt)
+    combine = dispatch * wte[..., None].to(dt)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, xl)          # [g_loc, E, C, D]
+    wg, wu, wo = p["wi_gate"].to(dt), p["wi_up"].to(dt), p["wo"].to(dt)
+    if E % n_data == 0:
+        xe = dctx.all_to_all_data(xe, 1, 0)                      # [G_data, E / n, C, D]
+        ye = _gathered_ffn(xe, wg, wu, wo, D)
+        ye = dctx.reduce_scatter_model(ye, 3)
+        ye = dctx.all_to_all_data(ye, 0, 1)                      # [g_loc, E, C, D / m]
+    else:
+        ye = dctx.reduce_scatter_model(_gathered_ffn(xe, wg, wu, wo, D), 3)
+    y = torch.einsum("gtec,gecd->gtd", combine, ye)             # [g_loc, t, D / m]
+    y = dctx.gather(y, 2, ("model",)).reshape(tl, D)
+    if not cut:
+        y = dctx.gather(y, 0, dctx.DP)
+    return y.reshape(B, S, D), dctx.pmean(aux) * cfg.router_aux_weight
+
+
 def moe(x: torch.Tensor, p, cfg):
-    """The MoE FFN of one layer: the routed experts (`cfg.moe_impl`: einsum
-    or sort) plus the shared experts' MLP. Returns (y, aux loss)."""
-    impl = moe_sort if cfg.moe_impl == "sort" else moe_gshard_einsum
-    y, aux = impl(x, p, cfg)
+    """The MoE FFN of one layer: the routed experts plus the shared
+    experts' MLP. Returns (y, aux loss).
+
+    With no mesh (or a mesh of one rank) the routed experts are
+    `cfg.moe_impl`'s: einsum or sort. On a mesh, the JAX package's rule:
+    `moe_shard_map` for the einsum dispatch when the global batch's tokens
+    T divide over the n_dp data ranks with at least 4 each; otherwise the
+    einsum or sort dispatch over the global groups, as the JAX package runs
+    it through GSPMD: the batch's rows gathered over the data axes (when
+    the rank holds a cut of them), the dispatch run on every rank, each
+    rank's experts computed, summed over the ranks (`_close_experts`), and
+    the rank's rows kept."""
+    if dctx.mesh_size() == 1:
+        impl = moe_sort if cfg.moe_impl == "sort" else moe_gshard_einsum
+        y, aux = impl(x, p, cfg)
+    else:
+        B, S, _ = x.shape
+        i_dp, n_dp = dctx.coordinate(dctx.DP)
+        cut = dctx.rows_cut() and n_dp > 1
+        T = B * S * (n_dp if cut else 1)
+        if cfg.moe_impl == "einsum" and T % n_dp == 0 and T // n_dp >= 4:
+            y, aux = moe_shard_map(x, p, cfg)
+        else:
+            impl = moe_sort if cfg.moe_impl == "sort" else moe_gshard_einsum
+            y, aux = impl(dctx.gather(x, 0, dctx.DP) if cut else x, p, cfg)
+            if cut:
+                y = y.narrow(0, i_dp * B, B)
     if cfg.n_shared_experts:
         y = y + mlp(x, p["shared"])
     return y, aux
@@ -430,6 +558,38 @@ def _ssm_split(xBC: torch.Tensor, cfg):
     return xBC[..., :di], xBC[..., di:di + gn], xBC[..., di + gn:]
 
 
+def _ssm_local(xBC: torch.Tensor, cfg):
+    """The conv output of this rank's channels -> (x of the rank's heads,
+    B, C of the groups those heads read). A tensor-parallel rank holds a
+    cut of the conv_dim = d_inner + 2 * ngroups * state channels over
+    `model`, which does not line up with the x | B | C split, so the
+    channels are gathered whole first and x is cut again at the rank's
+    heads: rank j of m holds heads [j h / m, (j + 1) h / m), whose x is
+    d_inner channels [j d_inner / m, (j + 1) d_inner / m), all reading the
+    one group of B and C (every arch here has one; more would need each
+    rank's heads' groups). With no model axis it is `_ssm_split`."""
+    j, m = dctx.model_coordinate()
+    if m == 1:
+        return _ssm_split(xBC, cfg)
+    if cfg.ssm_ngroups != 1:
+        raise NotImplementedError(f"{cfg.name}: {cfg.ssm_ngroups} SSM groups over "
+                                  f"{m} model ranks")
+    xs, Bm, Cm = _ssm_split(dctx.gather_model_last(xBC), cfg)
+    di = cfg.d_inner // m
+    return xs[..., j * di:(j + 1) * di], Bm, Cm
+
+
+def _rmsnorm_gated_ssm(y, z, w, cfg):
+    """`rmsnorm_gated` over d_inner. On a tensor-parallel rank, which holds
+    a cut of the d_inner channels, the sum of squares is summed over
+    `model` (in fp32) before the mean and the rsqrt."""
+    if dctx.model_coordinate()[1] == 1:
+        return rmsnorm_gated(y, z, w, cfg.norm_eps)
+    xf = (y * F.silu(z.to(y.dtype))).float()
+    var = dctx.all_reduce_model((xf * xf).sum(-1, keepdim=True)) / cfg.d_inner
+    return (xf * torch.rsqrt(var + cfg.norm_eps) * w.float()).to(y.dtype)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """log(1 + e^x) as the JAX package computes it (logaddexp(x, 0)): no
     linear cut-off above a threshold, as F.softplus has."""
@@ -445,7 +605,10 @@ def ssm_block(x, p, cfg, init_state=None, return_state=False, pos_offset=None):
     zero increment) and the block output is zeroed there, keeping the
     padded rows' state and residual stream equal to unpadded execution.
     With return_state: (out, (conv_tail [B, k-1, conv_dim], final_state
-    [B, h, p, n] fp32))."""
+    [B, h, p, n] fp32)). On a tensor-parallel rank the weights are its
+    shards (in_z, norm_w over d_inner; in_xbc, conv_w, conv_b over
+    conv_dim; in_dt, dt_bias, A_log, D over heads; out_proj row-parallel)
+    and conv_dim, h and the state are the rank's (`_ssm_local`)."""
     B, L, D = x.shape
     dt_ = x.dtype
     z = x @ p["in_z"].to(dt_)
@@ -457,9 +620,9 @@ def ssm_block(x, p, cfg, init_state=None, return_state=False, pos_offset=None):
         valid = (torch.arange(L, device=x.device)[None, :]
                  >= pos_offset.to(device=x.device, dtype=torch.int64)[:, None])
         xBC = xBC * valid[..., None].to(xBC.dtype)
-    xs, Bm, Cm = _ssm_split(xBC, cfg)
-    h, pd = cfg.n_ssm_heads, cfg.ssm_headdim
-    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    xs, Bm, Cm = _ssm_local(xBC, cfg)
+    pd, g, n = cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
+    h = xs.shape[-1] // pd   # the rank's heads
     dt = _softplus(dtr.float() + p["dt_bias"].float())
     if valid is not None:
         dt = torch.where(valid[..., None], dt, torch.zeros((), dtype=dt.dtype,
@@ -469,8 +632,8 @@ def ssm_block(x, p, cfg, init_state=None, return_state=False, pos_offset=None):
     y, fstate = ssd_chunked(xh, dt, A, Bm.reshape(B, L, g, n), Cm.reshape(B, L, g, n),
                             cfg.ssm_chunk, init_state=init_state)
     y = y + p["D"].to(dt_)[None, None, :, None] * xh
-    y = rmsnorm_gated(y.reshape(B, L, cfg.d_inner), z, p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(dt_)
+    y = _rmsnorm_gated_ssm(y.reshape(B, L, h * pd), z, p["norm_w"], cfg)
+    out = dctx.matmul_model(y, p["out_proj"].to(dt_))
     if valid is not None:
         out = out * valid[..., None].to(out.dtype)
     if return_state:
@@ -496,15 +659,14 @@ def ssm_block_decode(x1, p, cfg, conv_state, state):
     xBC = xf @ p["in_xbc"].to(dt_)
     dtr = xf @ p["in_dt"].to(dt_)
     xBC, new_conv = conv1d_step(xBC, conv_state, p["conv_w"], p["conv_b"])
-    xBC = F.silu(xBC)
-    xs, Bm, Cm = _ssm_split(xBC, cfg)
-    h, pd = cfg.n_ssm_heads, cfg.ssm_headdim
-    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    xs, Bm, Cm = _ssm_local(F.silu(xBC), cfg)
+    pd, g, n = cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
+    h = xs.shape[-1] // pd   # the rank's heads
     dt = _softplus(dtr.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     y, new_state = ssm_step(xs.reshape(B, h, pd), dt, A, Bm.reshape(B, g, n),
                             Cm.reshape(B, g, n), state)
     y = y + p["D"].to(dt_)[None, :, None] * xs.reshape(B, h, pd)
-    y = rmsnorm_gated(y.reshape(B, cfg.d_inner), z, p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(dt_)
+    y = _rmsnorm_gated_ssm(y.reshape(B, h * pd), z, p["norm_w"], cfg)
+    out = dctx.matmul_model(y, p["out_proj"].to(dt_))
     return out[:, None], (new_conv, new_state)

@@ -44,11 +44,14 @@ isolated per-request cache no matter WHEN it joined.
 
 Tensor parallel. Under a mesh (`core/steps.sharded_prefill`/`sharded_decode`
 set it) the same functions run on one rank's shards: its KV heads and
-their query heads, its MLP hidden units and its rows of the vocab. The
-products that contract over a shard (the attention output, the MLP's wo)
-and the vocab-sharded embedding and logits close over the mesh's `model`
-axis through `distributed/ctx.py`; with no mesh those calls return their
-input.
+their query heads, its MLP hidden units, its rows of the vocab, its Mamba2
+conv channels and heads (an SSM layer's conv and state cache rows hold
+those, written in place by decode), and its experts (over `data`) or its
+cut of every expert's d_model (over `data`) and hidden units (over
+`model`). The products that contract over a shard (the attention output,
+the MLP's and the SSM block's output products, the experts) and the
+vocab-sharded embedding and logits close through `distributed/ctx.py`;
+with no mesh those calls return their input.
 """
 from __future__ import annotations
 

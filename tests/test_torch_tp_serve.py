@@ -23,8 +23,9 @@ ranks force `sharding._small_serve` off: the head layout here is the one
 every full-width dense config of 1B parameters or more gets. The (2, 2)
 spawn also checks that DTensor cuts a dim over ('pod', 'data') major to
 minor, as `sharding.local_shard` does, and builds `make_slice_mesh` over
-the world. Configs this path does not take are refused by name, in
-process.
+the world. Configs this path does not take (an encoder, the small-serve
+layout) are refused by name, in process; the MoE, SSM and hybrid
+families' full configs pass (tests/test_torch_tp_families.py serves them).
 """
 import dataclasses
 
@@ -39,7 +40,7 @@ from repro.configs import serve_config as ref_serve_config  # noqa: E402
 from repro.distributed import sharding as rshd  # noqa: E402
 from repro.models import api as rapi  # noqa: E402
 from repro.models import lm as rlm  # noqa: E402
-from repro_torch.configs import reduced  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import steps  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models.params import from_reference  # noqa: E402
@@ -166,14 +167,27 @@ def test_run_ranks_fails_when_a_rank_dies():
     ("whisper-base", "an encoder"), ("tinyllama-1.1b", "small-serve"),
     ("phi-3-vision-4.2b", "small-serve")])
 def test_sharded_path_refuses_by_name(arch, what):
-    """Reduced configs: the families the sharded steps do not take, and the
-    small-serve layout (every reduced config is under 1B parameters), are
-    refused with the ROADMAP slice that will take them."""
+    """What the sharded steps do not take yet is refused with the ROADMAP
+    slice that will take it (item 7.3): an encoder (whisper), and the
+    small-serve layout, which every reduced config under 1B parameters
+    takes but the SSM family's. The MoE, SSM and hybrid families are
+    served: their full configs pass `tp_serve_cfg`, and their reduced ones
+    are refused by the small-serve rule (reduced mamba2 passes: the rule
+    exempts the SSM family, in both packages)."""
     cfg, sizes = reduced(arch), {"data": 1, "model": 2}
+    if what in ("experts", "SSM layers"):
+        full = get_config(arch)
+        assert steps.tp_serve_cfg(full, sizes).n_layers == full.n_layers
+        assert steps.tp_serve_cfg(full, {"data": 2, "model": 2}).n_experts == full.n_experts
+        if cfg.family == "ssm":
+            assert not rshd._small_serve(ref_reduced(arch))
+            assert steps.tp_serve_cfg(cfg, sizes) == cfg
+            return
+        what = "small-serve"
     for fn in (steps.sharded_prefill, steps.sharded_decode, steps.tp_serve_cfg):
         with pytest.raises(NotImplementedError, match=what) as e:
             fn(cfg, sizes)
-        assert "ROADMAP Queue 1 item 7" in str(e.value)
+        assert "ROADMAP Queue 1 item 7.3" in str(e.value)
     with pytest.raises(NotImplementedError, match=what):
         steps.shard_params({}, cfg, sizes, coordinate=(0, 0))
 

@@ -1,6 +1,7 @@
-"""Rank workers of tests/test_torch_tp_serve.py. Spawned ranks import this
-module, not the test module, so they start without JAX: they run the
-port only, and the test compares their results with the JAX package."""
+"""Rank workers of tests/test_torch_tp_serve.py, tests/test_torch_ep_moe.py
+and tests/test_torch_tp_families.py. Spawned ranks import this module, not
+the test modules, so they start without JAX: they run the port only, and
+the tests compare their results with the JAX package."""
 import dataclasses
 import os
 
@@ -20,11 +21,22 @@ CONFIGS = {"tinyllama": ("tinyllama-1.1b", {}),
            "yi-like": ("tinyllama-1.1b", dict(n_heads=6, n_kv_heads=2, head_dim=16)),
            "h2o-danube": ("h2o-danube-1.8b", {}),
            "phi-3-vision": ("phi-3-vision-4.2b", {})}
+# The MoE, SSM and hybrid families (tests/test_torch_tp_families.py), with
+# capacity to spare so that no token drops and sharded equals unsharded;
+# mixtral-wg has 3 experts, which a data axis of 2 does not divide (the
+# weight-gather mode).
+NO_DROP = 8.0
+FAMILY_CONFIGS = {"mixtral": ("mixtral-8x22b", dict(capacity_factor=NO_DROP)),
+                  "mixtral-wg": ("mixtral-8x22b", dict(capacity_factor=NO_DROP, n_experts=3)),
+                  "moonshot": ("moonshot-v1-16b-a3b", dict(capacity_factor=NO_DROP)),
+                  "mamba2": ("mamba2-370m", {}),
+                  "jamba": ("jamba-v0.1-52b", dict(capacity_factor=NO_DROP))}
 
 
 def config(name):
-    """The reduced config of CONFIGS[name] at fp32."""
-    arch, fields = CONFIGS[name]
+    """The reduced config of CONFIGS[name] (or FAMILY_CONFIGS[name]) at
+    fp32."""
+    arch, fields = CONFIGS[name] if name in CONFIGS else FAMILY_CONFIGS[name]
     return dataclasses.replace(reduced(arch), dtype="float32", **fields)
 
 
@@ -69,7 +81,8 @@ def serve_rank(rank, world, backend, shape, refs):
         logits, cache = port_run(
             local, steps.shard_batch(torch.from_numpy(prompts), mesh),
             steps.shard_batch(torch.from_numpy(toks), mesh),
-            steps.sharded_prefill(cfg, mesh), steps.sharded_decode(cfg, mesh),
+            steps.sharded_prefill(cfg, mesh, batch=ROWS),
+            steps.sharded_decode(cfg, mesh, batch=ROWS),
             None if img is None else steps.shard_batch(torch.from_numpy(img), mesh))
         out[name] = dict(logits=logits,
                          params={k: tuple(v.shape) for k, v in leaves(local)},
@@ -94,3 +107,84 @@ def die_rank(rank, world, backend):
         os._exit(3)
     torch.distributed.barrier()
     return rank
+
+
+def _moe_leaf_axes():
+    from repro_torch.models.params import _moe_defs
+
+    return {k: v.axes for k, v in _moe_defs(config("mixtral")).items() if k != "shared"}
+
+
+def moe_layer_rank(rank, world, backend, shape, cases):
+    """One rank of tests/test_torch_ep_moe.py: each case (name: (config
+    fields, x [B, S, D], the layer's weights {router, wi_gate, wi_up, wo},
+    all numpy)) through `layers.moe` on the rank's rows (`shard_batch`)
+    and its shards of the weights (the serve rules' placements), under the
+    mesh. Returns {name: (y of the rank's rows, aux, whether moe_shard_map
+    ran)} and the rank's coordinate."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    coord = list(mesh.get_coordinate())
+    axes = _moe_leaf_axes()
+    out = {"coord": coord}
+    ran = []
+    shard_map = L.moe_shard_map
+
+    def counted(*a, **k):
+        ran.append(1)
+        return shard_map(*a, **k)
+
+    L.moe_shard_map = counted
+    for name, (fields, x, w) in cases.items():
+        cfg = dataclasses.replace(config("mixtral"), **fields)
+        rules = shd.serve_rules(mesh, cfg)
+        p = {k: shd.local_shard(torch.from_numpy(v), shd.spec_for(v.shape, axes[k], rules, mesh),
+                                mesh, coord).contiguous() for k, v in w.items()}
+        xt = torch.from_numpy(x)
+        xl = steps.shard_batch(xt, mesh)
+        ran.clear()
+        with dctx.mesh_context(mesh, rows_cut=steps._rows_cut(mesh, xt.shape[0], xl.shape[0])):
+            y, aux = L.moe(xl, p, cfg)
+        out[name] = (y.numpy(), float(aux), bool(ran),
+                     {k: tuple(v.shape) for k, v in p.items()})
+    return out
+
+
+def ssm_block_rank(rank, world, backend, shape, cfg_fields, params, x, x1s):
+    """One rank of the sharded Mamba2 block: `ssm_block` over x [B, L, D]
+    with its final state, then one `ssm_block_decode` step a row of x1s
+    [n, B, 1, D] from there, on the rank's shards of one layer's weights
+    (numpy, cut by the serve rules). Returns the outputs (the same on every
+    rank) and the rank's conv and state caches."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import _ssm_defs
+
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(config("mamba2"), **cfg_fields)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    coord = list(mesh.get_coordinate())
+    rules = shd.serve_rules(mesh, cfg)
+    defs = _ssm_defs(cfg)
+    p = {k: shd.local_shard(torch.from_numpy(v), shd.spec_for(v.shape, defs[k].axes, rules,
+                                                               mesh), mesh, coord).contiguous()
+         for k, v in params.items()}
+    with dctx.mesh_context(mesh):
+        y, (conv, state) = L.ssm_block(torch.from_numpy(x), p, cfg, return_state=True)
+        outs, convs, states = [], [conv], [state]
+        for x1 in x1s:
+            o, (conv, state) = L.ssm_block_decode(torch.from_numpy(x1), p, cfg, conv, state)
+            outs.append(o.numpy())
+            convs.append(conv)
+            states.append(state)
+    return dict(coord=coord, y=y.numpy(), decode=outs,
+                conv=[c.numpy() for c in convs], state=[s.numpy() for s in states])
