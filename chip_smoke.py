@@ -308,6 +308,29 @@ Phases, each fatal on failure:
    replicated leaves, and the peak device bytes while cutting at most its
    shards plus one leaf in flight. `fam_four_card`, not run by default,
    serves jamba at full depth on four cards (NCCL).
+20. small-serve on a mesh — the layout of models under 1B parameters
+   (whisper-base, tinyllama-1.1b cut to 8 layers): the attention weights
+   whole on every rank, no head padding, each attention cache cut along
+   its sequence over `model` where the axis divides it, the decode kernel
+   over each rank's cut returning each row's log-sum-exp, the ranks'
+   outputs merged (distributed.ctx.merge_seq_shards). First decode
+   attention with the lse at the ranks' shapes (row 0 with no valid key:
+   o 0, lse -inf), held (o at the decode tolerance, lse within 1e-4),
+   timed beside the plain version with the lse and SDPA's o, bounded.
+   Then on spawned gloo ranks that share the card: (h2), (h4) whisper-base
+   at full depth on (1, 2) and (1, 4), its 64-slot ring cut to 32 and 16
+   slots, its 1,500-frame cross cache to 750 and 375; (i) tinyllama-1.1b at
+   8 layers on (1, 2), its ring cut to 32 (rank 1's cut holds no valid key
+   for the first 16 steps). 8 x 16 prompts (whisper with stub frames from
+   a seed), 24 decode steps, fp32 then bf16, fed the unsharded port's
+   greedy tokens. fp32: every step's logits within 1e-4 of the unsharded
+   logits' max abs and tokens equal except near-ties under it. Gated on
+   every rank and dtype: decode-attention launches = (self + cross
+   attention layers) x steps, every one with the lse; each of the first
+   and the last step's calls held against the plain version (a cut with
+   no valid key among them); weight and cache bytes equal to its share of
+   every cut leaf plus the whole ones. bf16: agreement printed. Printed:
+   the decode step's wall ms unsharded and sharded.
 
 In every serve phase (4, 6, 8-11, 13-17) the decode kernel's launches must
 equal n_layers x the decode steps the engines executed (their own stats;
@@ -320,9 +343,9 @@ Prints one JSON line {"kernels": [...]} (seven kernels; a kernel's launches
 are the sum over the phases that run it — decode_attention's over the seven
 serve phases, the knee pass, the controller's first replay, phase 15's
 six serves and phase 16's two serves, whisper's generate and phi-3-vision's
-image path, phase 17's serve of the trained weights, and phase 18's and
-phase 19's ranks' decode steps, summed over ranks; the audio kernels'
-over phases 4, 10, 11, 13, 14, 15 and 16;
+image path, phase 17's serve of the trained weights, and phase 18's,
+phase 19's and phase 20's ranks' decode steps, summed over ranks; the
+audio kernels' over phases 4, 10, 11, 13, 14, 15 and 16;
 its max_abs_err is the largest over all its shapes; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
 where it falls, so a kernel that loses off its main shape shows), the
@@ -1002,20 +1025,30 @@ def decode_row(torch, F, np, kd, rng, shape, valid=None):
 def report_decode_rows(rows) -> None:
     """Each decode attention row's errors and bound, printed; fails on a row
     whose kernel (or SDPA) differs from the plain version beyond the
-    decode tolerance."""
+    decode tolerance, or whose lse (a row with the lse) beyond LSE_TOL."""
     for row in rows:
         abs_err, rel_err, ok = row.pop("err")
         lib_abs, _, lib_ok = row.pop("library_err")
         row["max_abs_err"], row["max_rel_err"] = abs_err, rel_err
         row["library_max_abs_err"] = lib_abs
+        lse_ok = True
+        if "lse_err" in row:
+            row["lse_max_abs_err"], lse_ok = row.pop("lse_err")
         t_bytes, t_ops = row["bytes"] / HBM_BYTES_S, row["flops"] / FP32_FLOPS_S
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"  decode_attention B={row['B']} H={row['H']} KH={row['KH']} D={row['D']} "
+        print(f"  decode_attention{' (lse)' if row.get('lse') else ''} B={row['B']} "
+              f"H={row['H']} KH={row['KH']} D={row['D']} "
               f"S={row['S']:4d} {row['dtype']:8s} ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
-              f"max_abs_err={abs_err:.3e} library_err={lib_abs:.3e}")
+              f"max_abs_err={abs_err:.3e} library_err={lib_abs:.3e}"
+              + (f" lse max_abs_err={row['lse_max_abs_err']:.3e} nolse_ms={row['nolse_ms']:.4f}"
+                 if row.get("lse") else ""))
+        if not lse_ok:
+            fail(f"decode_attention {row['dtype']} B={row['B']} D={row['D']} S={row['S']}: "
+                 f"its lse disagrees with the plain version's beyond {LSE_TOL} (or not -inf "
+                 f"at the rows with no valid key)")
         if not ok:
             fail(f"decode_attention {row['dtype']} B={row['B']} D={row['D']} S={row['S']} "
                  f"disagrees with its plain version beyond {TOL[row['tol']]}")
@@ -3387,24 +3420,35 @@ def rank_weight_bytes(torch, cfg, scfg, mesh):
     return expected, leaf_peak
 
 
-def held_decode_attention(torch, kernel, dtype, per_step, n_steps):
+def held_decode_attention(torch, kernel, dtype, per_step, n_steps, stats=None):
     """A stand-in for ops.decode_attention that calls `kernel` and holds
     every call of the first and the last decode step (per_step calls a
-    step) against the plain version on the same inputs. Returns (the
-    stand-in, the list it fills: ((B, H, D, KH, S), max abs error, within
-    tolerance) a held call)."""
+    step) against the plain version on the same inputs: o, and the lse of
+    a call that asks for it (the small-serve layout's cuts, within LSE_TOL,
+    -inf at the same rows). Returns (the stand-in, the list it fills: ((B,
+    H, D, KH, S), max abs error, within tolerance) a held call). `stats`,
+    where given, gets the calls, those with the lse, and the held rows with
+    no valid key."""
     from repro_torch.kernels import decode_attention as kd
 
     calls, held = [0], []
+    stats = {} if stats is None else stats
+    stats.update(calls=0, lse_calls=0, empty_rows=0)
 
-    def decode_attention(q, k, v, valid_len):
-        out = kernel(q, k, v, valid_len)
+    def decode_attention(q, k, v, valid_len, return_lse=False):
+        out = (kernel(q, k, v, valid_len, return_lse=True) if return_lse
+               else kernel(q, k, v, valid_len))
         i = calls[0]
         calls[0] += 1
+        stats["calls"] += 1
+        stats["lse_calls"] += int(return_lse)
         if i < per_step or i >= per_step * (n_steps - 1):   # the first and the last step
-            want = kd.decode_attention_plain(q, k, v, valid_len)
-            err = errors(torch, f"decode_attention/{dtype}", out.float(), want.float())
-            held.append((tuple(q.shape) + (k.shape[2], k.shape[1]), err[0], err[2]))
+            want = kd.decode_attention_plain(q, k, v, valid_len, return_lse)
+            o, want_o = (out[0], want[0]) if return_lse else (out, want)
+            err = errors(torch, f"decode_attention/{dtype}", o.float(), want_o.float())
+            ok = err[2] and (not return_lse or lse_errors(torch, out[1], want[1])[1])
+            stats["empty_rows"] += int((valid_len == 0).sum())
+            held.append((tuple(q.shape) + (k.shape[2], k.shape[1]), err[0], ok))
         return out
 
     return decode_attention, held
@@ -4012,6 +4056,360 @@ def tp_families_phase(torch, F, np, card, cases=None) -> dict:
     return out
 
 
+# --- phase 20: the small-serve layout on a mesh --------------------------------
+
+SS_ROWS, SS_PROMPT, SS_CACHE, SS_STEPS = 8, 16, 64, 24
+SS_DTYPES = ("float32", "bfloat16")
+LSE_TOL = 1e-4   # a finite lse's max abs difference from the plain version's
+# case: (arch, mesh (data, model), layers or None for all of them). (h2),
+# (h4) whisper-base at full depth, its 64-slot self-attention ring cut to 32
+# and 16 slots a rank, its 1,500-frame cross cache to 750 and 375; (i)
+# tinyllama-1.1b at full width and 8 of 22 layers (0.48B parameters, under
+# the layout's 1B), its ring cut to 32: with 16-token prompts the cut of
+# rank 1 holds no valid key for the first 16 steps, then fills.
+SS_CASES = {"h2": ("whisper-base", (1, 2), None), "h4": ("whisper-base", (1, 4), None),
+            "i": ("tinyllama-1.1b", (1, 2), 8)}
+
+
+def ss_config(name, dtype):
+    from repro_torch.configs import get_config
+
+    arch, _, depth = SS_CASES[name]
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers, dtype=dtype)
+
+
+def ss_rank_shapes(name):
+    """(B, H, KH, D, S, dtype) of each decode attention a rank of a case
+    launches: the whole heads over its cut of the ring, and of the cross
+    cache (an encoder-decoder), one a dtype."""
+    from repro_torch.models.params import ring_len
+
+    _, (data, tp), _ = SS_CASES[name]
+    cfg = ss_config(name, "float32")
+    rings = [ring_len(cfg, SS_CACHE)] + ([cfg.n_audio_ctx] if cfg.enc_layers else [])
+    return [(SS_ROWS // data, cfg.n_heads, cfg.n_kv_heads, cfg.hd, s // tp, dt)
+            for s in rings for dt in SS_DTYPES]
+
+
+def lse_errors(torch, got, want):
+    """(max abs difference of the finite lse, allclose within LSE_TOL and
+    -inf at the same rows)."""
+    fin = torch.isfinite(want)
+    same = torch.equal(torch.isneginf(got), torch.isneginf(want)) and bool(
+        torch.isfinite(got[fin]).all())
+    d = (got[fin].double() - want[fin].double()).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    return err, same and err <= LSE_TOL
+
+
+def decode_lse_row(torch, F, np, kd, rng, shape):
+    """decode_row with the log-sum-exp (a rank's cut of a ring or a cross
+    cache): valid_len drawn in [1, S] and row 0's set to 0 (a cut that
+    holds none of the row's keys); the kernel's o held against the plain
+    version's at the decode tolerance and its lse within LSE_TOL (-inf at
+    the same rows); the kernel and the plain version, both with the lse,
+    timed beside SDPA, which computes o alone (its error over the rows
+    with a valid key: a fully masked row is NaN there), and the kernel
+    without the lse on the same inputs (nolse_ms; row 0 then averages V
+    over all S). Its bound counts the lse written too."""
+    b, h, kh, d, s_len, dt = shape
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev, dtype)
+               for sh in ((b, h, d), (b, s_len, kh, d), (b, s_len, kh, d)))
+    vl_np = rng.integers(1, s_len + 1, b).astype(np.int32)
+    vl_np[0] = 0
+    vl = torch.from_numpy(vl_np).to(dev)
+    name = f"decode_attention/{dt}"
+    o, lse = kd.decode_attention_kernel(q, k, v, vl, return_lse=True)
+    want_o, want_lse = kd.decode_attention_plain(q, k, v, vl, return_lse=True)
+    row = dict(name="decode_attention", lse=True, B=b, H=h, KH=kh, D=d, S=s_len, dtype=dt,
+               tol=name, err=errors(torch, name, o.float(), want_o.float()),
+               lse_err=lse_errors(torch, lse, want_lse))
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(s_len, device=dev)[None] < vl[:, None].long())[:, None, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              enable_gqa=True)[:, :, 0]
+
+    row["library_err"] = errors(torch, name, sdpa()[1:].float(), want_o[1:].float())
+    row["ms"] = time_ms(torch, lambda: kd.decode_attention_kernel(q, k, v, vl, return_lse=True))
+    row["nolse_ms"] = time_ms(torch, lambda: kd.decode_attention_kernel(q, k, v, vl))
+    row["plain_ms"] = time_ms(torch, lambda: kd.decode_attention_plain(q, k, v, vl,
+                                                                       return_lse=True))
+    row["library_ms"] = time_ms(torch, sdpa)
+    elt = q.element_size()
+    n_valid = int(vl_np.sum())
+    row["bytes"] = elt * (2 * b * h * d + 2 * n_valid * kh * d) + 4 * b + 4 * b * h
+    row["flops"] = 4 * n_valid * (h // kh) * kh * d
+    return row
+
+
+def ss_kernel_rows(torch, F, np, cases):
+    """Decode attention with the lse at every rank shape of `cases`."""
+    from repro_torch.kernels import decode_attention as kd
+
+    rng = np.random.default_rng(2020)
+    shapes = dict.fromkeys(s for n in cases for s in ss_rank_shapes(n))
+    rows = [decode_lse_row(torch, F, np, kd, rng, shape) for shape in shapes]
+    torch.cuda.synchronize()
+    report_decode_rows(rows)
+    return rows
+
+
+def ss_inputs(np, cfg):
+    """The prompts [SS_ROWS, SS_PROMPT] and, for an encoder-decoder, the
+    stub audio frames [SS_ROWS, n_audio_ctx, d_model] fp32, from a seed."""
+    rng = np.random.default_rng(20)
+    tokens = rng.integers(0, cfg.vocab, (SS_ROWS, SS_PROMPT))
+    frames = (rng.standard_normal((SS_ROWS, cfg.n_audio_ctx, cfg.d_model)).astype(np.float32)
+              if cfg.enc_layers else None)
+    return tokens, frames
+
+
+def ss_prefill_inputs(torch, tokens, frames, cut):
+    inputs = {"tokens": cut(torch.from_numpy(tokens).cuda()), "cache_len": SS_CACHE}
+    if frames is not None:
+        inputs["audio_frames"] = cut(torch.from_numpy(frames).cuda())
+    return inputs
+
+
+def ss_unsharded(torch, np, cfg, tokens, frames):
+    """The unsharded port on the card, seed-0 weights in cfg.dtype: prefill
+    and SS_STEPS greedy decode steps. Returns (logits [1 + steps, B, V]
+    fp32 numpy, the tokens fed to the steps [B, steps], each step's wall
+    ms); the weights are freed before it returns."""
+    from repro_torch.core import steps
+
+    params = tp_weights(torch, cfg, "cuda")
+    prefill, decode = steps.make_prefill(cfg), steps.make_decode(cfg)
+    logits, cache = prefill(params, ss_prefill_inputs(torch, tokens, frames, lambda t: t))
+    out, toks, walls = [logits[:, 0].float()], [logits.argmax(-1)], []
+    for i in range(SS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(params, {"cache": cache, "tokens": toks[-1],
+                                        "pos": SS_PROMPT + i})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits[:, 0].float())
+        toks.append(logits.argmax(-1))
+    ref = torch.stack(out).cpu().numpy()
+    forced = torch.cat(toks[:SS_STEPS], 1).cpu().numpy()
+    del params, cache
+    return ref, forced, walls
+
+
+def ss_cache_bytes(torch, scfg, mesh):
+    """The cache bytes a rank holds under the serve placements: its share
+    of each cut leaf plus every whole one."""
+    from repro_torch.core import steps
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.params import cache_specs, leaves
+
+    sizes = list(shd.axis_sizes(mesh).values())
+    pl = dict(leaves(steps.serve_cache_shardings(scfg, mesh, SS_ROWS, SS_CACHE)))
+    total = 0
+    for path, spec in leaves(cache_specs(scfg, SS_ROWS, SS_CACHE)):
+        n = math.prod(s for s, x in zip(sizes, pl[path]) if x != shd.Replicate())
+        total += spec.numel() * spec.element_size() // n
+    return total
+
+
+def ss_pass(torch, name, dtype, mesh, tokens, frames, forced) -> dict:
+    """One dtype of a case on this rank: its shards of the seed-0 weights
+    (the attention weights whole), the sharded prefill into its cut of
+    each cache and SS_STEPS decode steps fed `forced`, with every decode
+    attention of the first and the last step held against its plain
+    version on the rank's own inputs, the lse included. Plain data."""
+    from repro_torch import kernels
+    from repro_torch.core import steps
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import iter_params, leaves
+
+    cfg = ss_config(name, dtype)
+    local = steps.shard_params(iter_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                           "cuda", cfg.dtype), cfg, mesh)
+    scfg = steps.tp_serve_cfg(cfg, mesh)
+    expected, _ = rank_weight_bytes(torch, cfg, scfg, mesh)
+    local_bytes = sum(t.numel() * t.element_size() for _, t in leaves(local))
+    cut = lambda t: steps.shard_batch(t, mesh)
+    forced_t = cut(torch.from_numpy(forced).cuda())
+    prefill = steps.sharded_prefill(cfg, mesh, batch=SS_ROWS)
+    decode = steps.sharded_decode(cfg, mesh, batch=SS_ROWS, cache_len=SS_CACHE)
+    per_step = n_attn_layers(cfg)
+    kernel, stats = ops.decode_attention, {}
+    ops.decode_attention, held = held_decode_attention(torch, kernel, dtype, per_step, SS_STEPS,
+                                                       stats)
+    kernels.reset_launch_counts()
+    try:
+        logits, walls = [], []
+        out, cache = prefill(local, ss_prefill_inputs(torch, tokens, frames, cut))
+        cache_bytes = sum(t.numel() * t.element_size() for _, t in leaves(cache))
+        logits.append(out[:, 0].float())
+        for i in range(SS_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, cache = decode(local, {"cache": cache, "tokens": forced_t[:, i:i + 1],
+                                        "pos": SS_PROMPT + i})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            logits.append(out[:, 0].float())
+    finally:
+        ops.decode_attention = kernel
+    launches = kernels.launch_counts()["decode_attention"]
+    stacked = torch.stack(logits)                              # [1 + steps, B_local, V]
+    coord = mesh.get_coordinate()
+    res = dict(
+        local_bytes=local_bytes, expected_bytes=expected, cache_bytes=cache_bytes,
+        expected_cache_bytes=ss_cache_bytes(torch, scfg, mesh), launches=launches,
+        lse_calls=stats["lse_calls"], calls=stats["calls"], empty_rows=stats["empty_rows"],
+        step_ms=walls, per_step=per_step,
+        held=[(b, h, d, kh, s) for (b, h, d, kh, s), _, _ in held],
+        held_err=max((e for _, e, _ in held), default=0.0),
+        held_ok=all(ok for *_, ok in held),
+        tokens=stacked.argmax(-1).cpu().numpy(),
+        logits=stacked.cpu().numpy() if coord[1] == 0 else None)
+    del local, cache, out, logits, stacked
+    torch.cuda.empty_cache()
+    return res
+
+
+def ss_rank(rank, world, backend, name, tokens, frames, forced):
+    """One rank of a phase-20 case: its mesh, then each dtype's pass, fed
+    that dtype's unsharded greedy tokens."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, shape, _ = SS_CASES[name]
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    out = dict(rank=rank, world=world, backend=backend, coord=list(mesh.get_coordinate()))
+    for dt in SS_DTYPES:
+        out[dt] = ss_pass(torch, name, dt, mesh, tokens, frames, forced[dt])
+    return out
+
+
+def ss_case(torch, np, name, card) -> dict:
+    """One case: the unsharded port in this process, fp32 then bf16; then
+    the ranks, fed its greedy tokens. Gates the fp32 logits and tokens, the
+    lse launches, the held kernel calls (a cut with no valid key among
+    them), and the weight and cache bytes a rank."""
+    from repro_torch.launch.mesh import run_ranks
+
+    arch, shape, _ = SS_CASES[name]
+    tokens, frames = ss_inputs(np, ss_config(name, "float32"))
+    refs, forced = {}, {}
+    for dt in SS_DTYPES:
+        refs[dt] = ss_unsharded(torch, np, ss_config(name, dt), tokens, frames)
+        forced[dt] = refs[dt][1]
+        torch.cuda.empty_cache()
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(ss_rank, world, (name, tokens, frames, forced), device="cuda",
+                      timeout=600)
+    wall_s = time.perf_counter() - t0
+    local_rows = SS_ROWS // shape[0]
+    out = dict(arch=arch, mesh=list(shape), world=world, backend=ranks[0]["backend"],
+               ranks_wall_s=wall_s, card=card)
+    for dt in SS_DTYPES:
+        cfg = ss_config(name, dt)
+        ref, _, ref_walls = refs[dt]
+        where = f"small-serve ({name}, {arch}, {dt})"
+        want_held = {(b, h, d, kh, s) for b, h, kh, d, s, t in ss_rank_shapes(name) if t == dt}
+        for r in ranks:
+            v = r[dt]
+            if v["lse_calls"] != v["per_step"] * SS_STEPS or v["launches"] != v["calls"]:
+                fail(f"{where}: rank {r['rank']} ran decode attention {v['launches']} times "
+                     f"({v['calls']} calls, {v['lse_calls']} with the lse), not {v['per_step']} "
+                     f"attention layers x {SS_STEPS} steps, each with the lse")
+            if v["local_bytes"] != v["expected_bytes"]:
+                fail(f"{where}: rank {r['rank']} holds {v['local_bytes']} weight bytes, not "
+                     f"{v['expected_bytes']} (its share of each cut leaf + the whole ones)")
+            if v["cache_bytes"] != v["expected_cache_bytes"]:
+                fail(f"{where}: rank {r['rank']} holds {v['cache_bytes']} cache bytes, not "
+                     f"{v['expected_cache_bytes']} (its share of each cut leaf + the whole "
+                     f"ones)")
+            if len(v["held"]) != 2 * v["per_step"] or set(v["held"]) != want_held:
+                fail(f"{where}: rank {r['rank']} held {len(v['held'])} decode attention "
+                     f"calls at {sorted(set(v['held']))}, not {2 * v['per_step']} at "
+                     f"{sorted(want_held)}")
+            if not v["held_ok"]:
+                fail(f"{where}: rank {r['rank']}'s decode attention differs from its plain "
+                     f"version on the rank's inputs by {v['held_err']:.3e}, beyond "
+                     f"{TOL[f'decode_attention/{dt}']} (o) or {LSE_TOL} (lse)")
+        if not any(r[dt]["empty_rows"] for r in ranks):
+            fail(f"{where}: no held decode attention call had a cut with no valid key")
+        ref_tokens = ref.argmax(-1)                                     # [1 + steps, B]
+        top2 = np.sort(ref, axis=-1)[..., -2:]
+        gaps = top2[..., 1] - top2[..., 0]
+        got_tokens = np.zeros_like(ref_tokens)
+        logit_err = 0.0
+        for r in ranks:
+            v = r[dt]
+            sl = slice(r["coord"][0] * local_rows, (r["coord"][0] + 1) * local_rows)
+            if r["coord"][1] != 0 and not np.array_equal(v["tokens"], got_tokens[:, sl]):
+                fail(f"{where}: the model ranks of data shard {r['coord'][0]} disagree")
+            got_tokens[:, sl] = v["tokens"]
+            if v["logits"] is not None:
+                logit_err = max(logit_err, float(np.abs(v["logits"] - ref[:, sl]).max()))
+        scale = float(np.abs(ref).max())
+        diff = np.argwhere(got_tokens != ref_tokens)
+        fp32 = dt == "float32"
+        if fp32 and not logit_err <= TP_FP32_TOL * scale:
+            fail(f"{where}: logits {logit_err:.3e} from the unsharded port's (max abs "
+                 f"{scale:.3e}, tolerance {TP_FP32_TOL} of it)")
+        if fp32:
+            for k, row in diff:
+                if gaps[k, row] >= TP_FP32_TOL:
+                    fail(f"{where}: row {row} step {k} token {got_tokens[k, row]} vs "
+                         f"unsharded {ref_tokens[k, row]}, top-2 gap {gaps[k, row]:.3e} "
+                         f">= {TP_FP32_TOL}")
+        r0 = ranks[0][dt]
+        out[dt] = dict(
+            layers=cfg.n_layers, rank_kernel_shapes=sorted(want_held),
+            rank_weight_bytes=[r[dt]["local_bytes"] for r in ranks],
+            rank_cache_bytes=[r[dt]["cache_bytes"] for r in ranks],
+            launches_per_rank=[r[dt]["launches"] for r in ranks],
+            launches=sum(r[dt]["launches"] for r in ranks),
+            empty_rows_held=[r[dt]["empty_rows"] for r in ranks],
+            held_calls_per_rank=len(r0["held"]),
+            held_max_abs_err=max(r[dt]["held_err"] for r in ranks),
+            tokens_gated=fp32, near_ties=int(len(diff)), checked_tokens=int(got_tokens.size),
+            agreement=float((got_tokens == ref_tokens).mean()),
+            max_abs_logit_err=logit_err, ref_max_abs_logit=scale,
+            step_ms_unsharded=float(np.median(ref_walls[1:-1])),
+            step_ms=float(np.median(r0["step_ms"][1:-1])))
+    print(f"small-serve ({name}): " + json.dumps(out))
+    return out
+
+
+def small_serve_phase(torch, F, np, card, cases=None) -> dict:
+    """Phase 20: decode attention with the lse at the ranks' shapes, then
+    each case of SS_CASES on spawned ranks that share the card (gloo)."""
+    t0 = time.perf_counter()
+    cases = cases or list(SS_CASES)
+    out = {"kernel_rows": ss_kernel_rows(torch, F, np, cases)}
+    for name in cases:
+        out[name] = ss_case(torch, np, name, card)
+    out["launches"] = {"decode_attention": sum(out[n][dt]["launches"] for n in cases
+                                               for dt in SS_DTYPES)}
+    out["phase_s"] = time.perf_counter() - t0
+    for name in cases:
+        v = out[name]
+        for dt in SS_DTYPES:
+            w = v[dt]
+            print(f"small-serve ({name}, {dt}): {v['arch']} {w['layers']} layers on "
+                  f"{tuple(v['mesh'])} ({v['backend']}), decode step "
+                  f"{w['step_ms_unsharded']:.2f} ms unsharded, {w['step_ms']:.2f} ms sharded; "
+                  f"logit err {w['max_abs_logit_err']:.3e} of {w['ref_max_abs_logit']:.3e}, "
+                  f"agreement {w['agreement']:.3f} ({w['near_ties']} differ) | {card}")
+    print(f"small-serve phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -4108,6 +4506,10 @@ def main() -> int:
     # 19. tensor-parallel serving of the MoE, SSM and hybrid families
     fam_tp_stats = tp_families_phase(torch, F, np, card)
     decode_rows += fam_tp_stats["kernel_rows"]
+
+    # 20. the small-serve layout: whisper-base and tinyllama-1.1b at 8 layers
+    ss_stats = small_serve_phase(torch, F, np, card)
+    decode_rows += ss_stats["kernel_rows"]
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
                                                 controller_stats, mt_stats, *new_runs[:5],
@@ -4118,7 +4520,7 @@ def main() -> int:
         st["launches"]["decode_attention"]
         for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats,
                    knee_stats, controller_stats, mt_stats, *new_runs, *family_runs,
-                   train_stats["serve"], tp_stats, fam_tp_stats))}}
+                   train_stats["serve"], tp_stats, fam_tp_stats, ss_stats))}}
 
     line = []
     for name, shape_rows, main_of, run in (
@@ -4132,7 +4534,8 @@ def main() -> int:
             ("image_normalize", image_rows,
              lambda r: (r["n"], r["H"], r["W"]) == IMAGE_MAIN_SHAPE, image_stats),
             ("decode_attention", decode_rows,
-             lambda r: (r["B"], r["H"], r["KH"], r["D"], r["S"], r["dtype"]) == DECODE_MAIN_SHAPE,
+             lambda r: ((r["B"], r["H"], r["KH"], r["D"], r["S"], r["dtype"]) == DECODE_MAIN_SHAPE
+                        and not r.get("lse")),
              decode_run)):
         mine = [r for r in shape_rows if r["name"] == name]
         main_row = next(r for r in mine if main_of(r))
@@ -4164,7 +4567,8 @@ def main() -> int:
              "training": train_stats,
              "tensor_parallel": {k: v for k, v in tp_stats.items() if k != "kernel_rows"},
              "tensor_parallel_families": {k: v for k, v in fam_tp_stats.items()
-                                          if k != "kernel_rows"}},
+                                          if k != "kernel_rows"},
+             "small_serve": {k: v for k, v in ss_stats.items() if k != "kernel_rows"}},
             indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")

@@ -16,11 +16,16 @@ the Mamba2 block's channels and heads over `model`, batch and cache rows
 over `data`; MoE experts over `data` when it divides them (expert
 parallel), else their d_model dim over `data` (gathered per layer), their
 hidden units over `model` (`layers.moe_shard_map`). The decode kernel runs
-on each rank's local heads. The serve steps take every family but the
-encoder-decoder and models under 1B parameters, whose seq-sharded layout
-is still to come. The train side's fields and shardings (`_train_fields`,
-`train_state_shardings`) are rules only: no sharded train step runs them
-yet."""
+on each rank's local heads. A model under 1B parameters that is not an SSM
+(whisper-base, every reduced config) takes the small-serve layout instead:
+its attention weights whole on every rank, no head padding, and each
+attention cache (the self-attention ring, an encoder-decoder's cross
+cache) cut along its sequence over `model` where the axis divides it; the
+decode kernel then runs over each rank's cut and returns each row's
+log-sum-exp, and the ranks' outputs merge exactly
+(`distributed.ctx.merge_seq_shards`). The train side's fields and
+shardings (`_train_fields`, `train_state_shardings`) are rules only: no
+sharded train step runs them yet."""
 from __future__ import annotations
 
 import math
@@ -34,7 +39,7 @@ from repro_torch.distributed import ctx as dctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.params import (_set, cache_axes, cache_specs, init_params,
-                                       leaves, param_axes, param_specs, tree_map,
+                                       leaves, param_axes, param_specs, ring_len, tree_map,
                                        unflatten)
 from repro_torch.models.serve_pad import padded_leaves
 from repro_torch.training.optimizer import OptConfig, adamw_update, init_opt_state
@@ -181,12 +186,14 @@ def make_prefill(cfg: ModelConfig):
     return prefill_fn
 
 
-def make_decode(cfg: ModelConfig):
+def make_decode(cfg: ModelConfig, ring: Optional[int] = None):
     """decode_fn(params, {"cache", "tokens" [B, 1], "pos"}) -> (logits
-    [B, 1, V], cache), the cache updated in place."""
+    [B, 1, V], cache), the cache updated in place. ring: the global slots
+    of the self-attention rings (`lm.decode`'s)."""
     @torch.no_grad()
     def decode_fn(params: Tree, inputs: Dict[str, Any]):
-        return lm.decode(params, inputs["cache"], inputs["tokens"], int(inputs["pos"]), cfg)
+        return lm.decode(params, inputs["cache"], inputs["tokens"], int(inputs["pos"]), cfg,
+                         ring=ring)
 
     return decode_fn
 
@@ -195,17 +202,10 @@ def make_decode(cfg: ModelConfig):
 # Serve on a mesh: tensor parallel over `model`, rows over `data`
 # ---------------------------------------------------------------------------
 
-# What the sharded serve steps refuse, and the slice of ROADMAP Queue 1
-# item 7 that will take it.
-_SMALL_SLICE = "item 7.3, the seq-sharded small-model layout"
-_NOT_YET = (
-    (lambda c: c.enc_layers > 0, "an encoder", _SMALL_SLICE + " and the encoder-decoder "
-     "family (its cross-attention cache)"),
-    (lambda c: shd._small_serve(c), "under 1B parameters, which takes the small-serve "
-     "layout", _SMALL_SLICE),
-)
-# the logical axes a leaf must have cut over a `model` axis wider than 1:
-# the dims whose contractions the model's collectives close
+# the logical axes a leaf must have cut over a `model` axis wider than 1
+# where the serve rules map them to it: the dims whose contractions the
+# model's collectives close (the small-serve layout maps `kv_heads` to
+# none: its attention weights are whole)
 _MODEL_CUT = ("kv_heads", "mlp", "vocab", "expert_mlp", "ssm_inner", "ssm_conv", "ssm_heads")
 
 
@@ -218,36 +218,31 @@ def serve_param_shardings(cfg: ModelConfig, mesh) -> Tree:
 
 def serve_cache_shardings(cfg: ModelConfig, mesh, batch: int, cache_len: int) -> Tree:
     """The serve placements of a cache of `cfg`: rows over the data axes,
-    KV heads over `model`, an SSM layer's conv channels and heads over
-    `model`."""
+    KV heads over `model` (under the small-serve layout, the attention
+    caches' sequence instead, where the axis divides it), an SSM layer's
+    conv channels and heads over `model`."""
     rules = shd.serve_rules(mesh, cfg)
     return shd.tree_shardings(cache_specs(cfg, batch, cache_len),
                               cache_axes(cfg, batch, cache_len), rules, mesh)
 
 
 def tp_serve_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
-    """`_serve_cfg` for the sharded serve steps, which take the dense,
-    window, vision-language, MoE, SSM and hybrid families at 1B parameters
-    or more (an SSM model at any size: the small-serve rule exempts it).
-    Raises, naming the slice still to come, for a config with an encoder or
-    one that takes the small-serve layout; and for a layout the model's
-    collectives cannot close: with a `model` axis wider than 1, every head,
-    KV-head, MLP, vocab, expert hidden-unit and SSM channel and head dim
-    must be cut over it (and an MoE's d_model over it too, where the
-    experts reduce-scatter along d); with a `data` axis wider than 1, an
-    MoE's experts (or, when the axis does not divide them, their d_model
-    dim) must be cut over `data`."""
-    for test, what, slice_ in _NOT_YET:
-        if test(cfg):
-            raise NotImplementedError(
-                f"{cfg.name} has {what}: tensor-parallel serving of it waits for "
-                f"ROADMAP Queue 1 {slice_}")
+    """`_serve_cfg` for the sharded serve steps, which take every family:
+    the head layout at 1B parameters or more (an SSM model at any size),
+    the small-serve layout below. Raises for a layout the model's
+    collectives cannot close: with a `model` axis wider than 1, every
+    KV-head (but under the small-serve layout), MLP, vocab, expert
+    hidden-unit and SSM channel and head dim must be cut over it (and an
+    MoE's d_model over it too, where the experts reduce-scatter along d);
+    with a `data` axis wider than 1, an MoE's experts (or, when the axis
+    does not divide them, their d_model dim) must be cut over `data`."""
     scfg = _serve_cfg(cfg, mesh)
     sizes = shd.axis_sizes(mesh)
     names = list(sizes)
+    rules = shd.serve_rules(mesh, scfg)
     need = {}
     if sizes.get("model", 1) > 1:
-        need["model"] = _MODEL_CUT
+        need["model"] = tuple(ax for ax in _MODEL_CUT if rules[ax] == "model")
         if scfg.n_experts and scfg.d_model % sizes["model"]:
             raise ValueError(f"{cfg.name} on {sizes}: d_model {scfg.d_model} does not cut "
                              f"over the model axis for the experts' reduce-scatter")
@@ -255,7 +250,6 @@ def tp_serve_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
         ep = scfg.n_experts % sizes["data"] == 0
         need["data"] = ("expert",) if ep else ("expert_embed",)
     if need:
-        rules = shd.serve_rules(mesh, scfg)
         all_axes = dict(leaves(param_axes(scfg)))
         for path, spec in leaves(param_specs(scfg, dtype=scfg.dtype)):
             axes = all_axes[path]
@@ -284,7 +278,8 @@ def shard_params(params, cfg: ModelConfig, mesh, coordinate=None) -> Tree:
     replicated one is the same tensor. coordinate: the rank's index a mesh
     dim (default: this process's)."""
     scfg = tp_serve_cfg(cfg, mesh)
-    tp = int(shd.axis_sizes(mesh).get("model", 1))
+    # the small-serve layout keeps the heads as they are (no padding)
+    tp = 1 if shd._small_serve(cfg) else int(shd.axis_sizes(mesh).get("model", 1))
     coord = _coordinate(mesh, coordinate)
     placements = dict(leaves(serve_param_shardings(scfg, mesh)))
     items = leaves(params) if isinstance(params, dict) else params
@@ -322,36 +317,52 @@ def _rows_cut(mesh, batch: Optional[int], local: int) -> bool:
     return cut
 
 
+def _seq_cut(scfg: ModelConfig, mesh) -> bool:
+    """Whether the serve rules cut the attention caches along their
+    sequence (the small-serve layout)."""
+    return shd.serve_rules(mesh, scfg)["seq"] == "model"
+
+
 def sharded_prefill(cfg: ModelConfig, mesh, batch: Optional[int] = None):
     """The tensor-parallel prefill (the JAX package's `lower_prefill`):
-    prefill_fn(local params, inputs as `make_prefill` takes them, cut by
+    prefill_fn(local params, inputs as `make_prefill` takes them, the
+    batch-major ones (tokens, img_embeds, audio_frames) cut by
     `shard_batch`) -> (logits [B_local, 1, V], this rank's cache: its rows,
-    KV heads and SSM channels and heads). Runs `make_prefill` of
-    `tp_serve_cfg(cfg, mesh)` under the mesh. batch: the global batch's
-    rows; the MoE layer, which routes tokens in groups across rows, needs
-    it when the data axes may not divide it (`shard_batch` then gives every
-    data rank every row). Without it the rows are taken as cut."""
-    fn = make_prefill(tp_serve_cfg(cfg, mesh))
+    KV heads or cut of each attention cache's sequence, and SSM channels
+    and heads). Runs `make_prefill` of `tp_serve_cfg(cfg, mesh)` under the
+    mesh. batch: the global batch's rows; the MoE layer, which routes
+    tokens in groups across rows, needs it when the data axes may not
+    divide it (`shard_batch` then gives every data rank every row). Without
+    it the rows are taken as cut."""
+    scfg = tp_serve_cfg(cfg, mesh)
+    fn, seq = make_prefill(scfg), _seq_cut(scfg, mesh)
 
     def prefill_fn(params: Tree, inputs: Dict[str, Any]):
         cut = _rows_cut(mesh, batch, inputs["tokens"].shape[0])
-        with dctx.mesh_context(mesh, rows_cut=cut):
+        with dctx.mesh_context(mesh, rows_cut=cut, seq_cut=seq):
             return fn(params, inputs)
 
     return prefill_fn
 
 
-def sharded_decode(cfg: ModelConfig, mesh, batch: Optional[int] = None):
+def sharded_decode(cfg: ModelConfig, mesh, batch: Optional[int] = None,
+                   cache_len: Optional[int] = None):
     """The tensor-parallel decode step (the JAX package's `lower_decode`):
     decode_fn(local params, {"cache": this rank's cache, "tokens" [B_local,
     1], "pos"}) -> (logits [B_local, 1, V], cache updated in place). The
-    decode-attention kernel runs on the rank's local heads. batch: as
-    `sharded_prefill`'s."""
-    fn = make_decode(tp_serve_cfg(cfg, mesh))
+    decode-attention kernel runs on the rank's local heads, or, under the
+    small-serve layout, over the rank's cut of each cache's sequence, and
+    the ranks' outputs merge. batch: as `sharded_prefill`'s. cache_len: the
+    KV slots the prefill allocated (the JAX package's `shape.seq_len`),
+    which the small-serve layout needs: a rank's ring alone does not say
+    whether the whole ring was cut."""
+    scfg = tp_serve_cfg(cfg, mesh)
+    ring = None if cache_len is None else ring_len(scfg, cache_len)
+    fn, seq = make_decode(scfg, ring), _seq_cut(scfg, mesh)
 
     def decode_fn(params: Tree, inputs: Dict[str, Any]):
         cut = _rows_cut(mesh, batch, inputs["tokens"].shape[0])
-        with dctx.mesh_context(mesh, rows_cut=cut):
+        with dctx.mesh_context(mesh, rows_cut=cut, seq_cut=seq):
             return fn(params, inputs)
 
     return decode_fn

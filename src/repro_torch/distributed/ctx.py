@@ -11,7 +11,11 @@ identity and returns its input, so every single-device path computes what
 it did without it. The mesh context also says whether the rows a rank
 holds are its data shard of the batch or the whole batch (`rows_cut`):
 the data axes cut a batch only when they divide it (`steps.shard_batch`),
-and the MoE layer, the one layer that mixes rows, needs to know which.
+and the MoE layer, the one layer that mixes rows, needs to know which. And
+it says whether the attention caches are cut along their sequence over
+`model` (`seq_cut`, the small-serve layout of models under 1B parameters):
+each rank then attends over its cut of a cache and the ranks' partial
+outputs merge by their log-sum-exp (`merge_seq_shards`).
 
 Every collective is an all-reduce. A gather or an all-to-all is written as
 an all-reduce into a zero-filled buffer, which is exact (one rank
@@ -37,6 +41,7 @@ import torch.distributed as dist
 
 _MESH = None
 _ROWS_CUT = True
+_SEQ_CUT = False
 
 
 def set_mesh(mesh) -> None:
@@ -49,16 +54,18 @@ def get_mesh():
 
 
 @contextmanager
-def mesh_context(mesh, rows_cut: bool = True):
+def mesh_context(mesh, rows_cut: bool = True, seq_cut: bool = False):
     """Set `mesh` for the body. rows_cut: the batch a rank holds is its cut
-    over the data axes (False: every data rank holds the whole batch)."""
-    global _MESH, _ROWS_CUT
-    prev = _MESH, _ROWS_CUT
-    _MESH, _ROWS_CUT = mesh, rows_cut
+    over the data axes (False: every data rank holds the whole batch).
+    seq_cut: the serve rules map the caches' `seq` axis to `model` (the
+    small-serve layout)."""
+    global _MESH, _ROWS_CUT, _SEQ_CUT
+    prev = _MESH, _ROWS_CUT, _SEQ_CUT
+    _MESH, _ROWS_CUT, _SEQ_CUT = mesh, rows_cut, seq_cut
     try:
         yield
     finally:
-        _MESH, _ROWS_CUT = prev
+        _MESH, _ROWS_CUT, _SEQ_CUT = prev
 
 
 def rows_cut() -> bool:
@@ -80,6 +87,25 @@ def _axis(name: str) -> Optional[Tuple[object, int, int]]:
 
 def _model_axis():
     return _axis("model")
+
+
+def seq_cut_active() -> bool:
+    """Whether attention caches may be cut along their sequence: the
+    small-serve layout on a `model` axis wider than 1."""
+    return _SEQ_CUT and _model_axis() is not None
+
+
+def seq_cut(n: int) -> Optional[Tuple[int, int]]:
+    """(offset, length) of this rank's cut of an attention cache of n slots
+    along its sequence, slots [r L, (r + 1) L) with L = n / m on `model`
+    rank r of m; None where the cache is whole: no such layout, or an axis
+    that does not divide n (the JAX package's `spec_for` keeps such a dim
+    whole)."""
+    ax = _model_axis()
+    if not _SEQ_CUT or ax is None or n % ax[2]:
+        return None
+    length = n // ax[2]
+    return ax[1] * length, length
 
 
 def mesh_size() -> int:
@@ -171,6 +197,29 @@ def gather(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
     full = torch.zeros(shape, dtype=x.dtype, device=x.device)
     full.narrow(dim, idx * k, k).copy_(x)
     return _sum_(full, names)
+
+
+def merge_seq_shards(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over a whole cache from each `model` rank's attention
+    over its cut of it (`seq_cut`): o [B, H, D] and each row's log-sum-exp
+    lse [B, H] (fp32; -inf, with o = 0, where the cut holds no valid key).
+    Both are gathered in one exact all-reduce and merged in rank order, M =
+    max_r lse_r, o = sum_r exp(lse_r - M) o_r / sum_r exp(lse_r - M), in
+    fp32, so every rank holds the same bits; returned in o's type. A row
+    with no valid key on any rank gives 0."""
+    ax = _model_axis()
+    if ax is None:
+        return o
+    both = gather(torch.cat([o.float(), lse.float()[..., None]], -1)[None], 0, ("model",))
+    parts, lses = both[..., :-1], both[..., -1]                   # [m, B, H, D], [m, B, H]
+    top = lses.max(0).values
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lses - top)
+    num, den = parts[0] * w[0, ..., None], w[0]
+    for r in range(1, ax[2]):
+        num = num + parts[r] * w[r, ..., None]
+        den = den + w[r]
+    return (num / torch.clamp(den, min=1e-30)[..., None]).to(o.dtype)
 
 
 def gather_model_last(x: torch.Tensor) -> torch.Tensor:

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "preba_crop_normalize": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                               ctypes.c_float, _P], _I),
     "preba_crop_normalize_vectorized": ([_P, _P, _I, _I, _I], _I),
-    "preba_decode_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "preba_decode_attention": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 ctypes.c_float, _P], _I),
     "preba_decode_attention_smem_bytes": ([_I, _I, _I], _I),
     "preba_decode_attention_max_clusters": ([_I, _I, _I, _I, _I], _I),

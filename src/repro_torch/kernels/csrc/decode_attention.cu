@@ -14,6 +14,14 @@
 // the TPU. At valid_len == 0 every score is -1e30, so p = 1 at every
 // position and the output is the mean of V over the S positions.
 //
+// With an lse pointer [B, H] fp32 (optional; null leaves all of the above
+// as it is) the kernel also writes each row's log-sum-exp of its scaled
+// fp32 scores over the valid prefix, lse = m + log(l), from the m and l the
+// cluster merge already holds. A row with valid_len == 0 then weighs
+// nothing: o = 0 and lse = -inf. This is what a rank that holds one cut of
+// a ring along its sequence returns, so that the ranks' partial outputs
+// merge exactly (o = sum_r exp(lse_r - M) o_r / sum_r exp(lse_r - M)).
+//
 // What bounds it on this card: device-memory bytes and latency. A decode
 // step reads the K and V of every valid position once and does 4 flops per
 // element read, far below the ~20 flops a byte at which fp32 arithmetic
@@ -188,8 +196,8 @@ template <typename T, int D>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kMinBlocks)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ valid_len,
-                        T* __restrict__ out, int h, int kh_n, int s_len, int g_n,
-                        float scale) {
+                        T* __restrict__ out, float* __restrict__ lse, int h, int kh_n,
+                        int s_len, int g_n, float scale) {
   constexpr int kRow = row_elems<T, D>();
   constexpr int kTileElems = kTile * kRow;
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte copy
@@ -248,9 +256,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_commit();
 
   const int vl = min(max(valid_len[b], 0), s_len);
-  // positions that can carry weight: the valid prefix, or all S when none
-  // is valid (then every score is -1e30 and every position weighs 1)
-  const int lim = vl > 0 ? vl : s_len;
+  // positions that can carry weight: the valid prefix, or, when none is
+  // valid, all S (every score is -1e30 and every position weighs 1) or,
+  // with lse, none (the row weighs nothing)
+  const int lim = vl > 0 ? vl : lse != nullptr ? 0 : s_len;
   const int n_tiles = (lim + kTile - 1) / kTile;
   const int my_tiles = n_tiles > rank ? (n_tiles - rank + kCluster - 1) / kCluster : 0;
   for (int e = tid; e < g_n * D; e += kThreads) acc[e] = 0.f;
@@ -374,6 +383,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     store(ob + e, a / fmaxf(l, 1e-30f));
+    if (lse != nullptr && e % D == 0)  // one thread a head writes its row's lse
+      lse[static_cast<long long>(b) * h + kh * g_n + g] = vl > 0 ? m + logf(l)
+                                                             : -__int_as_float(0x7f800000);
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
@@ -401,14 +413,14 @@ int max_clusters(int g, int kh, int b) {
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* valid_len, void* out,
-           int b, int h, int kh, int s, float scale, cudaStream_t stream) {
+           float* lse, int b, int h, int kh, int s, float scale, cudaStream_t stream) {
   const int g = h / kh;
   const int bytes = smem_bytes<T, D>(g);
   auto kernel = decode_attention_kernel<T, D>;
   if (int err = configure<T, D>(bytes)) return err;
   kernel<<<dim3(kCluster * kh, b), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      valid_len, static_cast<T*>(out), h, kh, s, g, scale);
+      valid_len, static_cast<T*>(out), lse, h, kh, s, g, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,31 +455,37 @@ extern "C" int preba_decode_attention_max_clusters(int d, int g, int bf16, int k
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// q [b, h, d], k/v [b, s, kh, d], valid_len [b] int32 -> out [b, h, d];
-// bf16 != 0 for bfloat16 tensors, else float32; all contiguous and 16-byte
-// aligned, h % kh == 0, d in {32, 64, 80, 96, 128}. Launches a grid of (8 kh, b)
-// blocks in clusters of 8. Returns the cudaError_t of the launch.
+// q [b, h, d], k/v [b, s, kh, d], valid_len [b] int32 -> out [b, h, d] and,
+// where lse is not null, lse [b, h] fp32; bf16 != 0 for bfloat16 tensors,
+// else float32; all contiguous and 16-byte aligned, h % kh == 0, d in {32,
+// 64, 80, 96, 128}. Launches a grid of (8 kh, b) blocks in clusters of 8.
+// Returns the cudaError_t of the launch.
 extern "C" int preba_decode_attention(const void* q, const void* k, const void* v,
-                                      const int* valid_len, void* out, int b, int h,
-                                      int kh, int s, int d, int bf16, float scale,
+                                      const int* valid_len, void* out, float* lse, int b,
+                                      int h, int kh, int s, int d, int bf16, float scale,
                                       void* stream) {
   if (b <= 0 || kh <= 0 || h % kh != 0 || b > 65535 || kh > 0x7fffffff / kCluster)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 32)
-    return bf16 ? launch<__nv_bfloat16, 32>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
-                : launch<float, 32>(q, k, v, valid_len, out, b, h, kh, s, scale, st);
+    return bf16 ? launch<__nv_bfloat16, 32>(q, k, v, valid_len, out, lse, b, h, kh, s,
+                                            scale, st)
+                : launch<float, 32>(q, k, v, valid_len, out, lse, b, h, kh, s, scale, st);
   if (d == 64)
-    return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
-                : launch<float, 64>(q, k, v, valid_len, out, b, h, kh, s, scale, st);
+    return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, valid_len, out, lse, b, h, kh, s,
+                                            scale, st)
+                : launch<float, 64>(q, k, v, valid_len, out, lse, b, h, kh, s, scale, st);
   if (d == 80)
-    return bf16 ? launch<__nv_bfloat16, 80>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
-                : launch<float, 80>(q, k, v, valid_len, out, b, h, kh, s, scale, st);
+    return bf16 ? launch<__nv_bfloat16, 80>(q, k, v, valid_len, out, lse, b, h, kh, s,
+                                            scale, st)
+                : launch<float, 80>(q, k, v, valid_len, out, lse, b, h, kh, s, scale, st);
   if (d == 96)
-    return bf16 ? launch<__nv_bfloat16, 96>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
-                : launch<float, 96>(q, k, v, valid_len, out, b, h, kh, s, scale, st);
+    return bf16 ? launch<__nv_bfloat16, 96>(q, k, v, valid_len, out, lse, b, h, kh, s,
+                                            scale, st)
+                : launch<float, 96>(q, k, v, valid_len, out, lse, b, h, kh, s, scale, st);
   if (d == 128)
-    return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, valid_len, out, b, h, kh, s, scale, st)
-                : launch<float, 128>(q, k, v, valid_len, out, b, h, kh, s, scale, st);
+    return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, valid_len, out, lse, b, h, kh, s,
+                                             scale, st)
+                : launch<float, 128>(q, k, v, valid_len, out, lse, b, h, kh, s, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,14 +6,20 @@ with valid_len [B] (positions [0, valid_len) hold keys; G = H / KH query
 heads share a KV head), the softmax of the fp32 scores q.k / sqrt(D) with
 positions at or past valid_len set to -1e30, times V, in fp32, cast to q's
 type. At valid_len == 0 every score is -1e30, so every position weighs the
-same and the output is the mean of V over the S positions. On a CUDA tensor
+same and the output is the mean of V over the S positions. With
+`return_lse=True` it also returns each row's log-sum-exp of those scaled
+scores over the valid prefix, lse [B, H] fp32, and a row with valid_len 0
+weighs nothing instead (o = 0, lse = -inf): a rank that holds one cut of a
+ring along its sequence returns (o, lse), and the ranks' partial outputs
+merge exactly (`distributed.ctx.merge_seq_shards`). On a CUDA tensor
 it launches the hand-written Hopper kernel once (csrc/decode_attention.cu,
 which replaces the TPU kernel
 src/repro/kernels/decode_attention.py::decode_attention_pallas: a cluster
 of 8 blocks per KV head and sequence splits S and merges in one launch); on
 a CPU tensor it runs the plain PyTorch version below. The kernel is
 compiled for the head sizes in HEAD_DIMS (80 is h2o-danube's, 96
-phi-3-vision's); any other raises. `LAUNCHES` counts kernel launches.
+phi-3-vision's); any other raises. `LAUNCHES` counts kernel launches, with
+and without the lse.
 """
 from __future__ import annotations
 
@@ -33,24 +39,31 @@ def _scale(d: int) -> float:
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           valid_len: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: dense masked softmax over all S positions."""
+                           valid_len: torch.Tensor, return_lse: bool = False):
+    """Plain PyTorch version: dense masked softmax over all S positions;
+    with return_lse, (o, the logsumexp of the masked scores), a row with
+    no valid key giving o = 0 and lse = -inf."""
     B, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     qg = q.reshape(B, KH, H // KH, D).float()
     s = torch.einsum("bkgd,bjkd->bkgj", qg, k.float()) * _scale(D)
-    valid = (torch.arange(S, device=q.device)[None, :]
-             < valid_len.to(device=q.device, dtype=torch.int64)[:, None])
+    vl = valid_len.to(device=q.device, dtype=torch.int64)
+    valid = torch.arange(S, device=q.device)[None, :] < vl[:, None]
     s = torch.where(valid[:, None, None], s,
                     torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgj,bjkd->bkgd", p, v.float())
-    return o.reshape(B, H, D).to(q.dtype)
+    o = torch.einsum("bkgj,bjkd->bkgd", p, v.float()).reshape(B, H, D)
+    if not return_lse:
+        return o.to(q.dtype)
+    empty = (vl <= 0)[:, None]
+    lse = torch.where(empty, float("-inf"), torch.logsumexp(s, dim=-1).reshape(B, H))
+    return torch.where(empty[..., None], 0.0, o).to(q.dtype), lse
 
 
 def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            valid_len: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+                            valid_len: torch.Tensor, return_lse: bool = False):
+    """Launch the CUDA kernel on PyTorch's current stream (no sync); with
+    return_lse, (o, lse [B, H] fp32)."""
     global LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v), ("valid_len", valid_len)):
         if t.device.type != "cuda" or t.device != q.device:
@@ -85,20 +98,23 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lib.preba_decode_attention_smem_bytes(D, H // KH, bf16) > 227 * 1024:
         raise ValueError(f"{H // KH} query heads a KV head exceed the kernel's "
                          f"shared memory at D={D}")
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.preba_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     valid_len.data_ptr(), out.data_ptr(), B, H, KH, S,
+                                     valid_len.data_ptr(), out.data_ptr(),
+                                     None if lse is None else lse.data_ptr(), B, H, KH, S,
                                      D, bf16, _scale(D), stream)
     build.check(err, "decode_attention")
     LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: torch.Tensor) -> torch.Tensor:
-    """q: [B, H, D]; k, v: [B, S, KH, D]; valid_len: [B] -> [B, H, D]."""
+                     valid_len: torch.Tensor, return_lse: bool = False):
+    """q: [B, H, D]; k, v: [B, S, KH, D]; valid_len: [B] -> [B, H, D], and
+    with return_lse lse [B, H] fp32."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, valid_len)
-    return decode_attention_kernel(q, k, v, valid_len)
+        return decode_attention_plain(q, k, v, valid_len, return_lse)
+    return decode_attention_kernel(q, k, v, valid_len, return_lse)

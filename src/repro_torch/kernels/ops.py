@@ -210,7 +210,9 @@ def image_normalize(img: torch.Tensor, mean: float, std: float) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: torch.Tensor) -> torch.Tensor:
+                     valid_len: torch.Tensor, return_lse: bool = False):
     """q: [B, H, D]; k, v: [B, S, KH, D]; valid_len: [B] int32 (positions
-    [0, valid_len) hold keys) -> [B, H, D] flash-decode GQA attention."""
-    return _decode_attention(q, k, v, valid_len)
+    [0, valid_len) hold keys) -> [B, H, D] flash-decode GQA attention; with
+    return_lse, (o, each row's log-sum-exp [B, H] fp32), a row with no
+    valid key weighing nothing (o = 0, lse = -inf)."""
+    return _decode_attention(q, k, v, valid_len, return_lse)

@@ -51,7 +51,14 @@ cut of every expert's d_model (over `data`) and hidden units (over
 `model`). The products that contract over a shard (the attention output,
 the MLP's and the SSM block's output products, the experts) and the
 vocab-sharded embedding and logits close through `distributed/ctx.py`;
-with no mesh those calls return their input.
+with no mesh those calls return their input. Under the small-serve layout
+(models under 1B parameters) the attention weights are whole on every rank
+instead, and each attention cache is cut along its sequence where the
+`model` axis divides it (`dctx.seq_cut`): rank r holds slots [r L, (r + 1)
+L). Prefill computes the whole K/V and keeps the rank's cut; decode writes
+a slot on the rank that owns it, runs the kernel over the rank's cut with
+its log-sum-exp and merges the ranks' partial outputs
+(`dctx.merge_seq_shards`).
 """
 from __future__ import annotations
 
@@ -132,13 +139,27 @@ def _qkv(x: torch.Tensor, p: Tree, kv_x: Optional[torch.Tensor] = None):
     return q, k, v
 
 
-def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+def _out(o: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """o: [B, S, kh, g, hd] -> [B, S, D]. Over a shard of the heads (a
     tensor-parallel rank's), the product is partial and closes with a sum
-    over the mesh's `model` axis (the identity on one device)."""
+    over the mesh's `model` axis (the identity on one device); with every
+    KV head on the rank (the small-serve layout's whole weights) it is the
+    whole product."""
     B, S = o.shape[:2]
     w = wo.to(o.dtype)
-    return dctx.matmul_model(o.reshape(B, S, -1), w.reshape(-1, w.shape[-1]))
+    a, w = o.reshape(B, S, -1), w.reshape(-1, w.shape[-1])
+    return a @ w if wo.shape[0] == cfg.n_kv_heads else dctx.matmul_model(a, w)
+
+
+def _seq_local(cache: Tree) -> Tree:
+    """A cache entry of whole K/V [B, n, kh, hd] leaves -> this rank's cut
+    along the sequence where the small-serve layout cuts it (`dctx.seq_cut`),
+    a copy of its own; the entry itself where it is whole."""
+    out = {}
+    for name, t in cache.items():
+        cut = dctx.seq_cut(t.shape[1])
+        out[name] = t if cut is None else t.narrow(1, *cut).contiguous()
+    return out
 
 
 def _embed(params: Tree, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -210,7 +231,7 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int = 0, pos_offset=None
     kh, g, hd = q.shape[2:]
     o = L.attention(q.reshape(B, S, kh * g, hd), k, v, qpos, kpos,
                     causal=causal, window=window)
-    out = _out(o.reshape(B, S, kh, g, hd), p["wo"])
+    out = _out(o.reshape(B, S, kh, g, hd), p["wo"], cfg)
     if not make_cache:
         return out, None
     wc = ring_len(cfg, cache_len)
@@ -218,7 +239,7 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int = 0, pos_offset=None
         # decode headroom: slots S..wc-1 stay empty (masked until decode writes)
         cache = {"k": F.pad(k, (0, 0, 0, 0, 0, wc - S)),
                  "v": F.pad(v, (0, 0, 0, 0, 0, wc - S))}
-        return out, cache
+        return out, _seq_local(cache)
     if pos_offset is not None:
         raise ValueError("pos_offset with a sliding-window ring smaller than the "
                          "padded prompt is unsupported (size the ring to cover the "
@@ -231,15 +252,16 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int = 0, pos_offset=None
         c = torch.zeros((B, wc) + t.shape[2:], dtype=t.dtype, device=t.device)
         c[:, slots] = t[:, S - wc:]
         cache[name] = c
-    return out, cache
+    return out, _seq_local(cache)
 
 
-def _xattn_forward(x, p, enc: torch.Tensor, *, pos_offset=None):
+def _xattn_forward(x, p, enc: torch.Tensor, cfg: ModelConfig, *, pos_offset=None):
     """Cross-attention sublayer over the encoder output enc [B, Sa, D]: no
     RoPE on either side and no causal mask, so every query sees every
     encoder position; a left-pad query (negative true position) is fully
     masked and emits 0. Returns (out [B, S, D], {"ck", "cv"} [B, Sa, kh,
-    hd]), the keys and values every decode step attends."""
+    hd]) or this rank's cut of them along the sequence, the keys and values
+    every decode step attends."""
     B, S, _ = x.shape
     q, k, v = _qkv(x, p, enc)
     qpos = torch.arange(S, device=x.device)
@@ -248,7 +270,7 @@ def _xattn_forward(x, p, enc: torch.Tensor, *, pos_offset=None):
     kpos = torch.arange(k.shape[1], device=x.device)
     kh, g, hd = q.shape[2:]
     o = L.attention(q.reshape(B, S, kh * g, hd), k, v, qpos, kpos, causal=False, window=0)
-    return _out(o.reshape(B, S, kh, g, hd), p["wo"]), {"ck": k, "cv": v}
+    return _out(o.reshape(B, S, kh, g, hd), p["wo"], cfg), _seq_local({"ck": k, "cv": v})
 
 
 def encode_audio(params: Tree, audio_frames: Optional[torch.Tensor],
@@ -314,7 +336,7 @@ def _sublayer(x, sub: Tree, enc, cfg: ModelConfig, kind: Tuple[str, str], *,
     entry = None if train else {"mixer": c}
     if enc is not None:
         h = L.rmsnorm(x, sub["xattn"]["ln"], cfg.norm_eps)
-        o, c = _xattn_forward(h, sub["xattn"], enc, pos_offset=pos_offset)
+        o, c = _xattn_forward(h, sub["xattn"], enc, cfg, pos_offset=pos_offset)
         x = x + o
         if entry is not None:
             entry["xattn"] = c
@@ -410,10 +432,27 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
+def _attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, valid_len: torch.Tensor,
+            seq) -> torch.Tensor:
+    """One launch of the flash-decode kernel over this rank's K/V: the whole
+    cache, or (seq = (offset, length) of its cut along the sequence, and
+    valid_len the rank's own valid prefix of it) the cut, with each row's
+    log-sum-exp, merged with the other ranks' cuts."""
+    if seq is None:
+        return ops.decode_attention(q, ck, cv, valid_len)
+    o, lse = ops.decode_attention(q, ck, cv, valid_len, return_lse=True)
+    return dctx.merge_seq_shards(o, lse)
+
+
 def _attn_decode(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
-                 pos: int, pos_offset, valid_len: torch.Tensor) -> torch.Tensor:
+                 pos: int, pos_offset, valid_len: torch.Tensor, *, ring: Optional[int] = None,
+                 seq=None) -> torch.Tensor:
     """Single-token attention. x: [B, 1, D]; ck/cv: this layer's ring
-    buffers [B, ring, kh, hd], written in place.
+    buffers [B, ring, kh, hd], written in place; or, under the small-serve
+    layout, this rank's cut of them, seq = (offset, length) of it in a ring
+    of `ring` slots: a slot is written by the rank that holds it, and
+    valid_len (the whole ring's) becomes the cut's own, clamp(valid_len -
+    offset, 0, length).
 
     `pos` is the scalar *padded* write position; with pos_offset [B] the
     cache is TRUE-POSITION indexed per row: row b's step writes ring slot
@@ -434,7 +473,8 @@ def _attn_decode(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
     holds one of the last `ring` positions."""
     B = x.shape[0]
     q, k1, v1 = _qkv(x, p)
-    wc = ck.shape[1]
+    wc = ck.shape[1] if ring is None else ring
+    off0, n = (0, wc) if seq is None else seq
     if pos_offset is None:
         qpos = torch.tensor([pos], device=x.device)
     else:
@@ -444,56 +484,83 @@ def _attn_decode(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
     k1 = L.apply_rope(k1, qpos, cfg.rope_theta).to(ck.dtype)
     v1 = v1.to(cv.dtype)
     if pos_offset is None:
-        ck[:, pos % wc] = k1[:, 0]
-        cv[:, pos % wc] = v1[:, 0]
+        slot = pos % wc - off0
+        if 0 <= slot < n:   # this rank holds the slot
+            ck[:, slot] = k1[:, 0]
+            cv[:, slot] = v1[:, 0]
     else:
         # per-row slot write as a dense select, written back in place
         widx = torch.remainder(pos - off, wc)
-        hit = (torch.arange(wc, device=x.device)[None, :] == widx[:, None])[:, :, None, None]
+        slots = torch.arange(off0, off0 + n, device=x.device)
+        hit = (slots[None, :] == widx[:, None])[:, :, None, None]
         ck.copy_(torch.where(hit, k1, ck))
         cv.copy_(torch.where(hit, v1, cv))
+    if seq is not None:
+        valid_len = torch.clamp(valid_len - off0, 0, n).to(torch.int32)
     kh, g, hd = q.shape[2:]
-    o = ops.decode_attention(q.reshape(B, kh * g, hd), ck, cv, valid_len)
-    return _out(o.reshape(B, 1, kh, g, hd), p["wo"])
+    o = _attend(q.reshape(B, kh * g, hd), ck, cv, valid_len, seq)
+    return _out(o.reshape(B, 1, kh, g, hd), p["wo"], cfg)
 
 
-def _xattn_decode(x, p, ck: torch.Tensor, cv: torch.Tensor,
-                  valid_len: torch.Tensor) -> torch.Tensor:
+def _xattn_decode(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
+                  valid_len: torch.Tensor, seq=None) -> torch.Tensor:
     """Single-token cross-attention over the encoder keys and values ck/cv
     [B, n_audio_ctx, kh, hd], read only: the JAX package attends every
     encoder position with no mask and no RoPE, which is the flash-decode
     kernel's `pos < valid_len` with valid_len = n_audio_ctx on every
-    row."""
+    row. Under the small-serve layout ck/cv are this rank's cut, seq =
+    (offset, length), every slot of it valid (valid_len = length)."""
     B, _, D = x.shape
     wq = p["wq"].to(x.dtype)
     kh, g, hd = wq.shape[1:]
     q = (x @ wq.reshape(D, -1)).view(B, kh * g, hd)
-    o = ops.decode_attention(q, ck, cv, valid_len)
-    return _out(o.reshape(B, 1, kh, g, hd), p["wo"])
+    o = _attend(q, ck, cv, valid_len, seq)
+    return _out(o.reshape(B, 1, kh, g, hd), p["wo"], cfg)
+
+
+def _seq_of(local: int, n: int):
+    """The small-serve cut, (offset, length), of a cache of n slots whose
+    leaf on this rank holds `local` (None: whole); raises where the leaf is
+    neither the whole cache nor the rank's cut of it."""
+    seq = dctx.seq_cut(n)
+    if local != (n if seq is None else seq[1]):
+        raise ValueError(f"a cache leaf of {local} slots on this rank is not the "
+                         f"{'whole' if seq is None else 'cut'} cache of {n} slots the "
+                         f"layout gives it (pass the global ring: sharded_decode's "
+                         f"cache_len)")
+    return seq
 
 
 def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
-           cfg: ModelConfig, *, pos_offset=None):
+           cfg: ModelConfig, *, pos_offset=None, ring: Optional[int] = None):
     """One decode step. tokens: [B, 1]; pos: the padded write position;
     pos_offset: optional [B] (row b's true position is pos - pos_offset[b]).
     Returns (logits [B, 1, V], cache) — the cache updated in place. An SSM
     layer reads neither position: its step advances each row's conv tail
     and state. A cross-attention sublayer reads its encoder keys and
-    values and writes nothing."""
+    values and writes nothing. ring: the self-attention rings' slots, which
+    the small-serve layout needs when it may cut them along the sequence
+    (a rank's leaves then hold ring / m); by default the leaves' own."""
     x = _embed(params, tokens, cfg)
     B = x.shape[0]
     kinds = cfg.layer_kinds()
     caches = _layers(cfg, cache)
-    valid_len = xvalid = None
+    valid_len = xvalid = seq = xseq = None
     attn = [c["mixer"] for (m, _), c in zip(kinds, caches) if m == "attn"]
     if attn:
-        wc = attn[0]["k"].shape[1]
+        local = attn[0]["k"].shape[1]
+        if ring is None and dctx.seq_cut_active():
+            raise ValueError("the small-serve layout's decode needs the global ring "
+                             "(sharded_decode's cache_len)")
+        wc = local if ring is None else ring
+        seq = _seq_of(local, wc)
         if pos_offset is None:
             qpos = torch.full((B,), pos, dtype=torch.int64, device=x.device)
         else:
             qpos = pos - pos_offset.to(device=x.device, dtype=torch.int64)
         valid_len = torch.clamp(qpos + 1, 0, wc).to(torch.int32)  # the ring's valid prefix
-    if cfg.enc_layers:  # every encoder position, every row
+    if cfg.enc_layers:  # every encoder position (of the rank's cut), every row
+        xseq = _seq_of(caches[0]["xattn"]["ck"].shape[1], cfg.n_audio_ctx)
         xvalid = torch.full((B,), caches[0]["xattn"]["ck"].shape[1], dtype=torch.int32,
                             device=x.device)
     for (mixer, ffn), sub, c in zip(kinds, _layers(cfg, params), caches):
@@ -501,7 +568,7 @@ def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
         h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
         if mixer == "attn":
             o = _attn_decode(h, sub["mixer"], cfg, m["k"], m["v"], pos, pos_offset,
-                             valid_len)
+                             valid_len, ring=wc, seq=seq)
         else:
             o, (conv, state) = L.ssm_block_decode(h, sub["mixer"], cfg, m["conv"],
                                                   m["state"])
@@ -510,8 +577,8 @@ def decode(params: Tree, cache: Tree, tokens: torch.Tensor, pos: int,
         x = x + o
         if "xattn" in sub:
             h = L.rmsnorm(x, sub["xattn"]["ln"], cfg.norm_eps)
-            x = x + _xattn_decode(h, sub["xattn"], c["xattn"]["ck"], c["xattn"]["cv"],
-                                  xvalid)
+            x = x + _xattn_decode(h, sub["xattn"], cfg, c["xattn"]["ck"], c["xattn"]["cv"],
+                                  xvalid, xseq)
         x, _ = _ffn(x, sub, cfg, ffn)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return logits_from_hidden(params, x, cfg), cache
@@ -689,7 +756,7 @@ def _attn_chunk(x, p, cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
     kh, g, hd = q.shape[2:]
     o = L.attention_dense(q.reshape(B, C, kh * g, hd), ck[:, :lp], cv[:, :lp],
                           qpos, kpos, causal=True, window=0)
-    return _out(o.reshape(B, C, kh, g, hd), p["wo"])
+    return _out(o.reshape(B, C, kh, g, hd), p["wo"], cfg)
 
 
 def prefill_chunk_into_slots(params: Tree, tokens: torch.Tensor, pool: Tree,

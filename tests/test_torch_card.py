@@ -470,6 +470,39 @@ def test_decode_attention_ignores_positions_past_valid_length_on_card(cuda):
     assert torch.equal(a, b) and torch.equal(a, c)
 
 
+# the rank shapes of the small-serve layout (B, H, KH, D, S): whisper-base's
+# self-attention over a 64-slot ring at tp 2 and 4, its cross-attention over
+# 1,500 frames at tp 2 and 4, tinyllama-1.1b's ring of 64 at tp 2
+LSE_SHAPES = [(8, 8, 8, 64, 32), (8, 8, 8, 64, 16), (8, 8, 8, 64, 750), (8, 8, 8, 64, 375),
+              (8, 32, 4, 64, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LSE_SHAPES)
+def test_decode_attention_lse_matches_plain_on_card(cuda, shape, dtype):
+    """return_lse=True: o within 2e-4 (fp32) or 3e-2 (bf16) of the plain
+    version's, lse within 1e-4; rows with no valid key (rows 0 and 5) give
+    o = 0 and lse = -inf; one launch, counted; and without the lse the
+    kernel's o is bit for bit what it was (a null lse pointer)."""
+    s = shape[-1]
+    valid = [0, 1, s // 3, s - 1, s, 0, 2, s][:shape[0]]
+    q, k, v, vl = _decode_inputs(shape, dtype, cuda, seed=sum(shape) + 27, valid=valid)
+    kernels.reset_launch_counts()
+    o, lse = decode_attention.decode_attention_kernel(q, k, v, vl, return_lse=True)
+    assert kernels.launch_counts()["decode_attention"] == 1
+    assert o.dtype == dtype and lse.dtype == torch.float32 and lse.shape == q.shape[:2]
+    want_o, want_lse = decode_attention.decode_attention_plain(q, k, v, vl, return_lse=True)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    assert_allclose(o.float().cpu().numpy(), want_o.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    empty = [i for i, x in enumerate(valid) if x == 0]
+    assert bool(torch.isneginf(lse[empty]).all()) and not bool(o[empty].any())
+    plain = decode_attention.decode_attention_kernel(q, k, v, vl)
+    keep = [i for i, x in enumerate(valid) if x > 0]
+    assert torch.equal(plain[keep], o[keep])
+
+
 BOUNDARY_VALID = (1, 63, 64, 65, 511, 512, 513)  # tiles of 64, cluster rounds of 8 x 64
 
 

@@ -6,7 +6,10 @@ function the CUDA kernel computes; these tests hold that function to the TPU
 kernel at the reference's shapes (2e-4 at fp32, 3e-2 at bf16), prove that
 the model's ring-plus-causal-mask decode attention is the kernel's
 prefix-valid mask with valid_len = min(qpos + 1, ring), and pin what both
-kernels return at valid_len == 0, a row the engine never builds.
+kernels return at valid_len == 0, a row the engine never builds. With
+`return_lse=True` the port also returns each row's log-sum-exp, a row with
+no valid key weighs nothing, and the outputs over cuts of S merge into the
+output over the whole of it.
 """
 import dataclasses
 
@@ -140,6 +143,84 @@ def test_zero_valid_length_gives_the_mean_of_v(s):
     assert_allclose(pallas[0], mean_v * s / padded, rtol=1e-5, atol=1e-5)
     if s % 512 == 0:
         assert_allclose(pallas[0], got[0], rtol=1e-5, atol=1e-5)
+
+
+def _masked_scores(arrays):
+    """The kernel's scaled fp32 scores [B, KH, G, S] with positions at or
+    past valid_len masked to -inf (numpy, float64)."""
+    q, k, v, vl = (np.asarray(a, np.float64) if a.dtype != np.int32 else a for a in arrays)
+    b, h, d = q.shape
+    s_len, kh = k.shape[1], k.shape[2]
+    sc = np.einsum("bkgd,bjkd->bkgj", q.reshape(b, kh, h // kh, d), k) / np.sqrt(d)
+    valid = np.arange(s_len)[None] < vl[:, None]
+    return np.where(valid[:, None, None], sc, -np.inf)
+
+
+def _np_lse(sc):
+    top = sc.max(-1, keepdims=True)
+    top = np.where(np.isfinite(top), top, 0.0)
+    with np.errstate(divide="ignore"):
+        return (np.log(np.exp(sc - top).sum(-1)) + top[..., 0]).reshape(sc.shape[0], -1)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_lse_matches_the_oracle_and_numpy(shape):
+    """return_lse=True: o is the JAX package's oracle (2e-4, fp32) and lse
+    the log-sum-exp of the masked scaled scores (1e-5), per row and head."""
+    arrays = _inputs(shape, seed=sum(shape) + 1)
+    tq, tk, tv, tvl = _torch(arrays, "float32")
+    o, lse = kda.decode_attention_plain(tq, tk, tv, tvl, return_lse=True)
+    assert o.dtype == tq.dtype and lse.dtype == torch.float32
+    assert lse.shape == tq.shape[:2]
+    assert_allclose(o.numpy(), np.asarray(jref.decode_attention_ref(*_jax(arrays, "float32"))),
+                    rtol=2e-4, atol=2e-4)
+    assert_allclose(lse.numpy(), _np_lse(_masked_scores(arrays)), rtol=1e-5, atol=1e-5)
+    # without the lse, the call is the one it always was
+    assert torch.equal(kda.decode_attention_plain(tq, tk, tv, tvl), ops.decode_attention(
+        tq, tk, tv, tvl))
+    o2, lse2 = ops.decode_attention(tq, tk, tv, tvl, return_lse=True)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zero_valid_length_with_lse_weighs_nothing(dtype):
+    """With the lse, a row with no valid key gives o = 0 and lse = -inf (a
+    rank's cut that holds none of the row's keys); the other rows keep
+    their output."""
+    arrays = _inputs((3, 8, 4, 64, 300), seed=5, valid=[0, 100, 0])
+    tq, tk, tv, tvl = _torch(arrays, dtype)
+    o, lse = kda.decode_attention_plain(tq, tk, tv, tvl, return_lse=True)
+    assert o.dtype == tq.dtype
+    assert torch.equal(o[[0, 2]], torch.zeros_like(o[[0, 2]]))
+    assert bool(torch.isneginf(lse[[0, 2]]).all()) and bool(torch.isfinite(lse[1]).all())
+    assert torch.equal(o[1], kda.decode_attention_plain(tq, tk, tv, tvl)[1])
+
+
+@pytest.mark.parametrize("m", [2, 4, 8])
+def test_merging_the_cuts_equals_the_whole(m):
+    """The attention over S from m cuts of S slots [r L, (r + 1) L), each
+    with its own valid prefix clamp(valid_len - r L, 0, L), merged by their
+    log-sum-exp (M = max_r lse_r; o = sum_r exp(lse_r - M) o_r / sum_r
+    exp(lse_r - M)) equals the attention over the whole S within 1e-5.
+    Rows valid up to 1 and 65 leave most cuts without a valid key."""
+    shape = (4, 16, 4, 64, 1024)
+    arrays = _inputs(shape, seed=m, valid=[1, 65, 700, 1024])
+    tq, tk, tv, tvl = _torch(arrays, "float32")
+    whole = kda.decode_attention_plain(tq, tk, tv, tvl).numpy()
+    n = shape[-1] // m
+    os_, lses = [], []
+    for r in range(m):
+        vl = torch.clamp(tvl - r * n, 0, n).to(torch.int32)
+        o, lse = kda.decode_attention_plain(tq, tk[:, r * n:(r + 1) * n].contiguous(),
+                                            tv[:, r * n:(r + 1) * n].contiguous(), vl,
+                                            return_lse=True)
+        os_.append(o.numpy())
+        lses.append(lse.numpy())
+    lses = np.stack(lses)
+    assert np.isneginf(lses[1:, 0]).all()            # row 0's key lies in cut 0 alone
+    w = np.exp(lses - lses.max(0))
+    merged = (w[..., None] * np.stack(os_)).sum(0) / w.sum(0)[..., None]
+    assert_allclose(merged, whole, rtol=1e-5, atol=1e-5)
 
 
 def test_engine_never_builds_a_zero_valid_length(monkeypatch):

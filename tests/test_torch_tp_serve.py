@@ -23,9 +23,12 @@ ranks force `sharding._small_serve` off: the head layout here is the one
 every full-width dense config of 1B parameters or more gets. The (2, 2)
 spawn also checks that DTensor cuts a dim over ('pod', 'data') major to
 minor, as `sharding.local_shard` does, and builds `make_slice_mesh` over
-the world. Configs this path does not take (an encoder, the small-serve
-layout) are refused by name, in process; the MoE, SSM and hybrid
-families' full configs pass (tests/test_torch_tp_families.py serves them).
+the world. In process: every family's reduced config, whisper-base's and
+the MoE, SSM and hybrid families' full configs pass the sharded steps with
+the JAX package's layout (the small-serve layout is served on ranks in
+tests/test_torch_small_serve.py, the MoE, SSM and hybrid families in
+tests/test_torch_tp_families.py), and a layout the model's collectives
+cannot close is refused by name.
 """
 import dataclasses
 
@@ -43,7 +46,9 @@ from repro.models import lm as rlm  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import steps  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
-from repro_torch.models.params import from_reference  # noqa: E402
+from repro_torch.models.params import (cache_specs, from_reference, init_params,  # noqa: E402
+                                       leaves, param_specs)
+from torch.distributed.tensor import Replicate, Shard  # noqa: E402
 from torch_tp_ranks import (CONFIGS, PROMPT, ROWS, STEPS, config, die_rank,  # noqa: E402
                             port_run, serve_rank)
 
@@ -161,35 +166,64 @@ def test_run_ranks_fails_when_a_rank_dies():
         tmesh.run_ranks(die_rank, 2, device="cpu", timeout=60)
 
 
+def _port_cut_shapes(specs, placements, sizes):
+    """{path: local shape} of a port tree cut by its placements."""
+    out = {}
+    for (path, s), (_, pl) in zip(leaves(specs), leaves(placements)):
+        shape = list(s.shape)
+        for size, p in zip(sizes.values(), pl):
+            if isinstance(p, Shard):
+                shape[p.dim] //= size
+        out[path] = tuple(shape)
+    return out
+
+
 @pytest.mark.parametrize("arch,what", [
     ("mixtral-8x22b", "experts"), ("moonshot-v1-16b-a3b", "experts"),
     ("mamba2-370m", "SSM layers"), ("jamba-v0.1-52b", "experts"),
     ("whisper-base", "an encoder"), ("tinyllama-1.1b", "small-serve"),
     ("phi-3-vision-4.2b", "small-serve")])
 def test_sharded_path_refuses_by_name(arch, what):
-    """What the sharded steps do not take yet is refused with the ROADMAP
-    slice that will take it (item 7.3): an encoder (whisper), and the
-    small-serve layout, which every reduced config under 1B parameters
-    takes but the SSM family's. The MoE, SSM and hybrid families are
-    served: their full configs pass `tp_serve_cfg`, and their reduced ones
-    are refused by the small-serve rule (reduced mamba2 passes: the rule
-    exempts the SSM family, in both packages)."""
-    cfg, sizes = reduced(arch), {"data": 1, "model": 2}
-    if what in ("experts", "SSM layers"):
-        full = get_config(arch)
-        assert steps.tp_serve_cfg(full, sizes).n_layers == full.n_layers
-        assert steps.tp_serve_cfg(full, {"data": 2, "model": 2}).n_experts == full.n_experts
-        if cfg.family == "ssm":
-            assert not rshd._small_serve(ref_reduced(arch))
-            assert steps.tp_serve_cfg(cfg, sizes) == cfg
-            return
-        what = "small-serve"
-    for fn in (steps.sharded_prefill, steps.sharded_decode, steps.tp_serve_cfg):
-        with pytest.raises(NotImplementedError, match=what) as e:
-            fn(cfg, sizes)
-        assert "ROADMAP Queue 1 item 7.3" in str(e.value)
-    with pytest.raises(NotImplementedError, match=what):
-        steps.shard_params({}, cfg, sizes, coordinate=(0, 0))
+    """The sharded steps take every family: `tp_serve_cfg`,
+    `sharded_prefill`, `sharded_decode` and `shard_params` accept each
+    reduced config on (1, 2) with the layout the JAX package's serve rules
+    give it, weights and caches leaf by leaf (the small-serve layout, whole
+    attention weights and caches cut along their sequence, for every one
+    but reduced mamba2, which the rule exempts in both packages), and the
+    full configs too: the MoE, SSM and hybrid ones on (1, 2) and (2, 2),
+    whisper-base on (1, 2), (1, 4) and (1, 8), whose 1,500-frame cross
+    cache the last axis does not divide. What they refuse, by name, is a
+    layout the model's collectives cannot close: a `model` axis of 3 cuts
+    no MLP or SSM dim of these configs."""
+    cfg, rcfg, sizes = reduced(arch), ref_reduced(arch), {"data": 1, "model": 2}
+    assert rshd._small_serve(rcfg) == (what != "SSM layers")
+    assert steps.tp_serve_cfg(cfg, sizes) == cfg                    # no head padding
+    rules = rshd.serve_rules(FakeMesh(sizes), rcfg)
+    assert _port_cut_shapes(param_specs(cfg, dtype=cfg.dtype),
+                            steps.serve_param_shardings(cfg, sizes), sizes) == _cut_shapes(
+        rapi.param_specs(rcfg), rapi.param_axes(rcfg), rules, sizes)
+    assert _port_cut_shapes(cache_specs(cfg, ROWS, 32),
+                            steps.serve_cache_shardings(cfg, sizes, ROWS, 32), sizes) == (
+        _cut_shapes(rapi.cache_specs(rcfg, ROWS, 32), rapi.cache_axes(rcfg, ROWS, 32), rules,
+                    sizes))
+    steps.sharded_prefill(cfg, sizes)
+    steps.sharded_decode(cfg, sizes, cache_len=32)
+    full = init_params(cfg, torch.Generator().manual_seed(0), "cpu", "float32")
+    local = steps.shard_params(full, cfg, sizes, coordinate=(0, 1))
+    assert {k: tuple(v.shape) for k, v in leaves(local)} == _cut_shapes(
+        rapi.param_specs(rcfg), rapi.param_axes(rcfg), rules, sizes)
+    with pytest.raises(ValueError, match="cut over the model axis"):
+        steps.tp_serve_cfg(cfg, {"data": 1, "model": 3})
+    big = get_config(arch)
+    if what == "an encoder":
+        for tp in (2, 4, 8):
+            assert steps.tp_serve_cfg(big, {"data": 1, "model": tp}) == big
+            xattn = steps.serve_cache_shardings(big, {"data": 1, "model": tp}, 8, 64)
+            assert xattn["body"]["l0"]["xattn"]["ck"][1] == (Replicate() if tp == 8
+                                                              else Shard(2))
+    else:
+        assert steps.tp_serve_cfg(big, sizes).n_layers == big.n_layers
+        assert steps.tp_serve_cfg(big, {"data": 2, "model": 2}).n_experts == big.n_experts
 
 
 def test_meshes_in_one_process():

@@ -1,5 +1,5 @@
-"""Rank workers of tests/test_torch_tp_serve.py, tests/test_torch_ep_moe.py
-and tests/test_torch_tp_families.py. Spawned ranks import this module, not
+"""Rank workers of tests/test_torch_tp_serve.py, tests/test_torch_ep_moe.py,
+tests/test_torch_tp_families.py and tests/test_torch_small_serve.py. Spawned ranks import this module, not
 the test modules, so they start without JAX: they run the port only, and
 the tests compare their results with the JAX package."""
 import dataclasses
@@ -33,10 +33,28 @@ FAMILY_CONFIGS = {"mixtral": ("mixtral-8x22b", dict(capacity_factor=NO_DROP)),
                   "jamba": ("jamba-v0.1-52b", dict(capacity_factor=NO_DROP))}
 
 
+# The small-serve layout (tests/test_torch_small_serve.py): name: (arch,
+# fields, prompt length, cache_len). Prompts of 4 in a ring of 32 leave the
+# cuts of ranks above 0 without a valid key for the first decode steps (at
+# tp 4 rank 1 fills from step 4, rank 2 from step 12, rank 3 never); a ring
+# of 33 no axis divides stays whole; h2o-danube's 16-slot window ring is
+# shorter than its 20-token prompt, so prefill wraps it and decode wraps it
+# again; reduced mixtral's window of 16 holds its 16-token prompt (its
+# token groups are 64 rows x positions); whisper's 24-frame cross cache is
+# cut too.
+SMALL_STEPS = 14
+SMALL_CONFIGS = {"tinyllama": ("tinyllama-1.1b", {}, 4, 32),
+                 "tinyllama-whole": ("tinyllama-1.1b", {}, 4, 33),
+                 "h2o-danube": ("h2o-danube-1.8b", {}, 20, 36),
+                 "mixtral": ("mixtral-8x22b", dict(capacity_factor=NO_DROP), 16, 32),
+                 "whisper": ("whisper-base", {}, 4, 32)}
+
+
 def config(name):
-    """The reduced config of CONFIGS[name] (or FAMILY_CONFIGS[name]) at
-    fp32."""
-    arch, fields = CONFIGS[name] if name in CONFIGS else FAMILY_CONFIGS[name]
+    """The reduced config of CONFIGS[name] (or FAMILY_CONFIGS[name], or
+    SMALL_CONFIGS[name]) at fp32."""
+    arch, fields = (CONFIGS.get(name) or FAMILY_CONFIGS.get(name)
+                    or SMALL_CONFIGS[name][:2])
     return dataclasses.replace(reduced(arch), dtype="float32", **fields)
 
 
@@ -98,6 +116,61 @@ def serve_rank(rank, world, backend, shape, refs):
             dt.to_local(), shd.local_shard(full, pl, cube, cube.get_coordinate()))
         sl = tmesh.make_slice_mesh(range(world), device="cpu")
         out["slice_mesh"] = (tuple(sl.mesh_dim_names), tuple(sl.shape))
+    return out
+
+
+def small_run(params, prompts, forced, prefill, decode, prompt, cache_len, frames=None):
+    """Prefill (with audio frames where given) into `cache_len` slots, then
+    SMALL_STEPS decode steps fed forced[:, i]: (the logits [1 + steps, B,
+    V], the cache after prefill and after the last step, {path: numpy})."""
+    inputs = {"tokens": prompts, "cache_len": cache_len}
+    if frames is not None:
+        inputs["audio_frames"] = frames
+    logits, cache = prefill(params, inputs)
+    first = {k: v.numpy().copy() for k, v in leaves(cache)}
+    out = [logits[:, 0]]
+    for i in range(SMALL_STEPS):
+        logits, cache = decode(params, {"cache": cache, "tokens": forced[:, i:i + 1],
+                                        "pos": prompt + i})
+        out.append(logits[:, 0])
+    return torch.stack(out).numpy(), first, {k: v.numpy() for k, v in leaves(cache)}
+
+
+def small_rank(rank, world, backend, shape, refs):
+    """One rank of the small-serve layout: every config of `refs` ({name:
+    (the JAX package's weights as numpy, prompts, audio frames or None,
+    greedy tokens)}) through the sharded steps on the rank's shards, the
+    reduced configs' own small-serve rule on. Counts the decode-attention
+    calls that return the log-sum-exp and those whose rows all have no
+    valid key in the rank's cut."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import ops
+
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    out = {"coord": list(mesh.get_coordinate())}
+    calls = {"lse": 0, "plain": 0, "empty": 0}
+    attend = ops.decode_attention
+
+    def counted(q, k, v, valid_len, return_lse=False):
+        calls["lse" if return_lse else "plain"] += 1
+        calls["empty"] += int(return_lse and int(valid_len.max()) == 0)
+        return attend(q, k, v, valid_len, return_lse=return_lse)
+
+    ops.decode_attention = counted
+    for name, (jp, prompts, frames, toks) in refs.items():
+        _, _, prompt, cache_len = SMALL_CONFIGS[name]
+        cfg = config(name)
+        local = steps.shard_params(from_reference(jp, cfg, "cpu"), cfg, mesh)
+        cut = lambda a: None if a is None else steps.shard_batch(torch.from_numpy(a), mesh)
+        calls.update(lse=0, plain=0, empty=0)
+        logits, first, last = small_run(
+            local, cut(prompts), cut(toks), steps.sharded_prefill(cfg, mesh, batch=ROWS),
+            steps.sharded_decode(cfg, mesh, batch=ROWS, cache_len=cache_len), prompt,
+            cache_len, cut(frames))
+        out[name] = dict(logits=logits, first=first, last=last, calls=dict(calls),
+                         params={k: tuple(v.shape) for k, v in leaves(local)})
     return out
 
 
