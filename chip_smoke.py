@@ -285,7 +285,7 @@ Phases, each fatal on failure:
    width through core/steps.sharded_prefill and sharded_decode on spawned
    gloo ranks that share the card: (d) moonshot-v1-16b-a3b, 8 of 48
    layers, mesh (2, 2), its 64 experts over 2 data ranks (expert
-   parallel); (e) mixtral-8x22b, 1 of 56 layers and 2 decode steps, (3,
+   parallel); (e) mixtral-8x22b, 1 of 56 layers and 1 decode step, (3,
    2), weight-gather (8 experts, d_model over 3 data ranks: each forward
    gathers the layer's expert leaves through host memory), 12 rows; (f)
    mamba2-370m, all 48 layers, (1, 2) and (1, 4); (g) jamba-v0.1-52b, 8
@@ -331,6 +331,27 @@ Phases, each fatal on failure:
    no valid key among them); weight and cache bytes equal to its share of
    every cut leaf plus the whole ones. bf16: agreement printed. Printed:
    the decode step's wall ms unsharded and sharded.
+21. sharded training — tinyllama-1.1b at full width, 4 of 22 layers,
+   through core/steps.make_sharded_train_step on spawned gloo ranks that
+   share the card, from the seed-0 state cut by the train rules (FSDP:
+   d_model over `data`; TP over `model`: KV heads, or head_dim where the
+   4 KV heads do not divide the axis, MLP, vocab), batch 4 x 256 of the
+   seeded stream, attention on rows over every mesh axis (attn_dp_axes):
+   (a) mesh (2, 2), KV heads cut; (b) (1, 8), head_dim cut, the 4 rows
+   padded to 8. Two fp32 steps against make_train_step on one card from
+   the same weights on the same batches, gated: the loss within 1e-5
+   relative, grad_norm within 1e-4, every gradient leaf handed to AdamW,
+   gathered whole, within 1e-4 of that leaf's max abs, each rank's master
+   and moment bytes exactly its share of every cut leaf plus the
+   replicated ones. On (a) also: allreduce_compressed of the embedding,
+   final norm and head gradients over `data`, bit for bit the formula on
+   the data ranks' gathered int8 values and scales (gated); five bf16
+   steps on one batch, the learning rate warming up from 3e-6, whose last
+   loss must be below the first (gated), printed beside one card's.
+   Printed: the steps' wall ms (after the first) sharded and on one card,
+   max_memory_allocated a rank. No kernel runs in it.
+
+Every phase prints its seconds ("phase N seconds:").
 
 In every serve phase (4, 6, 8-11, 13-17) the decode kernel's launches must
 equal n_layers x the decode steps the engines executed (their own stats;
@@ -3650,13 +3671,14 @@ FAM_TP_PROMPT, FAM_TP_STEPS = 32, 8
 # decode steps). (d) EP: 64 experts over 2 data ranks; (e) weight-gather: 8
 # experts, which 3 data ranks do not divide, d_model 6,144 cut over them,
 # 12 rows so each data rank routes 4 tokens a decode step (moe_shard_map's
-# minimum); one layer and two steps, since each forward gathers the
+# minimum); one layer and one decode step, since each forward gathers the
 # layer's three expert leaves (1.6 GB each a rank in fp32) through gloo's
-# host staging, ~4 s a leaf on the card; (f) the SSM block's channels and
+# host staging, ~4 s a leaf on the card (two steps until phase 21 came:
+# the script's time limit); (f) the SSM block's channels and
 # heads over 2 and 4 model ranks; (g) one whole block of jamba's 8 layers
 # (attention, SSM, MoE, MLP), EP.
 FAM_TP_CASES = {"d": ("moonshot-v1-16b-a3b", (2, 2), 8, 8, FAM_TP_STEPS),
-                "e": ("mixtral-8x22b", (3, 2), 1, 12, 2),
+                "e": ("mixtral-8x22b", (3, 2), 1, 12, 1),
                 "f2": ("mamba2-370m", (1, 2), None, 8, FAM_TP_STEPS),
                 "f4": ("mamba2-370m", (1, 4), None, 8, FAM_TP_STEPS),
                 "g": ("jamba-v0.1-52b", (2, 2), 8, 8, FAM_TP_STEPS)}
@@ -3912,10 +3934,12 @@ def fam_case(torch, np, name, card) -> dict:
                 fail(f"{where}: rank {r['rank']} reached {v['peak_bytes']} bytes on the card "
                      f"while cutting its weights, over its shards and one leaf in flight "
                      f"({v['peak_bound']:.0f})")
-            if (len(v["held"]) != 2 * v["per_step"]
+            # the first and the last step's calls (one step: its own)
+            n_held = min(2, n_steps) * v["per_step"]
+            if (len(v["held"]) != n_held
                     or (v["held"] and set(v["held"]) != want_held)):
                 fail(f"{where}: rank {r['rank']} held {len(v['held'])} decode attention "
-                     f"calls at {sorted(set(v['held']))}, not {2 * v['per_step']} at "
+                     f"calls at {sorted(set(v['held']))}, not {n_held} at "
                      f"{sorted(want_held)}")
             if not v["held_ok"]:
                 fail(f"{where}: rank {r['rank']}'s decode attention differs from its plain "
@@ -4410,6 +4434,297 @@ def small_serve_phase(torch, F, np, card, cases=None) -> dict:
     return out
 
 
+# --- phase 21: the sharded train step ---
+
+SHARD_TRAIN_ARCH = "tinyllama-1.1b"
+SHARD_TRAIN_LAYERS = 4
+SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 4, 256
+SHARD_TRAIN_STEPS = 2           # fp32 steps held against one card
+SHARD_BF16_STEPS = 5
+# (a) KV heads (4) cut over 2 model ranks, d_model over 2 data ranks; (b) 4
+# KV heads do not cut over 8 model ranks: head_dim is cut, and the 4 rows
+# are padded to 8 for attention's batch-DP layout
+SHARD_TRAIN_MESHES = {"a": (2, 2), "b": (1, 8)}
+SHARD_LOSS_RTOL, SHARD_GNORM_RTOL, SHARD_LEAF_TOL = 1e-5, 1e-4, 1e-4
+SHARD_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+# the bf16 run: SHARD_BF16_STEPS steps on one batch, the learning rate
+# warming up from 3e-6 (at full width AdamW's first sign-like steps at 1.5e-4
+# and 3e-4 raise the loss, on one card as sharded, fp32 and bf16 alike:
+# tools/train_schedule_check.py)
+SHARD_BF16_OPT = dict(lr=3e-4, warmup_steps=100, total_steps=1000)
+
+
+def st_config(dtype):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(SHARD_TRAIN_ARCH), n_layers=SHARD_TRAIN_LAYERS,
+                               dtype=dtype)
+
+
+def st_batches(np, cfg, dtype):
+    """The global batches of a run: at fp32 the first SHARD_TRAIN_STEPS of
+    the one seeded stream (rank 0's), at bf16 its first batch
+    SHARD_BF16_STEPS times."""
+    from repro_torch.data.pipeline import DataConfig, batch_iterator
+
+    it = batch_iterator(cfg, DataConfig(SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ, seed=0), rank=0)
+    if dtype == "float32":
+        return [next(it) for _ in range(SHARD_TRAIN_STEPS)]
+    return [next(it)] * SHARD_BF16_STEPS
+
+
+def st_capture(steps):
+    """Wrap steps.adamw_update so that each call's gradients (the fp32
+    tree AdamW is handed) are kept; returns the list they go to."""
+    seen = []
+    update = steps.adamw_update
+
+    def capture(params, grads, opt, oc, cut=None):
+        seen.append(grads)
+        return update(params, grads, opt, oc, cut)
+
+    steps.adamw_update = capture
+    return seen
+
+
+def st_unsharded(torch, np, ref_dir):
+    """One card: SHARD_TRAIN_STEPS fp32 steps of `make_train_step` from the
+    seed-0 state (their gradients saved to ref_dir, one file a step), then
+    SHARD_BF16_STEPS bf16 steps on the first batch. Returns each step's
+    metrics and wall ms."""
+    from repro_torch.core import steps
+    from repro_torch.training.optimizer import OptConfig
+
+    out = {}
+    for dtype, opt in (("float32", SHARD_OPT), ("bfloat16", SHARD_BF16_OPT)):
+        cfg = st_config(dtype)
+        state = steps.init_train_state(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+        step = steps.make_train_step(cfg, OptConfig(**opt))
+        update = steps.adamw_update
+        seen = st_capture(steps) if dtype == "float32" else []
+        metrics, walls = [], []
+        try:
+            for i, batch in enumerate(st_batches(np, cfg, dtype)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+                if seen:
+                    from repro_torch.models.params import leaves
+
+                    torch.save({k: v.cpu() for k, v in leaves(seen.pop())},
+                               os.path.join(ref_dir, f"grads{i}.pt"))
+        finally:
+            steps.adamw_update = update
+        out[dtype] = dict(metrics=metrics, step_ms=walls)
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def st_rank(rank, world, backend, shape, ref_dir, with_bf16):
+    """One rank of a phase-21 mesh: SHARD_TRAIN_STEPS fp32 sharded steps
+    from its cut of the seed-0 state (drawn leaf by leaf on the card and
+    cut as it comes), each step's gradients gathered whole leaf by leaf and
+    held by rank 0 against the one-card step's; its master and moment
+    bytes; with_bf16: `allreduce_compressed` of the last step's embedding,
+    final norm and head gradients over the data axis against the plain
+    formula on the data ranks' gathered int8 values and scales, then
+    SHARD_BF16_STEPS bf16 steps on one batch. Returns plain data."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.core import steps
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.models.params import leaves, param_specs
+    from repro_torch.training.grad_compression import (allreduce_compressed,
+                                                        compress_grads, init_error_state)
+    from repro_torch.training.optimizer import OptConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out = {"rank": rank, "backend": backend, "coord": list(mesh.get_coordinate())}
+    cfg = st_config("float32")
+    placements = dict(leaves(steps.train_state_shardings(cfg, mesh)["params"]))
+    names = list(sizes)
+    expected = 0
+    for path, spec in leaves(param_specs(cfg)):
+        n = math.prod(sizes[a] for a, p in zip(names, placements[path])
+                      if isinstance(p, Shard))
+        expected += spec.numel() * 4 // n
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_sharded_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                                           "cuda", mesh)
+    out["bytes"] = {k: sum(t.numel() * t.element_size() for _, t in leaves(tree))
+                    for k, tree in (("params", state["params"]), ("mu", state["opt"]["mu"]),
+                                    ("nu", state["opt"]["nu"]))}
+    out["expected_bytes"] = expected
+    step = steps.make_sharded_train_step(cfg, mesh, OptConfig(**SHARD_OPT))
+    seen = st_capture(steps)
+    metrics, walls, leaf_err = [], [], []
+    for i, batch in enumerate(st_batches(np, cfg, "float32")):
+        local = {k: v.cuda() for k, v in steps.shard_train_batch(batch, mesh).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads = seen.pop()
+        ref = torch.load(os.path.join(ref_dir, f"grads{i}.pt"), mmap=True) if rank == 0 \
+            else None
+        worst = (0.0, "")
+        for path, g in leaves(grads):
+            whole = steps.unshard_leaf(g, placements[path], mesh)
+            if rank == 0:
+                want = ref[path].cuda()
+                scale = float(want.abs().max())
+                err = float((whole - want).abs().max()) / max(scale, 1e-30)
+                if not torch.isfinite(whole).all():
+                    err = float("inf")
+                worst = max(worst, (err, path))
+            del whole
+        leaf_err.append(worst)
+        last_grads = grads
+    out.update(metrics=metrics, step_ms=walls, leaf_err=leaf_err, n_leaves=len(placements),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               attn_dp_axes=list(steps._train_cfg(cfg, mesh, SHARD_TRAIN_BATCH).attn_dp_axes))
+    if with_bf16:
+        grads = {k: v for k, v in last_grads.items() if k != "body"}   # embed, final_ln, lm_head
+        err = init_error_state(grads)
+        with dctx.mesh_context(mesh):
+            avg, new_err = allreduce_compressed(grads, err, ("data",))
+            qs, ss, errs = compress_grads(grads, err)
+            same = True
+            for k in sorted(grads):
+                q = dctx.gather(qs[k].to(torch.int32)[None], 0, ("data",))
+                s = dctx.gather(ss[k].reshape(1), 0, ("data",))
+                want = q.sum(0).to(torch.float32) * s.max() / sizes["data"]
+                same = same and torch.equal(avg[k], want) and torch.equal(new_err[k], errs[k])
+        out["compress"] = dict(bit_equal=bool(same), leaves=sorted(grads),
+                               elements=sum(int(v.numel()) for v in grads.values()))
+        del state, step, last_grads, grads
+        torch.cuda.empty_cache()
+        cfg16 = st_config("bfloat16")
+        state = steps.init_sharded_train_state(cfg16, torch.Generator("cuda").manual_seed(0),
+                                               "cuda", mesh)
+        step = steps.make_sharded_train_step(cfg16, mesh, OptConfig(**SHARD_BF16_OPT))
+        losses, walls16 = [], []
+        for batch in st_batches(np, cfg16, "bfloat16"):
+            local = {k: v.cuda() for k, v in steps.shard_train_batch(batch, mesh).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, local)
+            torch.cuda.synchronize()
+            walls16.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        out["bf16"] = dict(losses=losses, step_ms=walls16)
+    return out
+
+
+def st_check(np, name, shape, ranks, ref, card) -> dict:
+    """The gates of one phase-21 mesh against the one-card run `ref`."""
+    want = ref["float32"]["metrics"]
+    for r in ranks:
+        where = f"sharded training ({name}) rank {r['rank']} {tuple(r['coord'])}"
+        for i, (m, w) in enumerate(zip(r["metrics"], want)):
+            loss_rel = abs(m["loss"] - w["loss"]) / abs(w["loss"])
+            gnorm_rel = abs(m["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+            if not (loss_rel <= SHARD_LOSS_RTOL and gnorm_rel <= SHARD_GNORM_RTOL):
+                fail(f"{where} step {i}: loss {m['loss']} vs one card {w['loss']} (rel "
+                     f"{loss_rel:.2e}, tolerance {SHARD_LOSS_RTOL}), grad_norm "
+                     f"{m['grad_norm']} vs {w['grad_norm']} (rel {gnorm_rel:.2e}, "
+                     f"tolerance {SHARD_GNORM_RTOL})")
+        for k, b in r["bytes"].items():
+            if b != r["expected_bytes"]:
+                fail(f"{where}: {b} {k} bytes, not its share of every cut leaf plus the "
+                     f"replicated ones ({r['expected_bytes']})")
+        if r["attn_dp_axes"] != ["data", "model"]:
+            fail(f"{where}: attn_dp_axes {r['attn_dp_axes']}, not every mesh axis")
+    r0 = ranks[0]
+    for i, (err, path) in enumerate(r0["leaf_err"]):
+        if not err <= SHARD_LEAF_TOL:
+            fail(f"sharded training ({name}) step {i}: gradient {path}, gathered whole, "
+                 f"differs from one card's by {err:.3e} of its max abs (tolerance "
+                 f"{SHARD_LEAF_TOL})")
+    out = dict(mesh=list(shape), backend=r0["backend"], world=len(ranks),
+               layers=SHARD_TRAIN_LAYERS, batch=[SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ],
+               attn_dp_axes=r0["attn_dp_axes"],
+               loss=[m["loss"] for m in r0["metrics"]], loss_one_card=[w["loss"] for w in want],
+               loss_rel_err=max(abs(m["loss"] - w["loss"]) / abs(w["loss"])
+                                for r in ranks for m, w in zip(r["metrics"], want)),
+               grad_norm_rel_err=max(abs(m["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                                     for r in ranks for m, w in zip(r["metrics"], want)),
+               worst_leaf_rel_err=max(e for e, _ in r0["leaf_err"]),
+               worst_leaf=max(r0["leaf_err"])[1], leaves=r0["n_leaves"],
+               rank_master_bytes=r0["bytes"]["params"], rank_moment_bytes=r0["bytes"]["mu"],
+               expected_rank_bytes=r0["expected_bytes"],
+               peak_bytes=[r["peak_bytes"] for r in ranks],
+               step_ms=float(np.median([w for r in ranks for w in r["step_ms"][1:]])),
+               step_ms_one_card=float(np.median(ref["float32"]["step_ms"][1:])), card=card)
+    if "bf16" in r0:
+        losses = r0["bf16"]["losses"]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"sharded training ({name}) bf16: the losses {losses} do not fall")
+        for r in ranks:
+            if not r["compress"]["bit_equal"]:
+                fail(f"sharded training ({name}) rank {r['rank']}: allreduce_compressed over "
+                     f"the data axis differs from the formula on the gathered int8 values "
+                     f"and scales")
+        one = ref["bfloat16"]
+        out.update(bf16_losses=losses, bf16_losses_one_card=[m["loss"] for m in one["metrics"]],
+                   bf16_step_ms=float(np.median(r0["bf16"]["step_ms"][1:])),
+                   bf16_step_ms_one_card=float(np.median(one["step_ms"][1:])),
+                   compress=r0["compress"])
+    print(f"sharded training ({name}): " + json.dumps(out))
+    return out
+
+
+def sharded_train_phase(torch, np, card) -> dict:
+    """Phase 21: full-width tinyllama-1.1b at SHARD_TRAIN_LAYERS layers
+    trained sharded on spawned ranks that share the card (gloo), on each
+    mesh of SHARD_TRAIN_MESHES, against the one-card train step from the
+    same weights on the same batches."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as ref_dir:
+        ref = st_unsharded(torch, np, ref_dir)
+        out["one_card"] = ref
+        torch.cuda.empty_cache()
+        for name, shape in SHARD_TRAIN_MESHES.items():
+            ts = time.perf_counter()
+            ranks = run_ranks(st_rank, shape[0] * shape[1], (shape, ref_dir, name == "a"),
+                              device="cuda", timeout=900)
+            out[name] = st_check(np, name, shape, ranks, ref, card)
+            out[name]["ranks_wall_s"] = time.perf_counter() - ts
+    out["phase_s"] = time.perf_counter() - t0
+    for name in SHARD_TRAIN_MESHES:
+        v = out[name]
+        print(f"sharded training ({name}): {SHARD_TRAIN_ARCH} {v['layers']} layers, batch "
+              f"{v['batch'][0]} x {v['batch'][1]}, mesh {tuple(v['mesh'])} ({v['backend']}), "
+              f"fp32 step {v['step_ms']:.1f} ms vs {v['step_ms_one_card']:.1f} ms on one card, "
+              f"loss rel {v['loss_rel_err']:.2e}, grad_norm rel {v['grad_norm_rel_err']:.2e}, "
+              f"worst leaf {v['worst_leaf_rel_err']:.2e} ({v['worst_leaf']}), peak "
+              f"{max(v['peak_bytes']) / 2**30:.2f} GiB a rank, ranks {v['ranks_wall_s']:.1f} s "
+              f"| {card}")
+    a = out["a"]
+    print(f"sharded training (a, bf16): losses {['%.4f' % x for x in a['bf16_losses']]} vs one "
+          f"card {['%.4f' % x for x in a['bf16_losses_one_card']]}, step "
+          f"{a['bf16_step_ms']:.1f} ms vs {a['bf16_step_ms_one_card']:.1f} ms; "
+          f"allreduce_compressed bit for bit: {a['compress']['bit_equal']} | {card}")
+    print(f"sharded training phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -4444,52 +4759,62 @@ def main() -> int:
         elif "Used" in line or "spill" in line:
             print(f"  {entry}: {line.split(':', 1)[-1].strip()}")
 
+    phase_s = {}
+
+    def timed(n, fn, *args):
+        """fn(*args), its seconds printed and kept under phase n."""
+        t = time.perf_counter()
+        result = fn(*args)
+        phase_s[n] = phase_s.get(n, 0.0) + time.perf_counter() - t
+        print(f"phase {n} seconds: {phase_s[n]:.1f}", flush=True)
+        return result
+
     # 3. kernels
-    rows = kernel_phase(torch, F)
+    rows = timed(3, kernel_phase, torch, F)
 
     # 4. serve
-    stats, params = serve_phase(torch, np)
+    stats, params = timed(4, serve_phase, torch, np)
 
     # 5. image kernels
-    image_rows = image_kernel_phase(torch, F, np)
+    image_rows = timed(5, image_kernel_phase, torch, F, np)
 
     # 6. image serve, on the same weights
-    image_stats = image_serve_phase(torch, np, params)
+    image_stats = timed(6, image_serve_phase, torch, np, params)
 
     # 7. decode kernel
-    decode_rows = decode_kernel_phase(torch, F, np)
+    decode_rows = timed(7, decode_kernel_phase, torch, F, np)
 
-    decode_step = decode_step_phase(torch, np, params)
+    decode_step = timed(7, decode_step_phase, torch, np, params)
 
     # 8. run-to-completion serve, on the same weights
-    rtc_stats = rtc_serve_phase(torch, np, params)
+    rtc_stats = timed(8, rtc_serve_phase, torch, np, params)
 
     # 9. chunked prefill + prefix cache serve, on the same weights
-    chunk_stats = chunked_prefix_serve_phase(torch, np, params)
+    chunk_stats = timed(9, chunked_prefix_serve_phase, torch, np, params)
 
     # 10. the multi-slice fleet, on the same weights
-    fleet_stats_, model, fleet_ec, fleet_ref = fleet_phase(torch, np, params, card)
+    fleet_stats_, model, fleet_ec, fleet_ref = timed(10, fleet_phase, torch, np, params, card)
 
     # 11. the same fleet under a fault plan, on the virtual clock
-    chaos_stats = chaos_phase(torch, np, model, fleet_ec, fleet_ref, card)
+    chaos_stats = timed(11, chaos_phase, torch, np, model, fleet_ec, fleet_ref, card)
 
     # 12. knee profiles measured on the card
-    knee_stats, profiles = knee_phase(torch, np, card)
+    knee_stats, profiles = timed(12, knee_phase, torch, np, card)
 
     # 13. the partition controller resizing the fleet, on phase 12's profiles
-    controller_stats = controller_phase(torch, np, model, profiles, card)
+    controller_stats = timed(13, controller_phase, torch, np, model, profiles, card)
 
     # 14. PREBA's two-model fleet: tinyllama and mamba2, one admission queue
-    mt_stats = mt_fleet_phase(torch, np, params, card)
+    mt_stats = timed(14, mt_fleet_phase, torch, np, params, card)
 
     # 15. the rest of the dense family and the MoE family, full width
-    new_stats = new_archs_phase(torch, np, card)
+    new_stats = timed(15, new_archs_phase, torch, np, card)
     # each arch's audio serve (the first five), then danube's window run
     new_runs = [new_stats[a]["serve"] for a in NEW_ARCH_DEPTH] + [
         new_stats[a]["window_wrap"] for a in NEW_ARCH_DEPTH if "window_wrap" in new_stats[a]]
 
     # 16. the last three families: jamba, phi-3-vision, whisper, full width
-    family_stats = families_phase(torch, F, np, card)
+    family_stats = timed(16, families_phase, torch, F, np, card)
     decode_rows += family_stats["kernel_rows"]
     family_serves = [family_stats[a]["serve"] for a in FAMILY_DEPTH
                      if "serve" in family_stats[a]]
@@ -4497,19 +4822,22 @@ def main() -> int:
                                    for k in ("generate", "image") if k in family_stats[a]]
 
     # 17. training on the card (tinyllama-1.1b), then serving the trained weights
-    train_stats = training_phase(torch, np, card)
+    train_stats = timed(17, training_phase, torch, np, card)
 
     # 18. tensor-parallel serving on ranks that share the card
-    tp_stats = tensor_parallel_phase(torch, F, np, card)
+    tp_stats = timed(18, tensor_parallel_phase, torch, F, np, card)
     decode_rows += tp_stats["kernel_rows"]
 
     # 19. tensor-parallel serving of the MoE, SSM and hybrid families
-    fam_tp_stats = tp_families_phase(torch, F, np, card)
+    fam_tp_stats = timed(19, tp_families_phase, torch, F, np, card)
     decode_rows += fam_tp_stats["kernel_rows"]
 
     # 20. the small-serve layout: whisper-base and tinyllama-1.1b at 8 layers
-    ss_stats = small_serve_phase(torch, F, np, card)
+    ss_stats = timed(20, small_serve_phase, torch, F, np, card)
     decode_rows += ss_stats["kernel_rows"]
+
+    # 21. the sharded train step: tinyllama-1.1b at 4 layers on two meshes
+    st_stats = timed(21, sharded_train_phase, torch, np, card)
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
                                                 controller_stats, mt_stats, *new_runs[:5],
@@ -4568,7 +4896,8 @@ def main() -> int:
              "tensor_parallel": {k: v for k, v in tp_stats.items() if k != "kernel_rows"},
              "tensor_parallel_families": {k: v for k, v in fam_tp_stats.items()
                                           if k != "kernel_rows"},
-             "small_serve": {k: v for k, v in ss_stats.items() if k != "kernel_rows"}},
+             "small_serve": {k: v for k, v in ss_stats.items() if k != "kernel_rows"},
+             "sharded_training": st_stats, "phase_s": phase_s},
             indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")

@@ -70,6 +70,9 @@ class ModelConfig:
     param_dtype: str = "float32"  # master params (train); serving casts to dtype
     remat: bool = True            # recompute each layer in the backward pass (train)
 
+    # distribution (set by the train step's config, `core/steps._train_cfg`)
+    attn_dp_axes: Tuple[str, ...] = ()  # attention on rows cut over these mesh axes
+
     # --- derived -----------------------------------------------------------
     @property
     def hd(self) -> int:

@@ -23,11 +23,21 @@ attention cache (the self-attention ring, an encoder-decoder's cross
 cache) cut along its sequence over `model` where the axis divides it; the
 decode kernel then runs over each rank's cut and returns each row's
 log-sum-exp, and the ranks' outputs merge exactly
-(`distributed.ctx.merge_seq_shards`). The train side's fields and
-shardings (`_train_fields`, `train_state_shardings`) are rules only: no
-sharded train step runs them yet."""
+(`distributed.ctx.merge_seq_shards`).
+
+The sharded train step (`make_sharded_train_step`, the attention
+families) runs under the train rules (`train_state_shardings`): each
+rank's fp32 master and moments are its cut of every leaf (`shard_train_state`),
+the d_model dim over the data axes (FSDP) and KV heads, or head_dim where
+the KV heads do not divide the axis, MLP hidden units and the vocab over
+`model`. Each layer gathers its FSDP-cut weights inside the layer
+(`models/lm._fsdp_layer`), whose backward reduce-scatters their gradients;
+attention runs on rows cut over every mesh axis when the (micro)batch can
+fill the mesh (`_train_cfg`'s `attn_dp_axes`), and the loss is the global
+batch's mean."""
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -39,8 +49,8 @@ from repro_torch.distributed import ctx as dctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.params import (_set, cache_axes, cache_specs, init_params,
-                                       leaves, param_axes, param_specs, ring_len, tree_map,
-                                       unflatten)
+                                       iter_params, leaves, param_axes, param_specs,
+                                       ring_len, tree_map, unflatten)
 from repro_torch.models.serve_pad import padded_leaves
 from repro_torch.training.optimizer import OptConfig, adamw_update, init_opt_state
 
@@ -74,8 +84,7 @@ def _train_fields(cfg: ModelConfig, mesh, batch: int) -> dict:
     """The distribution fields the JAX package's `_train_cfg` sets on the
     train config: the attention batch-DP axes when the (micro)batch can
     occupy the whole mesh; the MoE fields, groups on the data axes. Rules
-    only, kept as a dict until the sharded train step (ROADMAP Queue 1
-    item 7.1) reads them."""
+    as a dict: `_train_cfg` sets the batch-DP axes on the config."""
     sizes = shd.axis_sizes(mesh)
     n = math.prod(sizes.values())
     fields = {}
@@ -84,6 +93,16 @@ def _train_fields(cfg: ModelConfig, mesh, batch: int) -> dict:
     dp = ("pod", "data") if "pod" in sizes else ("data",)
     fields.update(_moe_fields(cfg, mesh, dp))
     return fields
+
+
+def _train_cfg(cfg: ModelConfig, mesh, batch: int) -> ModelConfig:
+    """The train config on `mesh` for a (micro)batch of `batch` rows (the
+    JAX package's `_train_cfg`): `attn_dp_axes` set, every mesh axis, when
+    the batch can occupy the whole mesh (`_train_fields`). The MoE fields
+    stay `_train_fields`' dict: the MoE layer reads the mesh, and the MoE
+    family does not train sharded yet."""
+    axes = _train_fields(cfg, mesh, batch).get("attn_dp_axes", ())
+    return dataclasses.replace(cfg, attn_dp_axes=axes) if axes else cfg
 
 
 def _serve_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
@@ -124,6 +143,44 @@ def _device_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _grads(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
+           microbatches: int, device) -> Tuple[Tree, Dict]:
+    """The gradient of `lm.train_loss` with respect to a detached
+    `cfg.dtype` copy of the fp32 leaves of `params` (the JAX package's bf16
+    gradient tree), in fp32: over `microbatches` equal chunks of the rows,
+    the mean of their fp32 gradients. Returns (gradient tree, the last
+    chunk's detached metrics)."""
+    dt = getattr(torch, cfg.dtype)
+    # the tree differentiated: detached cfg.dtype copies of the fp32 leaves
+    low = tree_map(lambda p: (p.detach().to(dt) if p.dtype == torch.float32
+                              else p.detach()).requires_grad_(p.is_floating_point()),
+                   params)
+    trainable = [v for _, v in leaves(low)]
+
+    def grads_of(b) -> Tuple[Tuple[torch.Tensor, ...], Dict]:
+        loss, metrics = lm.train_loss(low, b, cfg)
+        grads = torch.autograd.grad(loss, trainable, allow_unused=True)
+        grads = tuple(torch.zeros_like(p) if g is None else g
+                      for p, g in zip(trainable, grads))
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    if microbatches == 1:
+        g, metrics = grads_of(batch)
+        flat = [x.float() for x in g]
+    else:
+        n = next(iter(batch.values())).shape[0]
+        if n % microbatches:
+            raise ValueError(f"batch {n} is not a multiple of {microbatches} microbatches")
+        m = n // microbatches
+        flat = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in trainable]
+        for i in range(microbatches):
+            g, metrics = grads_of({k: v[i * m:(i + 1) * m] for k, v in batch.items()})
+            for acc, x in zip(flat, g):
+                acc.add_(x.float())
+        flat = [x / microbatches for x in flat]
+    return unflatten(low, flat), metrics
+
+
 def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None,
                     microbatches: int = 1):
     """train_step(state, batch) -> (state, metrics). `batch` holds numpy
@@ -132,41 +189,11 @@ def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None,
     updated in place. metrics: "loss", "nll", "aux" of the last microbatch
     and AdamW's "grad_norm" and "lr", 0-d tensors."""
     oc = oc or OptConfig()
-    dt = getattr(torch, cfg.dtype)
-
-    def grads_of(low: Tree, trainable, batch) -> Tuple[Tuple[torch.Tensor, ...], Dict]:
-        loss, metrics = lm.train_loss(low, batch, cfg)
-        grads = torch.autograd.grad(loss, trainable, allow_unused=True)
-        grads = tuple(torch.zeros_like(p) if g is None else g
-                      for p, g in zip(trainable, grads))
-        return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: Tree, batch: Dict[str, Any]):
         params = state["params"]
         device = next(v for _, v in leaves(params)).device
-        batch = _device_batch(batch, device)
-        # the tree differentiated: detached cfg.dtype copies of the fp32 leaves
-        low = tree_map(lambda p: (p.detach().to(dt) if p.dtype == torch.float32
-                                  else p.detach()).requires_grad_(p.is_floating_point()),
-                       params)
-        trainable = [v for _, v in leaves(low)]
-        if microbatches == 1:
-            g, metrics = grads_of(low, trainable, batch)
-            flat = [x.float() for x in g]
-        else:
-            n = next(iter(batch.values())).shape[0]
-            if n % microbatches:
-                raise ValueError(f"batch {n} is not a multiple of {microbatches} microbatches")
-            m = n // microbatches
-            flat = [torch.zeros(p.shape, dtype=torch.float32, device=device)
-                    for p in trainable]
-            for i in range(microbatches):
-                mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-                g, metrics = grads_of(low, trainable, mb)
-                for acc, x in zip(flat, g):
-                    acc.add_(x.float())
-            flat = [x / microbatches for x in flat]
-        grads = unflatten(low, flat)
+        grads, metrics = _grads(cfg, params, _device_batch(batch, device), microbatches, device)
         new_params, new_opt, opt_metrics = adamw_update(params, grads, state["opt"], oc)
         return {"params": new_params, "opt": new_opt}, dict(metrics, **opt_metrics)
 
@@ -366,3 +393,173 @@ def sharded_decode(cfg: ModelConfig, mesh, batch: Optional[int] = None,
             return fn(params, inputs)
 
     return decode_fn
+
+
+# ---------------------------------------------------------------------------
+# Train on a mesh: FSDP over the data axes, TP over `model` (the train rules)
+# ---------------------------------------------------------------------------
+
+# the families the sharded train step takes, and the name of each it refuses
+_UNSHARDED_TRAIN = {"moe": "MoE", "ssm": "SSM", "hybrid": "hybrid",
+                    "audio": "encoder-decoder"}
+# the logical axes a leaf must have cut over a `model` axis wider than 1
+# where the train rules map them to it: the dims whose contractions the
+# model's collectives close (one of kv_heads and head_dim, as the rules say)
+_TRAIN_MODEL_CUT = ("kv_heads", "head_dim", "mlp", "vocab")
+
+
+def train_cut_axes(cfg: ModelConfig, mesh) -> Tree:
+    """Every weight's mesh axes that cut it under the train rules, in mesh
+    order (() for a replicated leaf): the axes over which its sum of
+    squares is summed for the global norm."""
+    names = list(shd.axis_sizes(mesh))
+    return tree_map(lambda pl: tuple(n for n, p in zip(names, pl) if isinstance(p, Shard)),
+                    train_state_shardings(cfg, mesh)["params"])
+
+
+def _check_train_layout(cfg: ModelConfig, mesh) -> None:
+    """Refuse by name a family the sharded train step does not take, and,
+    with a `model` axis wider than 1, a leaf whose KV-head or head_dim,
+    MLP or vocab dim the train rules map to `model` but the axis does not
+    cut (the model's collectives could not close its contraction)."""
+    if cfg.family in _UNSHARDED_TRAIN:
+        raise ValueError(
+            f"{cfg.name}: the sharded train step takes the attention families (dense, "
+            f"sliding-window, vision-language), not the {_UNSHARDED_TRAIN[cfg.family]} "
+            f"family (ROADMAP Queue 1 item 7.6); one device: make_train_step")
+    sizes = shd.axis_sizes(mesh)
+    if sizes.get("model", 1) == 1:
+        return
+    names = list(sizes)
+    rules = shd.train_rules(mesh, cfg)
+    cut = tuple(ax for ax in _TRAIN_MODEL_CUT if rules[ax] == "model")
+    all_axes = dict(leaves(param_axes(cfg)))
+    for path, pl in leaves(train_state_shardings(cfg, mesh)["params"]):
+        for d, ax in enumerate(all_axes[path]):
+            if ax in cut and pl[names.index("model")] != Shard(d):
+                raise ValueError(f"{cfg.name} on {sizes}: {path} dim {d} ({ax}) is not cut "
+                                 f"over the model axis")
+
+
+def shard_train_state(state: Tree, cfg: ModelConfig, mesh, coordinate=None) -> Tree:
+    """This rank's cut of a whole fp32 train state ({"params", "opt": {"mu",
+    "nu", "step"}}, as `init_train_state` builds it or as carried across
+    from the JAX package's tree) under `train_state_shardings`: each leaf a
+    contiguous copy of its own (no head padding: the train rules cut
+    head_dim where the KV heads do not divide the `model` axis).
+    coordinate: the rank's index a mesh dim (default: this process's)."""
+    coord = _coordinate(mesh, coordinate)
+    sh = train_state_shardings(cfg, mesh)
+
+    def cut(t, pl):
+        return shd.local_shard(t, pl, mesh, coord).clone(memory_format=torch.contiguous_format)
+
+    return {"params": tree_map(cut, state["params"], sh["params"]),
+            "opt": {"mu": tree_map(cut, state["opt"]["mu"], sh["opt"]["mu"]),
+                    "nu": tree_map(cut, state["opt"]["nu"], sh["opt"]["nu"]),
+                    "step": state["opt"]["step"].clone()}}
+
+
+def init_sharded_train_state(cfg: ModelConfig, generator: torch.Generator, device,
+                             mesh) -> Tree:
+    """`shard_train_state` of `init_train_state` with the same generator,
+    the same bits, without the whole tree: each leaf is drawn
+    (`params.iter_params`), cut and dropped in turn, and the moments are
+    zeros of the cut shapes."""
+    coord = _coordinate(mesh, None)
+    placements = dict(leaves(train_state_shardings(cfg, mesh)["params"]))
+    params: Tree = {}
+    for path, t in iter_params(cfg, generator, device, cfg.param_dtype):
+        _set(params, path, shd.local_shard(t, placements[path], mesh, coord).clone(
+            memory_format=torch.contiguous_format))
+    return {"params": params, "opt": init_opt_state(params)}
+
+
+def unshard_leaf(t: torch.Tensor, placements, mesh) -> torch.Tensor:
+    """The whole tensor of which `t` is this rank's cut under `placements`:
+    gathered over the mesh axes that cut each dim, major to minor (a
+    collective every rank of the mesh runs)."""
+    names = list(shd.axis_sizes(mesh))
+    with torch.no_grad(), dctx.mesh_context(mesh):
+        for d in range(t.dim()):
+            axes = [n for n, p in zip(names, placements) if p == Shard(d)]
+            if axes:
+                t = dctx.gather(t, d, axes)
+    return t
+
+
+def unshard_train_state(state: Tree, cfg: ModelConfig, mesh) -> Tree:
+    """The whole train state from this rank's cut of it (`unshard_leaf`
+    leaf by leaf; every rank of the mesh calls it)."""
+    sh = train_state_shardings(cfg, mesh)
+    return tree_map(lambda t, pl: unshard_leaf(t, pl, mesh), state, sh)
+
+
+def shard_train_batch(batch: Dict[str, Any], mesh, microbatches: int = 1,
+                      coordinate=None) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch ({"tokens", "labels"} and a
+    family's stub inputs, batch-major), microbatch by microbatch: the rows
+    of microbatch i are the global rows [i B / k, (i + 1) B / k), as the
+    JAX package's scan cuts them, and the rank holds its cut of each over
+    the data axes (`shard_batch`), in microbatch order. The data axes must
+    divide each microbatch."""
+    n_dp = math.prod(v for k, v in shd.axis_sizes(mesh).items() if k in ("pod", "data"))
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        b = t.shape[0]
+        if b % microbatches or (b // microbatches) % n_dp:
+            raise ValueError(f"{k}: a batch of {b} rows in {microbatches} microbatches does "
+                             f"not cut over {n_dp} data ranks")
+        m = b // microbatches
+        out[k] = torch.cat([shard_batch(t[i * m:(i + 1) * m], mesh, coordinate)
+                            for i in range(microbatches)])
+    return out
+
+
+def make_sharded_train_step(cfg: ModelConfig, mesh, oc: Optional[OptConfig] = None,
+                            microbatches: Optional[int] = None):
+    """The train step on a mesh (the JAX package's `lower_train_step` of
+    `make_train_step`), for the attention families: returns
+    sharded_train_step(local state, batch) -> (local state, metrics).
+
+    The state is this rank's cut (`shard_train_state`), updated in place;
+    the batch this rank's rows (`shard_train_batch`). Like the one-device
+    step, it differentiates a `cfg.dtype` copy of the rank's master leaves,
+    sums the microbatches' fp32 gradients and hands AdamW fp32 gradients of
+    the rank's shards, which it updates in place. Under the mesh each layer
+    gathers its weights' d_model cut over the data axes and the gather's
+    backward reduce-scatters their gradients; a leaf replicated over the
+    data axes has its gradient all-reduced over them after the backward;
+    the loss is the global batch's mean and `grad_norm` the whole
+    gradient's. microbatches: the JAX package's rule by default
+    (`TRAIN_MICROBATCHES` on a mesh of more than one rank, else 1); the
+    train config is `_train_cfg(cfg, mesh, global batch // microbatches)`.
+    Raises ValueError for the MoE, SSM, hybrid and encoder-decoder
+    families, and for a layout the model's collectives cannot close."""
+    _check_train_layout(cfg, mesh)
+    sizes = shd.axis_sizes(mesh)
+    if microbatches is None:
+        microbatches = TRAIN_MICROBATCHES.get(cfg.name, 1) if math.prod(sizes.values()) > 1 \
+            else 1
+    oc = oc or OptConfig()
+    n_dp = math.prod(v for k, v in sizes.items() if k in dctx.DP)
+    cut = train_cut_axes(cfg, mesh)
+    replicated_dp = [not set(names) & set(dctx.DP) for _, names in leaves(cut)]
+
+    def sharded_train_step(state: Tree, batch: Dict[str, Any]):
+        params = state["params"]
+        device = next(v for _, v in leaves(params)).device
+        batch = _device_batch(batch, device)
+        rows = next(iter(batch.values())).shape[0]
+        tcfg = _train_cfg(cfg, mesh, rows * n_dp // microbatches)
+        with dctx.mesh_context(mesh):
+            grads, metrics = _grads(tcfg, params, batch, microbatches, device)
+            flat = [dctx.all_reduce(g, dctx.DP) if rep else g
+                    for (_, g), rep in zip(leaves(grads), replicated_dp)]
+            grads = unflatten(grads, flat)
+            new_params, new_opt, opt_metrics = adamw_update(params, grads, state["opt"], oc,
+                                                            cut)
+        return {"params": new_params, "opt": new_opt}, dict(metrics, **opt_metrics)
+
+    return sharded_train_step

@@ -6,7 +6,7 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -29,12 +29,15 @@ def _rank() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
-def batch_iterator(cfg: ModelConfig, dc: DataConfig) -> Iterator[Dict[str, np.ndarray]]:
+def batch_iterator(cfg: ModelConfig, dc: DataConfig,
+                   rank: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
     """Deterministic synthetic LM batches: zipf tokens mod vocab, labels =
     tokens shifted left; plus stub `audio_frames` [B, n_audio_ctx, d_model]
     for an encoder-decoder and `img_embeds` [B, n_img_tokens, d_model] for
-    a vision-language model, drawn from the same stream."""
-    rng = np.random.default_rng(dc.seed + _rank())
+    a vision-language model, drawn from the same stream. rank: whose
+    stream, seed + rank (default: this process's rank); the sharded train
+    loop draws rank 0's on every rank, one global batch it cuts."""
+    rng = np.random.default_rng(dc.seed + (_rank() if rank is None else rank))
     while True:
         toks = rng.zipf(dc.zipf_a, size=(dc.global_batch, dc.seq_len + 1))
         toks = (toks % cfg.vocab).astype(np.int32)

@@ -25,6 +25,22 @@ backend of ranks that share one card, offers only `broadcast` and
 `all_reduce` on CUDA tensors. Over the data axes a sum runs over `data`,
 then over `pod`.
 
+The collectives have a backward, so that a loss differentiates through a
+mesh (the sharded train step, `core/steps.make_sharded_train_step`). Where
+the input needs no gradient, each runs as it did without one, bit for bit.
+The backward follows from what a rank holds on each axis. Over `model`,
+activations are replicated: every rank computes the same loss from the
+same values, so the sum of partial products (`all_reduce_model`,
+`matmul_model`) passes its gradient through, a gather over `model` keeps
+the rank's own slice of its gradient, and `enter_model`, the identity,
+sums its gradient over `model` where a replicated activation enters a
+contraction cut over `model` (Megatron's f and g). Over the data axes, rows
+differ: a rank's gradient of a gathered weight is a partial sum, so a
+gather over them (the FSDP weight gather, `gather_fsdp`) has a
+reduce-scatter as its backward, an all-reduce of the gradient sliced. The
+batch-DP re-layout of attention (`rows_to_model` / `rows_from_model`)
+permutes values across `model` ranks, and each is the other's backward.
+
 The JAX package also keeps a `shard_map` version shim here, for its
 `moe_shard_map`. This package has none: its `models/layers.moe_shard_map`
 runs on the shards a rank already holds (`core/steps.shard_params`) and
@@ -133,12 +149,16 @@ def model_coordinate() -> Tuple[int, int]:
     return coordinate(("model",))
 
 
-def _sum_(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
-    """All-reduce x in place over each axis of `names` in turn."""
+def _sum_(x: torch.Tensor, names: Sequence[str], op=None) -> torch.Tensor:
+    """All-reduce x in place over each axis of `names` in turn (a sum, or
+    `op`)."""
     for name in names:
         ax = _axis(name)
         if ax is not None:
-            dist.all_reduce(x, group=ax[0])
+            if op is None:
+                dist.all_reduce(x, group=ax[0])
+            else:
+                dist.all_reduce(x, op=op, group=ax[0])
     return x
 
 
@@ -147,18 +167,96 @@ def _summable(x: torch.Tensor) -> torch.Tensor:
     return (x.float() if x.dtype in (torch.bfloat16, torch.float16) else x).contiguous()
 
 
+def _grad(*xs: torch.Tensor) -> bool:
+    """Whether autograd records an op on xs: then a collective runs as its
+    differentiable Function, with the same forward."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _all_reduce(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+    return _sum_(_summable(x), names).to(x.dtype)
+
+
+def _sum_copy(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+    """`_all_reduce` that leaves x as it is (a Function's input or incoming
+    gradient may be shared)."""
+    y = _summable(x)
+    return _sum_(y.clone() if y is x else y, names).to(x.dtype)
+
+
+def _gather(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
+    idx, n = coordinate(names)
+    dim = dim % x.dim()
+    k = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = k * n
+    full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    full.narrow(dim, idx * k, k).copy_(x)
+    return _sum_(full, names)
+
+
+def _own(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
+    """This rank's chunk of x along `dim` over the axes `names`."""
+    idx, n = coordinate(names)
+    k = x.shape[dim] // n
+    return x.narrow(dim, idx * k, k).contiguous()
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum of partials over `names`; its gradient passes through (each
+    rank holds the whole gradient of the replicated sum)."""
+
+    @staticmethod
+    def forward(ctx, x, names):
+        return _sum_copy(x, names)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def all_reduce(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
     """The sum of x over the axes `names`. A 16-bit input is summed in fp32
     and rounded back once; an fp32 one is summed in place where it is
-    contiguous (NCCL takes only contiguous tensors)."""
+    contiguous (NCCL takes only contiguous tensors), unless it needs a
+    gradient. Backward: the identity."""
     if coordinate(names)[1] == 1:
         return x
-    return _sum_(_summable(x), names).to(x.dtype)
+    if _grad(x):
+        return _AllReduce.apply(x, tuple(names))
+    return _all_reduce(x, names)
+
+
+def all_max(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+    """The elementwise max of x over the axes `names` (no gradient)."""
+    if coordinate(names)[1] == 1:
+        return x
+    return _sum_(x.detach().clone(memory_format=torch.contiguous_format), names,
+                 op=dist.ReduceOp.MAX)
 
 
 def all_reduce_model(x: torch.Tensor) -> torch.Tensor:
     """The sum of x over the `model` axis (`all_reduce`)."""
     return all_reduce(x, ("model",))
+
+
+class _EnterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_copy(g, ("model",))
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """x, a replicated activation, where it enters a contraction cut over
+    the `model` axis (a column-parallel product): the identity, whose
+    backward sums the ranks' partial gradients of x over `model`."""
+    if _model_axis() is None or not _grad(x):
+        return x
+    return _EnterModel.apply(x)
 
 
 def pmean(x: torch.Tensor, names: Sequence[str] = DP) -> torch.Tensor:
@@ -167,36 +265,167 @@ def pmean(x: torch.Tensor, names: Sequence[str] = DP) -> torch.Tensor:
     return x if n == 1 else all_reduce(x, names) / n
 
 
+class _MmF32(torch.autograd.Function):
+    """a2 @ w of 16-bit CUDA inputs kept in fp32 (`torch.mm`'s out_dtype);
+    the backward products run in the inputs' type, as a 16-bit product's
+    do."""
+
+    @staticmethod
+    def forward(ctx, a2, w):
+        ctx.save_for_backward(a2, w)
+        return torch.mm(a2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, w = ctx.saved_tensors
+        g = g.to(a2.dtype)
+        return g @ w.t(), a2.t() @ g
+
+
 def matmul_model(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a [..., K] @ w [K, N] where K is this rank's shard of a contraction
     cut over the `model` axis: the partial products summed over the axis.
     With 16-bit inputs each partial product is kept in fp32 (accumulated
     in fp32 and not rounded) and the sum is rounded once to a's type, as
     the unsharded product rounds its fp32 accumulator once. With no model
-    axis it is a @ w."""
+    axis it is a @ w. Backward: the gradient of the sum passes through to
+    each rank's partial product."""
     if _model_axis() is None:
         return a @ w
     if a.dtype not in (torch.bfloat16, torch.float16):
         return all_reduce_model(a @ w)
     a2 = a.reshape(-1, a.shape[-1])
-    y = (torch.mm(a2, w, out_dtype=torch.float32) if a.is_cuda
-         else a2.float() @ w.float())
+    if not a.is_cuda:
+        y = a2.float() @ w.float()
+    elif _grad(a2, w):
+        y = _MmF32.apply(a2, w)
+    else:
+        y = torch.mm(a2, w, out_dtype=torch.float32)
     return all_reduce_model(y.reshape(*a.shape[:-1], w.shape[-1])).to(a.dtype)
+
+
+class _Gather(torch.autograd.Function):
+    """The gather over `names`; backward: the gradient summed over the
+    data axes among `names` (where ranks hold different rows, so each
+    gradient is a partial sum) and not over `model` (where each is whole),
+    then this rank's chunk of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, names):
+        ctx.dim, ctx.names = dim % x.dim(), names
+        return _gather(x, dim, names)
+
+    @staticmethod
+    def backward(ctx, g):
+        summed = tuple(n for n in ctx.names if n != "model")
+        if summed and coordinate(summed)[1] > 1:
+            g = _sum_copy(g, summed)
+        return _own(g, ctx.dim, ctx.names), None, None
 
 
 def gather(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
     """x of every rank over the axes `names`, concatenated along `dim` in
-    their folded order (the JAX package's tiled `all_gather`)."""
-    idx, n = coordinate(names)
-    if n == 1:
+    their folded order (the JAX package's tiled `all_gather`). Backward:
+    over `model`, the rank's own slice of the gradient; over the data axes,
+    the reduce-scatter of it."""
+    if coordinate(names)[1] == 1:
+        return x
+    if _grad(x):
+        return _Gather.apply(x, dim, tuple(names))
+    return _gather(x, dim, names)
+
+
+def gather_fsdp(w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+    """A weight whole along its d_model dim `dim` of `full` entries: where
+    the train rules cut that dim over the data axes (FSDP), the ranks'
+    cuts gathered, in w's type (backward: the reduce-scatter of the
+    gradient); else w itself."""
+    if w.shape[dim] == full:
+        return w
+    n = coordinate(DP)[1]
+    if w.shape[dim] * n != full:
+        raise ValueError(f"a weight of shape {tuple(w.shape)} has {w.shape[dim]} of {full} "
+                         f"entries along dim {dim} on a mesh of {n} data ranks")
+    return gather(w, dim, DP)
+
+
+class _SplitModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return _own(x, dim, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ("model",)), None
+
+
+def split_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk along `dim` of x, replicated over `model` (the
+    inverse of a gather over `model`). Backward: the ranks' gradients
+    gathered."""
+    if _model_axis() is None:
+        return x
+    if _grad(x):
+        return _SplitModel.apply(x, dim % x.dim())
+    return _own(x, dim, ("model",))
+
+
+def _rows_to(x: torch.Tensor, dim: int) -> torch.Tensor:
+    m = _model_axis()[2]
+    pad = -x.shape[0] % m
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return _own(_gather(x, dim, ("model",)), 0, ("model",))
+
+
+def _rows_from(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
+    return _own(_gather(x, 0, ("model",)), dim, ("model",))[:rows].contiguous()
+
+
+class _RowsTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.rows = dim, x.shape[0]
+        return _rows_to(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_from(g, ctx.dim, ctx.rows), None
+
+
+class _RowsFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, rows):
+        ctx.dim = dim
+        return _rows_from(x, dim, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_to(g, ctx.dim), None, None
+
+
+def rows_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The all-to-all over `model` from a layout cut along `dim` (KV heads
+    or head_dim) with every rank holding the same rows, to rows cut over
+    `model` with `dim` whole: x [B, ...] -> this rank's chunk [ceil(B / m),
+    ...] of the rows, padded with zero rows to a multiple of m (GSPMD pads
+    so). Written as a gather into zeros, exact. Backward: `rows_from_model`
+    of the gradient."""
+    if _model_axis() is None:
         return x
     dim = dim % x.dim()
-    k = x.shape[dim]
-    shape = list(x.shape)
-    shape[dim] = k * n
-    full = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    full.narrow(dim, idx * k, k).copy_(x)
-    return _sum_(full, names)
+    return _RowsTo.apply(x, dim) if _grad(x) else _rows_to(x, dim)
+
+
+def rows_from_model(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
+    """The inverse of `rows_to_model`: each rank's chunk of the rows, with
+    `dim` whole, back to all `rows` rows (the padding dropped) with `dim`
+    cut over `model`. Backward: `rows_to_model` of the gradient."""
+    if _model_axis() is None:
+        return x
+    dim = dim % x.dim()
+    return _RowsFrom.apply(x, dim, rows) if _grad(x) else _rows_from(x, dim, rows)
 
 
 def merge_seq_shards(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
@@ -228,17 +457,34 @@ def gather_model_last(x: torch.Tensor) -> torch.Tensor:
     return gather(x, -1, ("model",))
 
 
-def reduce_scatter_model(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """The sum of x over the `model` axis, of which this rank keeps chunk
-    `rank` along `dim` (the JAX package's tiled `psum_scatter`): an fp32
-    all-reduce for 16-bit inputs, sliced and rounded once."""
-    ax = _model_axis()
-    if ax is None:
-        return x
-    _, rank, size = ax
+class _ReduceScatterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return _reduce_scatter_model(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ("model",)), None
+
+
+def _reduce_scatter_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    _, rank, size = _model_axis()
     y = _sum_(_summable(x), ("model",))
     k = x.shape[dim] // size
     return y.narrow(dim, rank * k, k).to(x.dtype).contiguous()
+
+
+def reduce_scatter_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum of x over the `model` axis, of which this rank keeps chunk
+    `rank` along `dim` (the JAX package's tiled `psum_scatter`): an fp32
+    all-reduce for 16-bit inputs, sliced and rounded once. Backward: the
+    ranks' gradients gathered."""
+    if _model_axis() is None:
+        return x
+    if _grad(x):
+        return _ReduceScatterModel.apply(x, dim % x.dim())
+    return _reduce_scatter_model(x, dim)
 
 
 def all_to_all_data(x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:

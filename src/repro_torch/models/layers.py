@@ -33,6 +33,24 @@ from repro_torch.distributed import ctx as dctx
 NEG_INF = -1e30
 
 
+def constrain_batch_dp(x: torch.Tensor, axes, dim: int, rows=None) -> torch.Tensor:
+    """The attention batch-DP layout (the JAX package's constraint of q, k,
+    v and the attention output to rows over `axes`, a train config's
+    `attn_dp_axes`). x [B, S, ...] holds this rank's rows over the data
+    axes with its dim `dim` (the KV heads, or head_dim) cut over `model`,
+    the weights' layout; it returns the rank's rows cut over every axis of
+    `axes` with `dim` whole: rows over the data axes stay as they are, and
+    over `model` an all-to-all (`ctx.rows_to_model`) cuts them, zero rows
+    padding them to a multiple of the axis. With `rows` (the rank's rows
+    before) it is the way back, for the attention output before `wo`. The
+    identity where `axes` is empty or holds no `model` axis wider than 1."""
+    if "model" not in axes:
+        return x
+    if rows is None:
+        return dctx.rows_to_model(x, dim)
+    return dctx.rows_from_model(x, dim, rows)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
@@ -186,7 +204,10 @@ def attention(q, k, v, qpos, kpos, *, causal=True, window=0, pos0=0, kv_block=51
 def mlp(x: torch.Tensor, p) -> torch.Tensor:
     """SiLU-gated MLP: (silu(x Wg) * (x Wu)) Wo. Over a shard of the hidden
     units (a tensor-parallel rank's), Wo's product is partial and closes
-    with a sum over the mesh's `model` axis (the identity on one device)."""
+    with a sum over the mesh's `model` axis (the identity on one device);
+    x enters the cut gate and up products through `enter_model`, whose
+    backward sums x's gradient over that axis."""
+    x = dctx.enter_model(x)
     dt = x.dtype
     g = x @ p["wi_gate"].to(dt)
     u = x @ p["wi_up"].to(dt)

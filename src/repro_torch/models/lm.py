@@ -125,13 +125,28 @@ def _kv_leaves(cache: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
     return m["k"], m["v"]
 
 
-def _qkv(x: torch.Tensor, p: Tree, kv_x: Optional[torch.Tensor] = None):
+def _heads_cut(w: torch.Tensor, cfg: ModelConfig, kv_dim: int) -> bool:
+    """Whether an attention weight holds a cut of its heads over `model`:
+    of its KV heads (dim kv_dim; the serve configs' padded ones) or of
+    head_dim (the last dim of wq/wk/wv, dim kv_dim + 2 of wo: the train
+    rules' 2-D case)."""
+    hd_dim = -1 if kv_dim == 1 else kv_dim + 2
+    return w.shape[kv_dim] != cfg.n_kv_heads or w.shape[hd_dim] != cfg.hd
+
+
+def _qkv(x: torch.Tensor, p: Tree, kv_x: Optional[torch.Tensor] = None,
+         cfg: Optional[ModelConfig] = None):
     """x: [B, S, D] -> q [B, S, kh, g, hd], k/v [B, Skv, kh, hd], the keys
-    and values from kv_x [B, Skv, D] (cross-attention) or from x."""
+    and values from kv_x [B, Skv, D] (cross-attention) or from x. With
+    `cfg`, where the weights hold a cut of the heads over `model`, the
+    inputs enter those products through `ctx.enter_model`."""
     B, S, D = x.shape
     dt = x.dtype
     wq = p["wq"].to(dt)
     kh, g, hd = wq.shape[1:]
+    if cfg is not None and _heads_cut(wq, cfg, 1):
+        x = dctx.enter_model(x)
+        kv_x = None if kv_x is None else dctx.enter_model(kv_x)
     src = x if kv_x is None else kv_x
     q = (x @ wq.reshape(D, -1)).view(B, S, kh, g, hd)
     k = (src @ p["wk"].to(dt).reshape(D, -1)).view(B, src.shape[1], kh, hd)
@@ -148,7 +163,7 @@ def _out(o: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, S = o.shape[:2]
     w = wo.to(o.dtype)
     a, w = o.reshape(B, S, -1), w.reshape(-1, w.shape[-1])
-    return a @ w if wo.shape[0] == cfg.n_kv_heads else dctx.matmul_model(a, w)
+    return dctx.matmul_model(a, w) if _heads_cut(wo, cfg, 0) else a @ w
 
 
 def _seq_local(cache: Tree) -> Tree:
@@ -166,8 +181,9 @@ def _embed(params: Tree, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     """Token embeddings [..., D] in the activation dtype. Over a vocab shard
     (a tensor-parallel rank holds rows [r n, (r + 1) n) of the table), a
     masked local lookup, then the sum over the `model` axis, which is exact:
-    one rank holds each row and the others add zeros."""
-    table, dt = params["embed"], _dtype(cfg)
+    one rank holds each row and the others add zeros. A table whose d_model
+    dim the train rules cut over the data axes is gathered first."""
+    table, dt = dctx.gather_fsdp(params["embed"], 1, cfg.d_model), _dtype(cfg)
     n = table.shape[0]
     if n == cfg.padded_vocab:
         return table[tokens].to(dt)
@@ -193,6 +209,31 @@ def _rope4(q: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _attn_layout(q, k, v, cfg: ModelConfig):
+    """q [B, S, kh, g, hd] and k, v [B, S, kh, hd] in the layout attention
+    computes on, and the function that takes its output back to the
+    weights' layout for `wo`. Under the serve layouts and on one device,
+    the weights' own: each rank's heads (or all of them), whole head_dim.
+    Under the train rules a rank may hold a cut of head_dim instead, which
+    RoPE (it rotates dim i with i + hd / 2) and the scores cannot take: with
+    `cfg.attn_dp_axes` set, q, k and v go to rows cut over `model` with
+    every head whole (`layers.constrain_batch_dp`, before RoPE as in the
+    JAX package, for a KV-head cut too); without it (a microbatch too
+    small to fill the mesh), head_dim is gathered over `model`, every
+    `model` rank attends the same rows, and keeps its slice of the
+    output."""
+    hd_cut = q.shape[-1] != cfg.hd
+    if cfg.attn_dp_axes and "model" in cfg.attn_dp_axes and (
+            hd_cut or q.shape[2] != cfg.n_kv_heads):
+        dim, rows = (-1 if hd_cut else 2), q.shape[0]
+        q, k, v = (L.constrain_batch_dp(t, cfg.attn_dp_axes, dim) for t in (q, k, v))
+        return q, k, v, lambda o: L.constrain_batch_dp(o, cfg.attn_dp_axes, dim, rows)
+    if hd_cut:
+        q, k, v = (dctx.gather(t, -1, ("model",)) for t in (q, k, v))
+        return q, k, v, lambda o: dctx.split_model(o, -1)
+    return q, k, v, lambda o: o
+
+
 def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int = 0, pos_offset=None,
                   causal: bool = True, window: int = 0, make_cache: bool = True):
     """Self-attention sublayer over a full sequence: causal (with the window
@@ -211,7 +252,7 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int = 0, pos_offset=None
     and refuses pos_offset, as the JAX package does.
     Returns (out [B, S, D], {"k", "v"} [B, ring, kh, hd] or None)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(x, p)
+    q, k, v, back = _attn_layout(*_qkv(x, p, cfg=cfg), cfg)
     s_idx = torch.arange(S, device=x.device)
     qpos = s_idx
     if pos_offset is not None:
@@ -228,10 +269,10 @@ def _attn_forward(x, p, cfg: ModelConfig, *, cache_len: int = 0, pos_offset=None
         k = torch.where(keep, torch.gather(k, 1, gidx), zero)
         v = torch.where(keep, torch.gather(v, 1, gidx), zero)
         kpos = torch.where(gi < S, s_idx[None, :], torch.full_like(gi, -1))
-    kh, g, hd = q.shape[2:]
-    o = L.attention(q.reshape(B, S, kh * g, hd), k, v, qpos, kpos,
+    b, kh, g, hd = q.shape[0], *q.shape[2:]
+    o = L.attention(q.reshape(b, S, kh * g, hd), k, v, qpos, kpos,
                     causal=causal, window=window)
-    out = _out(o.reshape(B, S, kh, g, hd), p["wo"], cfg)
+    out = _out(back(o.reshape(b, S, kh, g, hd)), p["wo"], cfg)
     if not make_cache:
         return out, None
     wc = ring_len(cfg, cache_len)
@@ -263,7 +304,7 @@ def _xattn_forward(x, p, enc: torch.Tensor, cfg: ModelConfig, *, pos_offset=None
     hd]) or this rank's cut of them along the sequence, the keys and values
     every decode step attends."""
     B, S, _ = x.shape
-    q, k, v = _qkv(x, p, enc)
+    q, k, v = _qkv(x, p, enc, cfg=cfg)
     qpos = torch.arange(S, device=x.device)
     if pos_offset is not None:
         qpos = qpos[None, :] - pos_offset.to(device=x.device, dtype=torch.int64)[:, None]
@@ -323,12 +364,35 @@ def _ffn(x, sub: Tree, cfg: ModelConfig, ffn: str):
     return x + L.mlp(h, sub["ffn"]), None
 
 
+# the d_model dim of the attention and MLP weights of a layer
+_D_DIM = {"wq": 0, "wk": 0, "wv": 0, "wo": -1, "wi_gate": 0, "wi_up": 0}
+
+
+def _fsdp_layer(sub: Tree, cfg: ModelConfig, kind: Tuple[str, str]) -> Tree:
+    """The layer's attention and MLP weights whole along d_model: those the
+    train rules cut over the data axes (FSDP) are gathered here, inside the
+    layer, so that under remat the gathered copies live only while the
+    layer runs and are gathered again in its recomputation
+    (`ctx.gather_fsdp`); the others, every weight on one device and under
+    the serve rules, are the layer's own."""
+    if dctx.coordinate(dctx.DP)[1] == 1:
+        return sub
+    out = dict(sub)
+    names = (["mixer"] if kind[0] == "attn" else []) + (["xattn"] if "xattn" in sub else []) \
+        + (["ffn"] if kind[1] == "mlp" else [])
+    for name in names:
+        out[name] = {k: dctx.gather_fsdp(w, _D_DIM[k], cfg.d_model) if k in _D_DIM else w
+                     for k, w in sub[name].items()}
+    return out
+
+
 def _sublayer(x, sub: Tree, enc, cfg: ModelConfig, kind: Tuple[str, str], *,
               train: bool, cache_len: int, pos_offset):
     """One layer over a full sequence: its mixer, the cross-attention
     sublayer of an encoder-decoder, and its FFN. Returns (x, the MoE aux
     loss or None, cache entry); training builds no cache (entry None)."""
     mixer, ffn = kind
+    sub = _fsdp_layer(sub, cfg, kind)
     h = L.rmsnorm(x, sub["mixer"]["ln"], cfg.norm_eps)
     o, c = _mixer_forward(h, sub["mixer"], cfg, mixer, cache_len=cache_len,
                           pos_offset=pos_offset, make_cache=not train)
@@ -403,8 +467,13 @@ def logits_from_hidden(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch
     """fp32 logits [..., vocab]: products of the activation-dtype inputs
     accumulated in fp32 (the JAX package's preferred_element_type=f32).
     Over a vocab shard the local columns are gathered along the vocab over
-    the `model` axis first, and the padded vocab is stripped after."""
-    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    the `model` axis first, and the padded vocab is stripped after; x
+    enters the cut product through `ctx.enter_model`. A weight whose
+    d_model dim the train rules cut over the data axes is gathered."""
+    w = (dctx.gather_fsdp(params["embed"], 1, cfg.d_model).t() if cfg.tie_embeddings
+         else dctx.gather_fsdp(params["lm_head"], 0, cfg.d_model))
+    if w.shape[-1] != cfg.padded_vocab:
+        x = dctx.enter_model(x)
     logits = x.float() @ w.to(x.dtype).float()
     if logits.shape[-1] != cfg.padded_vocab:
         logits = dctx.gather_model_last(logits)
@@ -819,7 +888,11 @@ def softmax_xent_chunked(params: Tree, x: torch.Tensor, labels: torch.Tensor,
     labelled positions, computed over sequence chunks of c = min(chunk, S),
     lowered until it divides S, as the JAX package chunks them. Each chunk
     is checkpointed: its fp32 logits [B, c, V] are recomputed in the
-    backward pass, never kept. Returns (nll, z2), fp32 scalars."""
+    backward pass, never kept. Returns (nll, z2), fp32 scalars. On a mesh
+    whose data axes cut the rows, the means are over the global batch: the
+    sums and the count of labelled positions are all-reduced over those
+    axes (not the mean of the ranks' means, which differs where their
+    label masks do)."""
     B, S, _ = x.shape
     c = min(chunk, S)
     while S % c:
@@ -831,6 +904,10 @@ def softmax_xent_chunked(params: Tree, x: torch.Tensor, labels: torch.Tensor,
         n, z, k = checkpoint(_xent_chunk, params, x[:, i:i + c], labels[:, i:i + c], cfg,
                              use_reentrant=False)
         nll_sum, z_sum, count = nll_sum + n, z_sum + z, count + k
+    if dctx.rows_cut() and dctx.coordinate(dctx.DP)[1] > 1:
+        # rows cut over the data axes: the global batch's sums, one all-reduce
+        nll_sum, z_sum, count = dctx.all_reduce(torch.stack([nll_sum, z_sum, count]),
+                                                dctx.DP).unbind()
     count = torch.clamp(count, min=1.0)
     return nll_sum / count, z_sum / count
 

@@ -5,7 +5,14 @@ mid-write never corrupts the latest checkpoint); the newest `keep` are
 kept. Leaves are numbered in `jax.tree.flatten`'s order over nested dicts
 (sorted keys at each level), so a checkpoint written by either package
 restores in the other. An async writer keeps the train loop running while
-a snapshot is written."""
+a snapshot is written.
+
+A sharded train state (each rank's cut, `core/steps.shard_train_state`)
+is saved whole: every leaf is gathered, rank 0 writes the files a
+one-device run would write, and the other ranks wait at a barrier until
+they are committed (`save_sharded`); a restore reads whole leaves and cuts
+them again (`restore_sharded`), and the files restore as well into a
+one-device state."""
 from __future__ import annotations
 
 import json
@@ -19,6 +26,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.params import leaves, tree_map, unflatten
 
 Tree = Dict[str, Any]
@@ -99,12 +107,10 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, target_tree: Any, *, step: Optional[int] = None,
-                       device=None) -> Any:
-    """Restore into target_tree's structure (the latest step unless `step`
-    is given). Each leaf lands on `device`, or where the target's leaf lies
-    when `device` is None, as a tensor of the saved dtype and shape; a leaf
-    count or shape that does not match the target raises."""
+def _saved_leaves(ckpt_dir: str, target_tree: Any, step: Optional[int]):
+    """(path, target leaf, saved array) for each leaf of target_tree, read
+    one at a time from the checkpoint of `step` (the latest if None), its
+    count and shapes held against the target's."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -115,14 +121,61 @@ def restore_checkpoint(ckpt_dir: str, target_tree: Any, *, step: Optional[int] =
     if manifest["n_leaves"] != len(targets):
         raise ValueError(f"checkpoint/tree mismatch: {manifest['n_leaves']} leaves saved, "
                          f"{len(targets)} in the target")
-    out = []
     for i, (path, t) in enumerate(targets):
         a = np.load(_leaf_path(root, i))
         if tuple(a.shape) != tuple(np.shape(t)):
             raise ValueError(f"{path}: saved shape {a.shape} != target {tuple(np.shape(t))}")
+        yield path, t, a
+
+
+def restore_checkpoint(ckpt_dir: str, target_tree: Any, *, step: Optional[int] = None,
+                       device=None) -> Any:
+    """Restore into target_tree's structure (the latest step unless `step`
+    is given). Each leaf lands on `device`, or where the target's leaf lies
+    when `device` is None, as a tensor of the saved dtype and shape; a leaf
+    count or shape that does not match the target raises."""
+    out = []
+    for _, t, a in _saved_leaves(ckpt_dir, target_tree, step):
         dev = device if device is not None else getattr(t, "device", "cpu")
         out.append(torch.from_numpy(a).to(dev))
     return unflatten(target_tree, out)
+
+
+def save_sharded(ckpt_dir: str, step: int, state: Any, shardings: Any, mesh, *,
+                 keep: int = 3) -> Optional[str]:
+    """Save a sharded tree (this rank's cut of each leaf under `shardings`,
+    a tree of placements) as `save_checkpoint` saves the whole tree: each
+    leaf is gathered whole (a collective every rank runs), rank 0 writes
+    and commits, and every rank then waits at a barrier, so the checkpoint
+    is committed when any rank returns. Returns the committed directory on
+    rank 0, else None."""
+    from repro_torch.core.steps import unshard_leaf
+
+    rank0 = _rank() == 0
+    host = []
+    for (_, t), (_, pl) in zip(leaves(state), leaves(shardings)):
+        whole = unshard_leaf(t, pl, mesh)
+        host.append(_to_numpy(whole) if rank0 else None)
+        del whole
+    out = save_checkpoint(ckpt_dir, step, unflatten(state, host), keep=keep) if rank0 else None
+    torch.distributed.barrier()
+    return out
+
+
+def restore_sharded(ckpt_dir: str, specs: Any, shardings: Any, mesh, *, device,
+                    step: Optional[int] = None, coordinate=None) -> Any:
+    """This rank's cut, under `shardings`, of the checkpoint of `step` (the
+    latest if None): whole leaves read one at a time, held to the shapes of
+    `specs` (the whole tree, meta tensors will do), cut and moved to
+    `device`, each a copy of its own. coordinate: the rank's index a mesh
+    dim (default: this process's)."""
+    coord = list(mesh.get_coordinate()) if coordinate is None else list(coordinate)
+    placements = dict(leaves(shardings))
+    out = []
+    for path, _, a in _saved_leaves(ckpt_dir, specs, step):
+        t = shd.local_shard(torch.from_numpy(a), placements[path], mesh, coord)
+        out.append(t.to(device).clone(memory_format=torch.contiguous_format))
+    return unflatten(specs, out)
 
 
 class AsyncCheckpointer:

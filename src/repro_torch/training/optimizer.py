@@ -1,15 +1,21 @@
 """AdamW with global-norm clipping and a warmup-cosine schedule, written
 out over parameter trees (nested dicts of tensors, leaves in sorted path
 order) in the JAX package's order of operations: clip by the global norm,
-update the fp32 moments, bias-correct, then mh / (sqrt(vh) + eps) + wd * p."""
+update the fp32 moments, bias-correct, then mh / (sqrt(vh) + eps) + wd * p.
+
+On a mesh (the sharded train step) the trees hold each rank's shards: the
+update is elementwise, so each rank updates its own shards in place, and
+the clip uses the norm of the whole gradient, each leaf's sum of squares
+summed over the mesh axes that cut that leaf (`global_norm`'s `cut`)."""
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models.params import leaves, tree_map
 
 Tree = Dict[str, Any]
@@ -51,20 +57,35 @@ def init_opt_state(params: Tree) -> Tree:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum over leaves (sorted path order) of sum(x^2) in fp32."""
-    sq = sum(torch.sum(torch.square(x.float())) for _, x in leaves(tree))
+def global_norm(tree: Tree, cut: Optional[Tree] = None) -> torch.Tensor:
+    """sqrt of the sum over leaves (sorted path order) of sum(x^2) in fp32.
+    cut: on a mesh, a tree of the mesh axes that cut each leaf (the tree
+    holds this rank's shards): the leaves' sums of squares are grouped by
+    those axes, each group all-reduced over its axes only (a replicated
+    leaf counts once), and the groups summed in the order of their axes."""
+    if cut is None:
+        sq = sum(torch.sum(torch.square(x.float())) for _, x in leaves(tree))
+        return torch.sqrt(sq)
+    names = dict(leaves(cut))
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for path, x in leaves(tree):
+        s = torch.sum(torch.square(x.float()))
+        key = tuple(names[path])
+        groups[key] = groups[key] + s if key in groups else s
+    sq = sum(dctx.all_reduce(groups[key], key) for key in sorted(groups))
     return torch.sqrt(sq)
 
 
 @torch.no_grad()
-def adamw_update(params: Tree, grads: Tree, opt_state: Tree,
-                 oc: OptConfig) -> Tuple[Tree, Tree, Dict[str, torch.Tensor]]:
+def adamw_update(params: Tree, grads: Tree, opt_state: Tree, oc: OptConfig,
+                 cut: Optional[Tree] = None) -> Tuple[Tree, Tree, Dict[str, torch.Tensor]]:
     """One AdamW step. The parameter leaves and the moments are updated in
     place and returned as (params, {"mu", "nu", "step"}, {"grad_norm",
-    "lr"}); each value is the JAX package's for the same inputs."""
+    "lr"}); each value is the JAX package's for the same inputs. cut: on a
+    mesh, the mesh axes that cut each leaf (`global_norm`'s); the trees then
+    hold this rank's shards, and grad_norm is the whole gradient's."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, cut)
     scale = torch.clamp(oc.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(oc, step)
     stepf = step.to(torch.float32)

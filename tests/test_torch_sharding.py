@@ -250,8 +250,9 @@ def _ref_only_fields(ref):
 @pytest.mark.parametrize("sizes", MESHES, ids=MESH_IDS)
 def test_step_configs_match_reference(sizes):
     """_serve_cfg equals the reference's for every arch, field for field,
-    and the distribution fields the reference's _serve_cfg and _train_cfg
-    (at batches below, at and above half the mesh) set are _moe_fields and
+    and so does _train_cfg (at batches below, at and above half the mesh),
+    whose attn_dp_axes is _train_fields'; the other distribution fields the
+    reference's _serve_cfg and _train_cfg set are _moe_fields and
     _train_fields, name for name and value for value."""
     fake = FakeMesh(sizes)
     n = int(np.prod(list(sizes.values())))
@@ -264,10 +265,13 @@ def test_step_configs_match_reference(sizes):
                 dict(_ref_only_fields(rcfg), **steps._moe_fields(cfg, sizes, dp)), arch
             for batch in sorted({1, max(1, n // 2 - 1), n // 2, 256}):
                 rtrain = rsteps._train_cfg(rcfg, fake, batch)
-                _same_config(cfg, rtrain)
-                assert _ref_only_fields(rtrain) == \
-                    dict(_ref_only_fields(rcfg), **steps._train_fields(cfg, sizes, batch)), \
-                    (arch, batch)
+                tcfg = steps._train_cfg(cfg, sizes, batch)
+                _same_config(tcfg, rtrain)
+                fields = steps._train_fields(cfg, sizes, batch)
+                assert tcfg.attn_dp_axes == fields.get("attn_dp_axes", ()), (arch, batch)
+                assert _ref_only_fields(rtrain) == dict(
+                    _ref_only_fields(rcfg),
+                    **{k: v for k, v in fields.items() if k != "attn_dp_axes"}), (arch, batch)
 
 
 def test_train_state_specs_and_shardings():

@@ -247,17 +247,20 @@ def test_meshes_in_one_process():
 @pytest.mark.parametrize("flag,ranks", [("--production-mesh", 256), ("--multi-pod", 512)])
 def test_train_launcher_mesh_flags(flag, ranks, capsys, monkeypatch):
     """The launcher's mesh flags build the production mesh, which names the
-    ranks it needs; given a mesh, the launcher still stops before training
-    and names the slice that will train on it."""
+    ranks it needs; given a mesh, the launcher trains on it (the train
+    loop gets the mesh)."""
     from repro_torch.launch import train as launch
+    from repro_torch.training import train_loop
 
-    argv = ["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu", flag]
+    argv = ["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu", "--steps", "1", flag]
     with pytest.raises(SystemExit):
         launch.main(argv)
     assert f"needs {ranks} ranks" in capsys.readouterr().err
-    built = []
-    monkeypatch.setattr(tmesh, "make_production_mesh", lambda **kw: built.append(kw))
-    with pytest.raises(SystemExit):
-        launch.main(argv)
+    built, trained = [], []
+    monkeypatch.setattr(tmesh, "make_production_mesh",
+                        lambda **kw: built.append(kw) or "the mesh")
+    monkeypatch.setattr(train_loop, "train", lambda *a, **kw: trained.append(kw["mesh"])
+                        or {"steps": 1, "losses": [1.0]})
+    launch.main(argv)
     assert built == [{"multi_pod": flag == "--multi-pod", "device": "cpu"}]
-    assert "sharded train step" in capsys.readouterr().err
+    assert trained == ["the mesh"]

@@ -1,5 +1,6 @@
 """Rank workers of tests/test_torch_tp_serve.py, tests/test_torch_ep_moe.py,
-tests/test_torch_tp_families.py and tests/test_torch_small_serve.py. Spawned ranks import this module, not
+tests/test_torch_tp_families.py, tests/test_torch_small_serve.py and
+tests/test_torch_sharded_train.py. Spawned ranks import this module, not
 the test modules, so they start without JAX: they run the port only, and
 the tests compare their results with the JAX package."""
 import dataclasses
@@ -261,3 +262,129 @@ def ssm_block_rank(rank, world, backend, shape, cfg_fields, params, x, x1s):
             states.append(state)
     return dict(coord=coord, y=y.numpy(), decode=outs,
                 conv=[c.numpy() for c in convs], state=[s.numpy() for s in states])
+
+
+# The sharded train step (tests/test_torch_sharded_train.py): name: (arch,
+# mesh, batch rows, sequence, microbatches, attention batch-DP by the rule
+# (True) or forced off (False)).
+TRAIN_SEQ = 32
+TRAIN_CASES = {
+    "tinyllama-2x2": ("tinyllama-1.1b", (2, 2), 4, TRAIN_SEQ, 1, True),
+    "tinyllama-2x2-dp-off": ("tinyllama-1.1b", (2, 2), 4, TRAIN_SEQ, 1, False),
+    "h2o-danube-2x2": ("h2o-danube-1.8b", (2, 2), 4, TRAIN_SEQ, 1, True),
+    "phi-3-vision-2x2": ("phi-3-vision-4.2b", (2, 2), 4, TRAIN_SEQ, 1, True),
+    "tinyllama-1x4": ("tinyllama-1.1b", (1, 4), 2, TRAIN_SEQ, 1, True),
+    "tinyllama-1x4-dp-off": ("tinyllama-1.1b", (1, 4), 2, TRAIN_SEQ, 1, False),
+    "tinyllama-1x4-mb4": ("tinyllama-1.1b", (1, 4), 4, TRAIN_SEQ, 4, True),
+    "tinyllama-4x1": ("tinyllama-1.1b", (4, 1), 4, TRAIN_SEQ, 1, True),
+}
+# lr 1e-4: AdamW moves a weight whose gradient is near 0 by about lr, so
+# the ulps of the first step's gradients move the second step's; at 1e-3
+# h2o-danube's moments after two steps (one device or sharded, with
+# gradients within 1e-6 of the reference's) drift to 2.7e-4 of their
+# magnitude from the reference's, past the 1e-4 the tests hold them to
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=4)
+
+
+def train_config(arch):
+    return dataclasses.replace(reduced(arch), dtype="float32")
+
+
+def train_batches(cfg, b, s, n=2, seed=0):
+    """n batches of b x s tokens and labels (some -100, differently on each
+    row), and img_embeds for a vlm: numpy draws of `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        bt = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+              "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+        bt["labels"][0, :3] = -100
+        bt["labels"][-1, -5:] = -100
+        if cfg.n_img_tokens:
+            bt["img_embeds"] = rng.standard_normal(
+                (b, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+        out.append(bt)
+    return out
+
+
+def train_rank(rank, world, backend, shape, cases, loop_dir, compress):
+    """One rank of a mesh of tests/test_torch_sharded_train.py. cases:
+    {name: (the JAX package's weights as numpy, the batches)}, each through
+    two sharded train steps from the weights cut by `shard_train_state`;
+    returns each step's metrics, the rank's shard shapes, the calls of the
+    batch-DP re-layout and of the head_dim split, and on rank 0 the whole
+    state after (`unshard_train_state`). loop_dir (or None): train() on the
+    mesh uninterrupted (4 steps, a checkpoint every 2) and, in a second
+    directory, failing at step 3 and restarted. compress (or None): {"g",
+    "e"}, lists of this mesh's ranks' gradient and error trees, through
+    `allreduce_compressed` over the data axis."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.training import train_loop
+    from repro_torch.training.grad_compression import allreduce_compressed
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    out = {"coord": list(mesh.get_coordinate())}
+    calls = {"rows_to_model": 0, "split_model": 0}
+    for fn in calls:
+        def counted(*a, _f=getattr(dctx, fn), _n=fn, **k):
+            calls[_n] += 1
+            return _f(*a, **k)
+        setattr(dctx, fn, counted)
+    train_cfg = steps._train_cfg
+    for name, (jp, batches) in cases.items():
+        arch, _, _, _, mb, dp = TRAIN_CASES[name]
+        cfg = train_config(arch)
+        params = from_reference(jp, cfg, "cpu")
+        local = steps.shard_train_state({"params": params, "opt": init_opt_state(params)},
+                                        cfg, mesh)
+        step = steps.make_sharded_train_step(cfg, mesh, OptConfig(**TRAIN_OPT), mb)
+        steps._train_cfg = train_cfg if dp else (lambda c, m, b: c)
+        calls.update(rows_to_model=0, split_model=0)
+        metrics = []
+        try:
+            for b in batches:
+                local, m = step(local, steps.shard_train_batch(b, mesh, mb))
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            steps._train_cfg = train_cfg
+        whole = steps.unshard_train_state(local, cfg, mesh)
+        out[name] = dict(metrics=metrics, calls=dict(calls),
+                         shapes={k: tuple(v.shape) for k, v in leaves(local["params"])},
+                         state=({k: v.numpy() for k, v in leaves(whole)} if rank == 0
+                                else None))
+    if loop_dir is not None:
+        cfg = train_config("tinyllama-1.1b")
+        dc = DataConfig(global_batch=4, seq_len=16)
+
+        def run(sub, **kw):
+            tc = train_loop.TrainLoopConfig(total_steps=4, ckpt_dir=os.path.join(loop_dir, sub),
+                                            ckpt_every=2, log_every=100)
+            return train_loop.train(cfg, dc, tc, device="cpu", mesh=mesh, **kw)
+
+        whole = run("whole")
+        try:
+            run("restart", fail_at_step=3)
+            failed = None
+        except RuntimeError as e:
+            failed = str(e)
+        again = run("restart")
+        final = steps.unshard_train_state(whole["final_state"], cfg, mesh)
+        out["loop"] = dict(losses=whole["losses"], failed=failed, restarted=again["losses"],
+                           final=({k: v.numpy() for k, v in leaves(final)} if rank == 0
+                                  else None))
+    if compress is not None:
+        me = out["coord"][0]
+        g = {k: torch.from_numpy(v) for k, v in compress["g"][me].items()}
+        e = {k: torch.from_numpy(v) for k, v in compress["e"][me].items()}
+        with dctx.mesh_context(mesh):
+            avg, err = allreduce_compressed(g, e)
+        out["compress"] = ({k: v.numpy() for k, v in avg.items()},
+                           {k: v.numpy() for k, v in err.items()})
+    return out
