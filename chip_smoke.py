@@ -283,12 +283,12 @@ Phases, each fatal on failure:
    process) and at tp 2 (rank 0 of (a)).
 19. tensor-parallel families — the MoE, SSM and hybrid families at full
    width through core/steps.sharded_prefill and sharded_decode on spawned
-   gloo ranks that share the card: (d) moonshot-v1-16b-a3b, 8 of 48
+   gloo ranks that share the card: (d) moonshot-v1-16b-a3b, 4 of 48
    layers, mesh (2, 2), its 64 experts over 2 data ranks (expert
    parallel); (e) mixtral-8x22b, 1 of 56 layers and 1 decode step, (3,
    2), weight-gather (8 experts, d_model over 3 data ranks: each forward
    gathers the layer's expert leaves through host memory), 12 rows; (f)
-   mamba2-370m, all 48 layers, (1, 2) and (1, 4); (g) jamba-v0.1-52b, 8
+   mamba2-370m, 24 of 48 layers, (1, 2) and (1, 4); (g) jamba-v0.1-52b, 8
    of 32 layers, (2, 2). First decode attention at the ranks' new shapes,
    held, timed and bounded as in phase 7. Each case runs the unsharded
    port in this process, fp32 then bf16 (seed-0 weights, 8 x 32 prompts,
@@ -340,16 +340,37 @@ Phases, each fatal on failure:
    (a) mesh (2, 2), KV heads cut; (b) (1, 8), head_dim cut, the 4 rows
    padded to 8. Two fp32 steps against make_train_step on one card from
    the same weights on the same batches, gated: the loss within 1e-5
-   relative, grad_norm within 1e-4, every gradient leaf handed to AdamW,
-   gathered whole, within 1e-4 of that leaf's max abs, each rank's master
-   and moment bytes exactly its share of every cut leaf plus the
-   replicated ones. On (a) also: allreduce_compressed of the embedding,
+   relative, grad_norm within 1e-4, each rank's cut of every gradient
+   leaf handed to AdamW within 1e-4 of the whole leaf's max abs on one
+   card, each rank's master and moment bytes exactly its share of every
+   cut leaf plus the replicated ones. On (a) also: allreduce_compressed of the embedding,
    final norm and head gradients over `data`, bit for bit the formula on
    the data ranks' gathered int8 values and scales (gated); five bf16
    steps on one batch, the learning rate warming up from 3e-6, whose last
    loss must be below the first (gated), printed beside one card's.
    Printed: the steps' wall ms (after the first) sharded and on one card,
    max_memory_allocated a rank. No kernel runs in it.
+22. sharded training of the other families — the same step, one spawn of
+   gloo ranks on the mesh (2, 2) for every case, batch 4 x 256 of each
+   case's seeded stream (with its stub audio frames): (a) moonshot-v1-16b-
+   a3b at full width, its dense first layer and one MoE layer (1.345 B
+   parameters), 64 experts over `data` (expert parallel: moe_shard_map's
+   all-to-alls); (b) mamba2-370m at full width, 8 of 48 layers (the SSM
+   block's channels and heads over `model`); (c) whisper-base whole, 6
+   encoder and 6 decoder layers over 1,500 frames (the encoder under
+   FSDP, cross-attention); (d) mixtral at full width, 1 layer with 3
+   experts (1.40 B parameters; weight-gather: the experts' d_model cut
+   over `data`) and reduced jamba (one 8-layer block, EP). Phases 21 and
+   22 run one harness (train_cases). Two fp32 steps each (lr 1e-4) against
+   make_train_step on one card under phase 21's gates, each rank's cut of
+   every gradient leaf held against the same cut of one card's (an MoE at
+   capacity E / top_k, no drops, the router loss weighing 0: a mesh's is
+   the mean of the data ranks' losses over their own tokens); on (a) also
+   five bf16 steps on one
+   batch on phase 21's schedule at the config's own capacity and router
+   loss, whose last loss must be below the first (gated). Printed: each
+   rank's master and peak bytes, the steps' wall ms sharded and on one
+   card. No kernel runs in it.
 
 Every phase prints its seconds ("phase N seconds:").
 
@@ -3676,11 +3697,12 @@ FAM_TP_PROMPT, FAM_TP_STEPS = 32, 8
 # host staging, ~4 s a leaf on the card (two steps until phase 21 came:
 # the script's time limit); (f) the SSM block's channels and
 # heads over 2 and 4 model ranks; (g) one whole block of jamba's 8 layers
-# (attention, SSM, MoE, MLP), EP.
-FAM_TP_CASES = {"d": ("moonshot-v1-16b-a3b", (2, 2), 8, 8, FAM_TP_STEPS),
+# (attention, SSM, MoE, MLP), EP. moonshot at 4 layers and mamba2 at 24
+# of 48, so that the script with phase 22 stays within its time limit.
+FAM_TP_CASES = {"d": ("moonshot-v1-16b-a3b", (2, 2), 4, 8, FAM_TP_STEPS),
                 "e": ("mixtral-8x22b", (3, 2), 1, 12, 1),
-                "f2": ("mamba2-370m", (1, 2), None, 8, FAM_TP_STEPS),
-                "f4": ("mamba2-370m", (1, 4), None, 8, FAM_TP_STEPS),
+                "f2": ("mamba2-370m", (1, 2), 24, 8, FAM_TP_STEPS),
+                "f4": ("mamba2-370m", (1, 4), 24, 8, FAM_TP_STEPS),
                 "g": ("jamba-v0.1-52b", (2, 2), 8, 8, FAM_TP_STEPS)}
 FAM_TP_DTYPES = ("float32", "bfloat16")
 # Not in the default script: jamba at full depth (32 layers, ~103 GB of
@@ -4434,17 +4456,13 @@ def small_serve_phase(torch, F, np, card, cases=None) -> dict:
     return out
 
 
-# --- phase 21: the sharded train step ---
+# --- phases 21 and 22: the sharded train step ---
 
 SHARD_TRAIN_ARCH = "tinyllama-1.1b"
 SHARD_TRAIN_LAYERS = 4
-SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 4, 256
+SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 4, 256   # every case's global batch
 SHARD_TRAIN_STEPS = 2           # fp32 steps held against one card
 SHARD_BF16_STEPS = 5
-# (a) KV heads (4) cut over 2 model ranks, d_model over 2 data ranks; (b) 4
-# KV heads do not cut over 8 model ranks: head_dim is cut, and the 4 rows
-# are padded to 8 for attention's batch-DP layout
-SHARD_TRAIN_MESHES = {"a": (2, 2), "b": (1, 8)}
 SHARD_LOSS_RTOL, SHARD_GNORM_RTOL, SHARD_LEAF_TOL = 1e-5, 1e-4, 1e-4
 SHARD_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
 # the bf16 run: SHARD_BF16_STEPS steps on one batch, the learning rate
@@ -4452,25 +4470,86 @@ SHARD_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
 # and 3e-4 raise the loss, on one card as sharded, fp32 and bf16 alike:
 # tools/train_schedule_check.py)
 SHARD_BF16_OPT = dict(lr=3e-4, warmup_steps=100, total_steps=1000)
+# A case: arch at full width (reduced: its reduced config); mesh (data,
+# model); layers (None: all of them); fields replaced in its config; opt, the fp32 steps' schedule;
+# bf16: then SHARD_BF16_STEPS bf16 steps on one batch; compress: then
+# `allreduce_compressed` of the last fp32 step's embedding, final norm and
+# head gradients over `data`.
+# Phase 21: (a) KV heads (4) cut over 2 model ranks, d_model over 2 data
+# ranks; (b) 4 KV heads do not cut over 8 model ranks: head_dim is cut, and
+# the 4 rows are padded to 8 for attention's batch-DP layout
+SHARD_TRAIN_CASES = {
+    "a": dict(arch=SHARD_TRAIN_ARCH, mesh=(2, 2), layers=SHARD_TRAIN_LAYERS, opt=SHARD_OPT,
+              bf16=True, compress=True),
+    "b": dict(arch=SHARD_TRAIN_ARCH, mesh=(1, 8), layers=SHARD_TRAIN_LAYERS, opt=SHARD_OPT)}
+# Phase 22: (a) moonshot at full width, its dense first layer and one MoE
+# layer, 64 experts over 2 data ranks (expert parallel); (b) mamba2 at full
+# width, FAM_TRAIN_MAMBA_LAYERS of its 48 layers; (c) whisper-base whole (6
+# encoder and 6 decoder layers, 1,500 audio frames); (d-mixtral) the
+# weight-gather MoE at full width: one layer, 3 experts, which 2 data ranks
+# do not divide, so their d_model of 6,144 is cut over `data` and gathered
+# a leaf at a time (1.40 B parameters, 22.3 GB of fp32 state and gradients
+# on one card; 8 experts would be 2.91 B); (d-jamba) the hybrid, reduced:
+# one block of 8 layers (attention, SSM, MoE, MLP), 4 experts over 2 data
+# ranks. At full width the body comes only in whole blocks of 8, and even
+# at 2 experts, the fewest that 2 data ranks divide and top-2 routing
+# takes, that is 3.41 B parameters, 54.5 GB of fp32 state and gradients on
+# one card before activations (moonshot's 1.34 B peak 11 GB above theirs),
+# then four ranks of 13.6 GB each, with 2.0 B parameters of FSDP leaves
+# through gloo's host staging (moonshot's 0.79 B take 10.9 s a step)
+FAM_TRAIN_MAMBA_LAYERS = 8
+# the fp32 steps: phase 21's schedule at lr 1e-4, as the CPU tests take it.
+# AdamW moves a weight whose gradient is near 0 by about lr in either
+# direction, so the ulps of the first step's gradients move the second
+# step's: at phase 21's 3e-4 reduced jamba's second-step wi_up gradient
+# drifted 1.279e-04 of its max abs from one card's on an H100, its first
+# step within 4.9e-06
+FAM_TRAIN_OPT = dict(SHARD_OPT, lr=1e-4)
+FAM_TRAIN_CASES = {
+    "a": dict(arch="moonshot-v1-16b-a3b", mesh=(2, 2), layers=2, opt=FAM_TRAIN_OPT, bf16=True),
+    "b": dict(arch="mamba2-370m", mesh=(2, 2), layers=FAM_TRAIN_MAMBA_LAYERS, opt=FAM_TRAIN_OPT),
+    "c": dict(arch="whisper-base", mesh=(2, 2), opt=FAM_TRAIN_OPT),
+    "d-mixtral": dict(arch="mixtral-8x22b", mesh=(2, 2), layers=1, fields=dict(n_experts=3),
+                      opt=FAM_TRAIN_OPT),
+    "d-jamba": dict(arch="jamba-v0.1-52b", mesh=(2, 2), reduced=True, opt=FAM_TRAIN_OPT)}
 
 
-def st_config(dtype):
-    from repro_torch.configs import get_config
+def train_case_config(case, dtype):
+    """A case's config in `dtype`, remat on. At fp32 (the comparison with
+    one card) an MoE's capacity factor is E / top_k, so no choice drops in
+    the ranks' local groups or one card's, and the router loss weighs 0: a
+    mesh's is the mean of the data ranks' losses over their own tokens, one
+    card's is over all of them (both packages route so); the bf16 run keeps
+    the config's own capacity and router loss."""
+    from repro_torch.configs import get_config, reduced
 
-    return dataclasses.replace(get_config(SHARD_TRAIN_ARCH), n_layers=SHARD_TRAIN_LAYERS,
-                               dtype=dtype)
+    cfg = (reduced if case.get("reduced") else get_config)(case["arch"])
+    cfg = dataclasses.replace(cfg, **case.get("fields", {}))
+    cfg = dataclasses.replace(cfg, n_layers=case.get("layers") or cfg.n_layers, dtype=dtype,
+                              remat=True)
+    if dtype == "float32" and cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k,
+                                  router_aux_weight=0.0)
+    return cfg
 
 
-def st_batches(np, cfg, dtype):
-    """The global batches of a run: at fp32 the first SHARD_TRAIN_STEPS of
-    the one seeded stream (rank 0's), at bf16 its first batch
-    SHARD_BF16_STEPS times."""
+def train_case_batches(np, cfg, dtype):
+    """A run's global batches (rank 0's seeded stream, with its stub audio
+    frames for an encoder-decoder): SHARD_TRAIN_STEPS at fp32, the first
+    SHARD_BF16_STEPS times at bf16."""
     from repro_torch.data.pipeline import DataConfig, batch_iterator
 
     it = batch_iterator(cfg, DataConfig(SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ, seed=0), rank=0)
     if dtype == "float32":
         return [next(it) for _ in range(SHARD_TRAIN_STEPS)]
     return [next(it)] * SHARD_BF16_STEPS
+
+
+def train_case_runs(case):
+    """(dtype, optimizer settings) of a case's runs: fp32 at its opt, then
+    bf16 at SHARD_BF16_OPT where it asks for one."""
+    runs = [("float32", case["opt"])]
+    return runs + [("bfloat16", SHARD_BF16_OPT)] if case.get("bf16") else runs
 
 
 def st_capture(steps):
@@ -4487,24 +4566,26 @@ def st_capture(steps):
     return seen
 
 
-def st_unsharded(torch, np, ref_dir):
-    """One card: SHARD_TRAIN_STEPS fp32 steps of `make_train_step` from the
-    seed-0 state (their gradients saved to ref_dir, one file a step), then
-    SHARD_BF16_STEPS bf16 steps on the first batch. Returns each step's
-    metrics and wall ms."""
+def train_one_card(torch, np, name, case, ref_dir):
+    """One card: a case's runs of `make_train_step` (one microbatch) from
+    the seed-0 state, the fp32 steps' gradients saved to ref_dir with each
+    leaf's max abs. Returns each run's metrics and wall ms, its parameter
+    count and peak bytes."""
     from repro_torch.core import steps
+    from repro_torch.models.params import leaves
     from repro_torch.training.optimizer import OptConfig
 
     out = {}
-    for dtype, opt in (("float32", SHARD_OPT), ("bfloat16", SHARD_BF16_OPT)):
-        cfg = st_config(dtype)
+    for dtype, opt in train_case_runs(case):
+        cfg = train_case_config(case, dtype)
+        torch.cuda.reset_peak_memory_stats()
         state = steps.init_train_state(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
-        step = steps.make_train_step(cfg, OptConfig(**opt))
+        step = steps.make_train_step(cfg, OptConfig(**opt), microbatches=1)
         update = steps.adamw_update
         seen = st_capture(steps) if dtype == "float32" else []
         metrics, walls = [], []
         try:
-            for i, batch in enumerate(st_batches(np, cfg, dtype)):
+            for i, batch in enumerate(train_case_batches(np, cfg, dtype)):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 state, m = step(state, batch)
@@ -4512,127 +4593,145 @@ def st_unsharded(torch, np, ref_dir):
                 walls.append((time.perf_counter() - t0) * 1e3)
                 metrics.append({k: float(v) for k, v in m.items()})
                 if seen:
-                    from repro_torch.models.params import leaves
-
-                    torch.save({k: v.cpu() for k, v in leaves(seen.pop())},
-                               os.path.join(ref_dir, f"grads{i}.pt"))
+                    grads = dict(leaves(seen.pop()))
+                    torch.save({"grads": {k: v.cpu() for k, v in grads.items()},
+                                "max_abs": {k: float(v.abs().max()) for k, v in grads.items()}},
+                               os.path.join(ref_dir, f"{name}-grads{i}.pt"))
+                    del grads
         finally:
             steps.adamw_update = update
-        out[dtype] = dict(metrics=metrics, step_ms=walls)
+        out[dtype] = dict(metrics=metrics, step_ms=walls,
+                          params=sum(t.numel() for _, t in leaves(state["params"])),
+                          peak_bytes=torch.cuda.max_memory_allocated())
         del state, step
         torch.cuda.empty_cache()
     return out
 
 
-def st_rank(rank, world, backend, shape, ref_dir, with_bf16):
-    """One rank of a phase-21 mesh: SHARD_TRAIN_STEPS fp32 sharded steps
-    from its cut of the seed-0 state (drawn leaf by leaf on the card and
-    cut as it comes), each step's gradients gathered whole leaf by leaf and
-    held by rank 0 against the one-card step's; its master and moment
-    bytes; with_bf16: `allreduce_compressed` of the last step's embedding,
-    final norm and head gradients over the data axis against the plain
-    formula on the data ranks' gathered int8 values and scales, then
-    SHARD_BF16_STEPS bf16 steps on one batch. Returns plain data."""
-    import numpy as np
-    import torch
-    from torch.distributed.device_mesh import init_device_mesh
+def compress_check(torch, grads, sizes) -> dict:
+    """`allreduce_compressed` of the embedding, final norm and head
+    gradients over `data`, against the plain formula on the data ranks'
+    gathered int8 values and scales, bit for bit."""
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.training.grad_compression import (allreduce_compressed,
+                                                        compress_grads, init_error_state)
+
+    grads = {k: v for k, v in grads.items() if k != "body"}   # embed, final_ln, lm_head
+    err = init_error_state(grads)
+    avg, new_err = allreduce_compressed(grads, err, ("data",))
+    qs, ss, errs = compress_grads(grads, err)
+    same = True
+    for k in sorted(grads):
+        q = dctx.gather(qs[k].to(torch.int32)[None], 0, ("data",))
+        s = dctx.gather(ss[k].reshape(1), 0, ("data",))
+        want = q.sum(0).to(torch.float32) * s.max() / sizes["data"]
+        same = same and torch.equal(avg[k], want) and torch.equal(new_err[k], errs[k])
+    return dict(bit_equal=bool(same), leaves=sorted(grads),
+                elements=sum(int(v.numel()) for v in grads.values()))
+
+
+def train_case_run(torch, np, name, case, dtype, opt, mesh, ref_dir) -> dict:
+    """One run of a case on this rank: its cut of the seed-0 state, drawn
+    leaf by leaf on the card; the sharded steps on its rows; at fp32 each
+    step's gradients, the rank's cut of every leaf as it hands them to
+    AdamW, held against the same cut of the one-card step's (read from the
+    saved file, mapped), each leaf's error over the whole leaf's max abs:
+    every element is held on the ranks that hold it, with no collective;
+    then `compress_check` where the case asks for it. Returns plain data,
+    the worst leaf a step."""
     from torch.distributed.tensor import Shard
 
     from repro_torch.core import steps
     from repro_torch.distributed import ctx as dctx
+    from repro_torch.distributed import sharding as shd
     from repro_torch.models.params import leaves, param_specs
-    from repro_torch.training.grad_compression import (allreduce_compressed,
-                                                        compress_grads, init_error_state)
     from repro_torch.training.optimizer import OptConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    t_run = time.perf_counter()
+    cfg = train_case_config(case, dtype)
+    coord = list(mesh.get_coordinate())
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    out = {"rank": rank, "backend": backend, "coord": list(mesh.get_coordinate())}
-    cfg = st_config("float32")
     placements = dict(leaves(steps.train_state_shardings(cfg, mesh)["params"]))
-    names = list(sizes)
-    expected = 0
-    for path, spec in leaves(param_specs(cfg)):
-        n = math.prod(sizes[a] for a, p in zip(names, placements[path])
-                      if isinstance(p, Shard))
-        expected += spec.numel() * 4 // n
+    expected = sum(spec.numel() * 4 // math.prod(sizes[a] for a, p in
+                                                   zip(sizes, placements[path])
+                                                   if isinstance(p, Shard))
+                   for path, spec in leaves(param_specs(cfg)))
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = steps.init_sharded_train_state(cfg, torch.Generator("cuda").manual_seed(0),
                                            "cuda", mesh)
-    out["bytes"] = {k: sum(t.numel() * t.element_size() for _, t in leaves(tree))
-                    for k, tree in (("params", state["params"]), ("mu", state["opt"]["mu"]),
-                                    ("nu", state["opt"]["nu"]))}
-    out["expected_bytes"] = expected
-    step = steps.make_sharded_train_step(cfg, mesh, OptConfig(**SHARD_OPT))
-    seen = st_capture(steps)
+    out = {"bytes": {k: sum(t.numel() * t.element_size() for _, t in leaves(tree))
+                     for k, tree in (("params", state["params"]), ("mu", state["opt"]["mu"]),
+                                     ("nu", state["opt"]["nu"]))},
+           "expected_bytes": expected,
+           "attn_dp_axes": list(steps._train_cfg(cfg, mesh, SHARD_TRAIN_BATCH).attn_dp_axes)}
+    step = steps.make_sharded_train_step(cfg, mesh, OptConfig(**opt), microbatches=1)
+    update = steps.adamw_update
+    seen = st_capture(steps) if dtype == "float32" else []
     metrics, walls, leaf_err = [], [], []
-    for i, batch in enumerate(st_batches(np, cfg, "float32")):
-        local = {k: v.cuda() for k, v in steps.shard_train_batch(batch, mesh).items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, local)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        metrics.append({k: float(v) for k, v in m.items()})
-        grads = seen.pop()
-        ref = torch.load(os.path.join(ref_dir, f"grads{i}.pt"), mmap=True) if rank == 0 \
-            else None
-        worst = (0.0, "")
-        for path, g in leaves(grads):
-            whole = steps.unshard_leaf(g, placements[path], mesh)
-            if rank == 0:
-                want = ref[path].cuda()
-                scale = float(want.abs().max())
-                err = float((whole - want).abs().max()) / max(scale, 1e-30)
-                if not torch.isfinite(whole).all():
-                    err = float("inf")
-                worst = max(worst, (err, path))
-            del whole
-        leaf_err.append(worst)
-        last_grads = grads
-    out.update(metrics=metrics, step_ms=walls, leaf_err=leaf_err, n_leaves=len(placements),
-               peak_bytes=torch.cuda.max_memory_allocated(),
-               attn_dp_axes=list(steps._train_cfg(cfg, mesh, SHARD_TRAIN_BATCH).attn_dp_axes))
-    if with_bf16:
-        grads = {k: v for k, v in last_grads.items() if k != "body"}   # embed, final_ln, lm_head
-        err = init_error_state(grads)
-        with dctx.mesh_context(mesh):
-            avg, new_err = allreduce_compressed(grads, err, ("data",))
-            qs, ss, errs = compress_grads(grads, err)
-            same = True
-            for k in sorted(grads):
-                q = dctx.gather(qs[k].to(torch.int32)[None], 0, ("data",))
-                s = dctx.gather(ss[k].reshape(1), 0, ("data",))
-                want = q.sum(0).to(torch.float32) * s.max() / sizes["data"]
-                same = same and torch.equal(avg[k], want) and torch.equal(new_err[k], errs[k])
-        out["compress"] = dict(bit_equal=bool(same), leaves=sorted(grads),
-                               elements=sum(int(v.numel()) for v in grads.values()))
-        del state, step, last_grads, grads
-        torch.cuda.empty_cache()
-        cfg16 = st_config("bfloat16")
-        state = steps.init_sharded_train_state(cfg16, torch.Generator("cuda").manual_seed(0),
-                                               "cuda", mesh)
-        step = steps.make_sharded_train_step(cfg16, mesh, OptConfig(**SHARD_BF16_OPT))
-        losses, walls16 = [], []
-        for batch in st_batches(np, cfg16, "bfloat16"):
+    try:
+        for i, batch in enumerate(train_case_batches(np, cfg, dtype)):
             local = {k: v.cuda() for k, v in steps.shard_train_batch(batch, mesh).items()}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, m = step(state, local)
             torch.cuda.synchronize()
-            walls16.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(m["loss"]))
-        out["bf16"] = dict(losses=losses, step_ms=walls16)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if not seen:
+                continue
+            grads = seen.pop()
+            ref = torch.load(os.path.join(ref_dir, f"{name}-grads{i}.pt"), mmap=True)
+            worst = (0.0, "")
+            for path, g in leaves(grads):
+                want = shd.local_shard(ref["grads"][path], placements[path], mesh, coord).cuda()
+                err = float((g - want).abs().max()) / max(ref["max_abs"][path], 1e-30)
+                if not torch.isfinite(g).all():
+                    err = float("inf")
+                worst = max(worst, (err, path))
+                del want
+            leaf_err.append(worst)
+            del ref
+    finally:
+        steps.adamw_update = update
+    out.update(metrics=metrics, step_ms=walls, leaf_err=leaf_err,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               run_s=time.perf_counter() - t_run)
+    if dtype == "float32" and case.get("compress"):
+        with dctx.mesh_context(mesh):
+            out["compress"] = compress_check(torch, grads, sizes)
+    del state, step, seen
+    torch.cuda.empty_cache()
     return out
 
 
-def st_check(np, name, shape, ranks, ref, card) -> dict:
-    """The gates of one phase-21 mesh against the one-card run `ref`."""
+def train_cases_rank(rank, world, backend, shape, cases, ref_dir):
+    """One rank of a mesh: every case's runs in turn (`train_case_run`)."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    out = {"rank": rank, "backend": backend, "coord": list(mesh.get_coordinate())}
+    for name, case in cases.items():
+        out[name] = {dtype: train_case_run(torch, np, name, case, dtype, opt, mesh, ref_dir)
+                     for dtype, opt in train_case_runs(case)}
+    return out
+
+
+def train_case_check(np, label, name, case, ranks, ref, card) -> dict:
+    """The gates of one case against its one-card runs `ref`: the fp32
+    loss and grad_norm of every rank, the worst gradient leaf over all
+    ranks, each rank's master and moment bytes its share of every cut leaf,
+    attention's batch-DP over every mesh axis, and where the case asks for
+    them losses that fall in the bf16 run and `allreduce_compressed` bit
+    for bit."""
     want = ref["float32"]["metrics"]
-    for r in ranks:
-        where = f"sharded training ({name}) rank {r['rank']} {tuple(r['coord'])}"
-        for i, (m, w) in enumerate(zip(r["metrics"], want)):
+    runs = [r[name]["float32"] for r in ranks]
+    for r, got in zip(ranks, runs):
+        where = f"{label} ({name}) rank {r['rank']} {tuple(r['coord'])}"
+        for i, (m, w) in enumerate(zip(got["metrics"], want)):
             loss_rel = abs(m["loss"] - w["loss"]) / abs(w["loss"])
             gnorm_rel = abs(m["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
             if not (loss_rel <= SHARD_LOSS_RTOL and gnorm_rel <= SHARD_GNORM_RTOL):
@@ -4640,89 +4739,120 @@ def st_check(np, name, shape, ranks, ref, card) -> dict:
                      f"{loss_rel:.2e}, tolerance {SHARD_LOSS_RTOL}), grad_norm "
                      f"{m['grad_norm']} vs {w['grad_norm']} (rel {gnorm_rel:.2e}, "
                      f"tolerance {SHARD_GNORM_RTOL})")
-        for k, b in r["bytes"].items():
-            if b != r["expected_bytes"]:
+        for k, b in got["bytes"].items():
+            if b != got["expected_bytes"]:
                 fail(f"{where}: {b} {k} bytes, not its share of every cut leaf plus the "
-                     f"replicated ones ({r['expected_bytes']})")
-        if r["attn_dp_axes"] != ["data", "model"]:
-            fail(f"{where}: attn_dp_axes {r['attn_dp_axes']}, not every mesh axis")
-    r0 = ranks[0]
-    for i, (err, path) in enumerate(r0["leaf_err"]):
+                     f"replicated ones ({got['expected_bytes']})")
+        if got["attn_dp_axes"] != ["data", "model"]:
+            fail(f"{where}: attn_dp_axes {got['attn_dp_axes']}, not every mesh axis")
+        if case.get("compress") and not got["compress"]["bit_equal"]:
+            fail(f"{where}: allreduce_compressed over the data axis differs from the formula "
+                 f"on the gathered int8 values and scales")
+    leaf_err = [max(step) for step in zip(*(got["leaf_err"] for got in runs))]
+    for i, (err, path) in enumerate(leaf_err):
         if not err <= SHARD_LEAF_TOL:
-            fail(f"sharded training ({name}) step {i}: gradient {path}, gathered whole, "
-                 f"differs from one card's by {err:.3e} of its max abs (tolerance "
-                 f"{SHARD_LEAF_TOL})")
-    out = dict(mesh=list(shape), backend=r0["backend"], world=len(ranks),
-               layers=SHARD_TRAIN_LAYERS, batch=[SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ],
+            fail(f"{label} ({name}) step {i}: gradient {path} differs from one card's by "
+                 f"{err:.3e} of its max abs (tolerance {SHARD_LEAF_TOL})")
+    r0 = runs[0]
+    out = dict(arch=case["arch"], width="reduced" if case.get("reduced") else "full",
+               fields=case.get("fields", {}),
+               layers=train_case_config(case, "float32").n_layers, mesh=list(case["mesh"]),
+               backend=ranks[0]["backend"], world=len(ranks),
+               batch=[SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ], params=ref["float32"]["params"],
                attn_dp_axes=r0["attn_dp_axes"],
                loss=[m["loss"] for m in r0["metrics"]], loss_one_card=[w["loss"] for w in want],
                loss_rel_err=max(abs(m["loss"] - w["loss"]) / abs(w["loss"])
-                                for r in ranks for m, w in zip(r["metrics"], want)),
+                                for got in runs for m, w in zip(got["metrics"], want)),
                grad_norm_rel_err=max(abs(m["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
-                                     for r in ranks for m, w in zip(r["metrics"], want)),
-               worst_leaf_rel_err=max(e for e, _ in r0["leaf_err"]),
-               worst_leaf=max(r0["leaf_err"])[1], leaves=r0["n_leaves"],
-               rank_master_bytes=r0["bytes"]["params"], rank_moment_bytes=r0["bytes"]["mu"],
-               expected_rank_bytes=r0["expected_bytes"],
-               peak_bytes=[r["peak_bytes"] for r in ranks],
-               step_ms=float(np.median([w for r in ranks for w in r["step_ms"][1:]])),
-               step_ms_one_card=float(np.median(ref["float32"]["step_ms"][1:])), card=card)
-    if "bf16" in r0:
-        losses = r0["bf16"]["losses"]
+                                     for got in runs for m, w in zip(got["metrics"], want)),
+               worst_leaf_rel_err=max(leaf_err)[0], worst_leaf=max(leaf_err)[1],
+               leaf_err_by_step=leaf_err,
+               rank_master_bytes=[got["bytes"]["params"] for got in runs],
+               rank_moment_bytes=[got["bytes"]["mu"] for got in runs],
+               peak_bytes=[got["peak_bytes"] for got in runs],
+               peak_bytes_one_card=ref["float32"]["peak_bytes"],
+               step_ms=float(np.median([w for got in runs for w in got["step_ms"][1:]])),
+               step_ms_one_card=float(np.median(ref["float32"]["step_ms"][1:])),
+               ranks_run_s=max(got["run_s"] for got in runs), card=card)
+    if case.get("compress"):
+        out["compress"] = r0["compress"]
+    if case.get("bf16"):
+        losses = [m["loss"] for m in ranks[0][name]["bfloat16"]["metrics"]]
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-            fail(f"sharded training ({name}) bf16: the losses {losses} do not fall")
-        for r in ranks:
-            if not r["compress"]["bit_equal"]:
-                fail(f"sharded training ({name}) rank {r['rank']}: allreduce_compressed over "
-                     f"the data axis differs from the formula on the gathered int8 values "
-                     f"and scales")
+            fail(f"{label} ({name}) bf16: the losses {losses} do not fall")
         one = ref["bfloat16"]
         out.update(bf16_losses=losses, bf16_losses_one_card=[m["loss"] for m in one["metrics"]],
-                   bf16_step_ms=float(np.median(r0["bf16"]["step_ms"][1:])),
+                   bf16_step_ms=float(np.median(ranks[0][name]["bfloat16"]["step_ms"][1:])),
                    bf16_step_ms_one_card=float(np.median(one["step_ms"][1:])),
-                   compress=r0["compress"])
-    print(f"sharded training ({name}): " + json.dumps(out))
+                   bf16_peak_bytes=[r[name]["bfloat16"]["peak_bytes"] for r in ranks],
+                   bf16_ranks_run_s=max(r[name]["bfloat16"]["run_s"] for r in ranks))
+    print(f"{label} ({name}): " + json.dumps(out))
     return out
 
 
-def sharded_train_phase(torch, np, card) -> dict:
-    """Phase 21: full-width tinyllama-1.1b at SHARD_TRAIN_LAYERS layers
-    trained sharded on spawned ranks that share the card (gloo), on each
-    mesh of SHARD_TRAIN_MESHES, against the one-card train step from the
-    same weights on the same batches."""
+def train_cases(torch, np, card, cases, label) -> dict:
+    """The sharded train step of each case on spawned ranks that share the
+    card (gloo), one spawn a mesh for all of its cases, each against the
+    one-card train step from the same weights on the same batches: the
+    one-card runs first, in this process, then the spawns."""
     import tempfile
 
     from repro_torch.launch.mesh import run_ranks
 
     t0 = time.perf_counter()
-    out = {}
+    out = {"ranks_wall_s": {}}
     with tempfile.TemporaryDirectory() as ref_dir:
-        ref = st_unsharded(torch, np, ref_dir)
-        out["one_card"] = ref
+        ref = {n: train_one_card(torch, np, n, c, ref_dir) for n, c in cases.items()}
+        out["one_card_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        for name, shape in SHARD_TRAIN_MESHES.items():
+        for shape in dict.fromkeys(c["mesh"] for c in cases.values()):
+            mine = {n: c for n, c in cases.items() if c["mesh"] == shape}
             ts = time.perf_counter()
-            ranks = run_ranks(st_rank, shape[0] * shape[1], (shape, ref_dir, name == "a"),
+            ranks = run_ranks(train_cases_rank, math.prod(shape), (shape, mine, ref_dir),
                               device="cuda", timeout=900)
-            out[name] = st_check(np, name, shape, ranks, ref, card)
-            out[name]["ranks_wall_s"] = time.perf_counter() - ts
+            out["ranks_wall_s"]["x".join(map(str, shape))] = time.perf_counter() - ts
+            for n, c in mine.items():
+                out[n] = train_case_check(np, label, n, c, ranks, ref[n], card)
     out["phase_s"] = time.perf_counter() - t0
-    for name in SHARD_TRAIN_MESHES:
-        v = out[name]
-        print(f"sharded training ({name}): {SHARD_TRAIN_ARCH} {v['layers']} layers, batch "
-              f"{v['batch'][0]} x {v['batch'][1]}, mesh {tuple(v['mesh'])} ({v['backend']}), "
-              f"fp32 step {v['step_ms']:.1f} ms vs {v['step_ms_one_card']:.1f} ms on one card, "
-              f"loss rel {v['loss_rel_err']:.2e}, grad_norm rel {v['grad_norm_rel_err']:.2e}, "
-              f"worst leaf {v['worst_leaf_rel_err']:.2e} ({v['worst_leaf']}), peak "
-              f"{max(v['peak_bytes']) / 2**30:.2f} GiB a rank, ranks {v['ranks_wall_s']:.1f} s "
-              f"| {card}")
-    a = out["a"]
-    print(f"sharded training (a, bf16): losses {['%.4f' % x for x in a['bf16_losses']]} vs one "
-          f"card {['%.4f' % x for x in a['bf16_losses_one_card']]}, step "
-          f"{a['bf16_step_ms']:.1f} ms vs {a['bf16_step_ms_one_card']:.1f} ms; "
-          f"allreduce_compressed bit for bit: {a['compress']['bit_equal']} | {card}")
-    print(f"sharded training phase: {out['phase_s']:.1f} s")
+    for n in cases:
+        v = out[n]
+        print(f"{label} ({n}): {v['arch']} {v['width']} width {v['fields']}, {v['layers']} "
+              f"layers, {v['params'] / 1e9:.3f} B params, batch {v['batch'][0]} x "
+              f"{v['batch'][1]}, mesh {tuple(v['mesh'])} ({v['backend']}), fp32 step "
+              f"{v['step_ms']:.1f} ms vs {v['step_ms_one_card']:.1f} ms on one card, loss rel "
+              f"{v['loss_rel_err']:.2e}, grad_norm rel {v['grad_norm_rel_err']:.2e}, worst "
+              f"leaf {v['worst_leaf_rel_err']:.2e} ({v['worst_leaf']}), master "
+              f"{max(v['rank_master_bytes']) / 2**30:.3f} GiB and peak "
+              f"{max(v['peak_bytes']) / 2**30:.2f} GiB a rank (one card peak "
+              f"{v['peak_bytes_one_card'] / 2**30:.2f} GiB) | {card}")
+        if "bf16_losses" in v:
+            print(f"{label} ({n}, bf16): losses {['%.4f' % x for x in v['bf16_losses']]} vs "
+                  f"one card {['%.4f' % x for x in v['bf16_losses_one_card']]}, step "
+                  f"{v['bf16_step_ms']:.1f} ms vs {v['bf16_step_ms_one_card']:.1f} ms | {card}")
+        if "compress" in v:
+            print(f"{label} ({n}): allreduce_compressed bit for bit: "
+                  f"{v['compress']['bit_equal']} | {card}")
+    print(f"{label} phase: {out['phase_s']:.1f} s (one card {out['one_card_s']:.1f} s, ranks "
+          + ", ".join(f"{k} {s:.1f} s" for k, s in out["ranks_wall_s"].items()) + ")")
     return out
+
+
+def sharded_train_phase(torch, np, card, cases=None) -> dict:
+    """Phase 21: full-width tinyllama-1.1b at SHARD_TRAIN_LAYERS layers
+    trained sharded on each mesh of SHARD_TRAIN_CASES (or the names in
+    `cases`), against the one-card train step (`train_cases`)."""
+    return train_cases(torch, np, card, {n: SHARD_TRAIN_CASES[n]
+                                         for n in cases or SHARD_TRAIN_CASES},
+                       "sharded training")
+
+
+def sharded_families_train_phase(torch, np, card, cases=None) -> dict:
+    """Phase 22: the sharded train step of the MoE, SSM, hybrid and
+    encoder-decoder families (FAM_TRAIN_CASES, or the names in `cases`),
+    against the one-card train step (`train_cases`)."""
+    return train_cases(torch, np, card, {n: FAM_TRAIN_CASES[n]
+                                         for n in cases or FAM_TRAIN_CASES},
+                       "sharded family training")
 
 
 def main() -> int:
@@ -4838,6 +4968,9 @@ def main() -> int:
 
     # 21. the sharded train step: tinyllama-1.1b at 4 layers on two meshes
     st_stats = timed(21, sharded_train_phase, torch, np, card)
+
+    # 22. the sharded train step of the MoE, SSM, hybrid and encoder-decoder families
+    ft_stats = timed(22, sharded_families_train_phase, torch, np, card)
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
                                                 controller_stats, mt_stats, *new_runs[:5],
@@ -4897,7 +5030,8 @@ def main() -> int:
              "tensor_parallel_families": {k: v for k, v in fam_tp_stats.items()
                                           if k != "kernel_rows"},
              "small_serve": {k: v for k, v in ss_stats.items() if k != "kernel_rows"},
-             "sharded_training": st_stats, "phase_s": phase_s},
+             "sharded_training": st_stats, "sharded_family_training": ft_stats,
+             "phase_s": phase_s},
             indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")

@@ -25,16 +25,20 @@ decode kernel then runs over each rank's cut and returns each row's
 log-sum-exp, and the ranks' outputs merge exactly
 (`distributed.ctx.merge_seq_shards`).
 
-The sharded train step (`make_sharded_train_step`, the attention
-families) runs under the train rules (`train_state_shardings`): each
-rank's fp32 master and moments are its cut of every leaf (`shard_train_state`),
-the d_model dim over the data axes (FSDP) and KV heads, or head_dim where
-the KV heads do not divide the axis, MLP hidden units and the vocab over
-`model`. Each layer gathers its FSDP-cut weights inside the layer
-(`models/lm._fsdp_layer`), whose backward reduce-scatters their gradients;
-attention runs on rows cut over every mesh axis when the (micro)batch can
-fill the mesh (`_train_cfg`'s `attn_dp_axes`), and the loss is the global
-batch's mean."""
+The sharded train step (`make_sharded_train_step`, every family) runs
+under the train rules (`train_state_shardings`): each rank's fp32 master
+and moments are its cut of every leaf (`shard_train_state`), the d_model
+dim over the data axes (FSDP) and KV heads, or head_dim where the KV heads
+do not divide the axis, MLP and expert hidden units, the Mamba2 block's
+channels and heads and the vocab over `model`; an MoE's experts over
+`data` when it divides them (expert parallel), else their d_model dim over
+the data axes. Each layer (and each of whisper's encoder blocks) gathers
+its FSDP-cut weights inside the layer (`models/lm._fsdp_layer`; the routed
+experts' per product, `layers._gather_d`), whose backward reduce-scatters
+their gradients; attention runs on rows cut over every mesh axis when the
+(micro)batch can fill the mesh (`_train_cfg`'s `attn_dp_axes`), the MoE
+routes the tokens of each data rank in its own groups (`moe_shard_map`),
+and the loss is the global batch's mean."""
 from __future__ import annotations
 
 import dataclasses
@@ -99,8 +103,10 @@ def _train_cfg(cfg: ModelConfig, mesh, batch: int) -> ModelConfig:
     """The train config on `mesh` for a (micro)batch of `batch` rows (the
     JAX package's `_train_cfg`): `attn_dp_axes` set, every mesh axis, when
     the batch can occupy the whole mesh (`_train_fields`). The MoE fields
-    stay `_train_fields`' dict: the MoE layer reads the mesh, and the MoE
-    family does not train sharded yet."""
+    (expert parallel over `data` when it divides the experts, token groups
+    on the data axes) stay `_train_fields`' dict: the MoE layer reads them
+    off the mesh (`layers.moe`), where `moe_shard_map` groups each data
+    rank's own tokens, as the JAX package's groups on the data axes do."""
     axes = _train_fields(cfg, mesh, batch).get("attn_dp_axes", ())
     return dataclasses.replace(cfg, attn_dp_axes=axes) if axes else cfg
 
@@ -399,13 +405,12 @@ def sharded_decode(cfg: ModelConfig, mesh, batch: Optional[int] = None,
 # Train on a mesh: FSDP over the data axes, TP over `model` (the train rules)
 # ---------------------------------------------------------------------------
 
-# the families the sharded train step takes, and the name of each it refuses
-_UNSHARDED_TRAIN = {"moe": "MoE", "ssm": "SSM", "hybrid": "hybrid",
-                    "audio": "encoder-decoder"}
 # the logical axes a leaf must have cut over a `model` axis wider than 1
 # where the train rules map them to it: the dims whose contractions the
-# model's collectives close (one of kv_heads and head_dim, as the rules say)
-_TRAIN_MODEL_CUT = ("kv_heads", "head_dim", "mlp", "vocab")
+# model's collectives close (one of kv_heads and head_dim, as the rules
+# say; the experts' hidden units; the Mamba2 block's channels and heads)
+_TRAIN_MODEL_CUT = ("kv_heads", "head_dim", "mlp", "vocab", "expert_mlp", "ssm_inner",
+                    "ssm_conv", "ssm_heads")
 
 
 def train_cut_axes(cfg: ModelConfig, mesh) -> Tree:
@@ -418,18 +423,18 @@ def train_cut_axes(cfg: ModelConfig, mesh) -> Tree:
 
 
 def _check_train_layout(cfg: ModelConfig, mesh) -> None:
-    """Refuse by name a family the sharded train step does not take, and,
-    with a `model` axis wider than 1, a leaf whose KV-head or head_dim,
-    MLP or vocab dim the train rules map to `model` but the axis does not
-    cut (the model's collectives could not close its contraction)."""
-    if cfg.family in _UNSHARDED_TRAIN:
-        raise ValueError(
-            f"{cfg.name}: the sharded train step takes the attention families (dense, "
-            f"sliding-window, vision-language), not the {_UNSHARDED_TRAIN[cfg.family]} "
-            f"family (ROADMAP Queue 1 item 7.6); one device: make_train_step")
+    """With a `model` axis wider than 1, refuse a leaf whose KV-head or
+    head_dim, MLP, vocab, expert hidden-unit or SSM channel or head dim the
+    train rules map to `model` but the axis does not cut (the model's
+    collectives could not close its contraction), naming the leaf, and an
+    MoE whose d_model the axis does not cut (the experts reduce-scatter
+    along d)."""
     sizes = shd.axis_sizes(mesh)
     if sizes.get("model", 1) == 1:
         return
+    if cfg.n_experts and cfg.d_model % sizes["model"]:
+        raise ValueError(f"{cfg.name} on {sizes}: d_model {cfg.d_model} does not cut over "
+                         f"the model axis for the experts' reduce-scatter")
     names = list(sizes)
     rules = shd.train_rules(mesh, cfg)
     cut = tuple(ax for ax in _TRAIN_MODEL_CUT if rules[ax] == "model")
@@ -520,7 +525,7 @@ def shard_train_batch(batch: Dict[str, Any], mesh, microbatches: int = 1,
 def make_sharded_train_step(cfg: ModelConfig, mesh, oc: Optional[OptConfig] = None,
                             microbatches: Optional[int] = None):
     """The train step on a mesh (the JAX package's `lower_train_step` of
-    `make_train_step`), for the attention families: returns
+    `make_train_step`), for every family: returns
     sharded_train_step(local state, batch) -> (local state, metrics).
 
     The state is this rank's cut (`shard_train_state`), updated in place;
@@ -532,11 +537,13 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, oc: Optional[OptConfig] = No
     backward reduce-scatters their gradients; a leaf replicated over the
     data axes has its gradient all-reduced over them after the backward;
     the loss is the global batch's mean and `grad_norm` the whole
-    gradient's. microbatches: the JAX package's rule by default
-    (`TRAIN_MICROBATCHES` on a mesh of more than one rank, else 1); the
-    train config is `_train_cfg(cfg, mesh, global batch // microbatches)`.
-    Raises ValueError for the MoE, SSM, hybrid and encoder-decoder
-    families, and for a layout the model's collectives cannot close."""
+    gradient's. An expert leaf cut over `data` (expert parallel) holds the
+    whole gradient of its experts; on a mesh with `pod` it is summed over
+    `pod`, the data axis that does not cut it. microbatches: the JAX
+    package's rule by default (`TRAIN_MICROBATCHES` on a mesh of more than
+    one rank, else 1); the train config is `_train_cfg(cfg, mesh, global
+    batch // microbatches)`. Raises ValueError for a layout the model's
+    collectives cannot close."""
     _check_train_layout(cfg, mesh)
     sizes = shd.axis_sizes(mesh)
     if microbatches is None:
@@ -545,7 +552,8 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, oc: Optional[OptConfig] = No
     oc = oc or OptConfig()
     n_dp = math.prod(v for k, v in sizes.items() if k in dctx.DP)
     cut = train_cut_axes(cfg, mesh)
-    replicated_dp = [not set(names) & set(dctx.DP) for _, names in leaves(cut)]
+    # the data axes over which each leaf's gradient is still a partial sum
+    summed = [tuple(a for a in dctx.DP if a not in names) for _, names in leaves(cut)]
 
     def sharded_train_step(state: Tree, batch: Dict[str, Any]):
         params = state["params"]
@@ -555,8 +563,8 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, oc: Optional[OptConfig] = No
         tcfg = _train_cfg(cfg, mesh, rows * n_dp // microbatches)
         with dctx.mesh_context(mesh):
             grads, metrics = _grads(tcfg, params, batch, microbatches, device)
-            flat = [dctx.all_reduce(g, dctx.DP) if rep else g
-                    for (_, g), rep in zip(leaves(grads), replicated_dp)]
+            flat = [dctx.all_reduce(g, axes) if axes else g
+                    for (_, g), axes in zip(leaves(grads), summed)]
             grads = unflatten(grads, flat)
             new_params, new_opt, opt_metrics = adamw_update(params, grads, state["opt"], oc,
                                                             cut)

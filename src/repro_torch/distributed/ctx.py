@@ -40,6 +40,12 @@ gather over them (the FSDP weight gather, `gather_fsdp`) has a
 reduce-scatter as its backward, an all-reduce of the gradient sliced. The
 batch-DP re-layout of attention (`rows_to_model` / `rows_from_model`)
 permutes values across `model` ranks, and each is the other's backward.
+Where the ranks go on with different parts of a sum or a gather (the
+Mamba2 block's heads of its gathered channels and of its norm's sum over
+`model`; an MoE's global groups, whose rows each data rank keeps its own
+of), the backward sums their gradients over those axes (`grad_sum`); a
+loss term every data rank computes alike from the whole batch enters the
+gradient once (`once_over`).
 
 The JAX package also keeps a `shard_map` version shim here, for its
 `moe_shard_map`. This package has none: its `models/layers.moe_shard_map`
@@ -204,27 +210,58 @@ def _own(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
 
 class _AllReduce(torch.autograd.Function):
     """The sum of partials over `names`; its gradient passes through (each
-    rank holds the whole gradient of the replicated sum)."""
+    rank holds the whole gradient of the replicated sum), summed over the
+    axes `grad_sum` (where the ranks use the sum differently)."""
 
     @staticmethod
-    def forward(ctx, x, names):
+    def forward(ctx, x, names, grad_sum):
+        ctx.grad_sum = grad_sum
         return _sum_copy(x, names)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        if ctx.grad_sum and coordinate(ctx.grad_sum)[1] > 1:
+            g = _sum_copy(g, ctx.grad_sum)
+        return g, None, None
 
 
-def all_reduce(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, names: Sequence[str],
+               grad_sum: Sequence[str] = ()) -> torch.Tensor:
     """The sum of x over the axes `names`. A 16-bit input is summed in fp32
     and rounded back once; an fp32 one is summed in place where it is
     contiguous (NCCL takes only contiguous tensors), unless it needs a
-    gradient. Backward: the identity."""
+    gradient. Backward: the identity where every rank's loss is the same
+    function of the sum; over the axes `grad_sum`, whose ranks go on with
+    different parts of it (their own rows, their own channels), the sum of
+    the ranks' gradients."""
     if coordinate(names)[1] == 1:
         return x
     if _grad(x):
-        return _AllReduce.apply(x, tuple(names))
+        return _AllReduce.apply(x, tuple(names), tuple(grad_sum))
     return _all_reduce(x, names)
+
+
+class _Once(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def once_over(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+    """x, a term of the loss that every rank over the axes `names` computes
+    alike from the whole batch (the MoE router's loss over global groups):
+    the identity, whose backward divides the gradient by those ranks'
+    number, so that the sum of the ranks' weight gradients over the data
+    axes counts the term once."""
+    n = coordinate(names)[1]
+    if n == 1 or not _grad(x):
+        return x
+    return _Once.apply(x, n)
 
 
 def all_max(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
@@ -305,33 +342,38 @@ def matmul_model(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """The gather over `names`; backward: the gradient summed over the
-    data axes among `names` (where ranks hold different rows, so each
-    gradient is a partial sum) and not over `model` (where each is whole),
-    then this rank's chunk of it."""
+    """The gather over `names`; backward: the gradient summed over the axes
+    `summed` (by default the data axes among `names`, where ranks hold
+    different rows, so each gradient is a partial sum, and not `model`,
+    where each is whole), then this rank's chunk of it."""
 
     @staticmethod
-    def forward(ctx, x, dim, names):
-        ctx.dim, ctx.names = dim % x.dim(), names
+    def forward(ctx, x, dim, names, summed):
+        ctx.dim, ctx.names, ctx.summed = dim % x.dim(), names, summed
         return _gather(x, dim, names)
 
     @staticmethod
     def backward(ctx, g):
-        summed = tuple(n for n in ctx.names if n != "model")
-        if summed and coordinate(summed)[1] > 1:
-            g = _sum_copy(g, summed)
-        return _own(g, ctx.dim, ctx.names), None, None
+        if ctx.summed and coordinate(ctx.summed)[1] > 1:
+            g = _sum_copy(g, ctx.summed)
+        return _own(g, ctx.dim, ctx.names), None, None, None
 
 
-def gather(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
+def gather(x: torch.Tensor, dim: int, names: Sequence[str],
+           grad_sum: Optional[Sequence[str]] = None) -> torch.Tensor:
     """x of every rank over the axes `names`, concatenated along `dim` in
     their folded order (the JAX package's tiled `all_gather`). Backward:
     over `model`, the rank's own slice of the gradient; over the data axes,
-    the reduce-scatter of it."""
+    the reduce-scatter of it. grad_sum: the axes whose ranks' gradients are
+    summed before the slice, where not these defaults (a gather over
+    `model` whose ranks go on with different parts of the whole, such as
+    the Mamba2 block's channels, sums over `model` too)."""
     if coordinate(names)[1] == 1:
         return x
     if _grad(x):
-        return _Gather.apply(x, dim, tuple(names))
+        summed = tuple(n for n in names if n != "model") if grad_sum is None \
+            else tuple(grad_sum)
+        return _Gather.apply(x, dim, tuple(names), summed)
     return _gather(x, dim, names)
 
 

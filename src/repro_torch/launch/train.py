@@ -8,8 +8,8 @@ A CPU run at a reduced size: --device cpu --reduced [--steps 20 --batch 4
 (--production-mesh, --multi-pod) build that mesh (launch/mesh.py) in a
 world of 256 (512) ranks, one a card, started by torch.distributed (e.g.
 torchrun), each running this command, and train on it with the sharded
-train step (the attention families; the others are refused by name); in a
-smaller world the mesh says how many ranks it needs.
+train step (every arch); in a smaller world the mesh says how many ranks
+it needs.
 """
 from __future__ import annotations
 

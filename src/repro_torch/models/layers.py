@@ -282,26 +282,38 @@ def _expert_ffn(xe: torch.Tensor, p) -> torch.Tensor:
 
 
 def _gather_d(w: torch.Tensor, dim: int, D: int) -> torch.Tensor:
-    """An expert leaf whose d_model dim `dim` is cut over `data`, gathered
-    whole (the leaf itself when it is not cut)."""
-    return w if w.shape[dim] == D else dctx.gather(w, dim, ("data",))
+    """An expert leaf whose d_model dim `dim` is cut, gathered whole (the
+    leaf itself when it is not cut): over `data` (the serve rules' cut), or
+    over the data axes `pod` and `data` (the train rules' FSDP cut). The
+    gather's backward reduce-scatters the gradient."""
+    if w.shape[dim] == D:
+        return w
+    n_data = dctx.coordinate(("data",))[1]
+    return dctx.gather(w, dim, ("data",) if w.shape[dim] * n_data == D else dctx.DP)
 
 
 def _gathered_ffn(xe, wg, wu, wo, D: int) -> torch.Tensor:
     """The experts' MLP of xe [G, e, C, D] on this rank's leaves, a leaf's
-    cut d_model dim gathered just before its product and freed after."""
+    cut d_model dim gathered just before its product and freed after. xe
+    enters the gate and up products, cut along the hidden units over
+    `model`, through `enter_model`."""
+    xe = dctx.enter_model(xe)
     g = torch.einsum("gecd,edf->gecf", xe, _gather_d(wg, 1, D))
     u = torch.einsum("gecd,edf->gecf", xe, _gather_d(wu, 1, D))
     return torch.einsum("gecf,efd->gecd", F.silu(g) * u, _gather_d(wo, 2, D))
 
 
-def _close_experts(y: torch.Tensor, p, n_experts: int) -> torch.Tensor:
+def _close_experts(y: torch.Tensor, p, n_experts: int, own_rows: bool = False) -> torch.Tensor:
     """Sum a rank's part of the routed experts' output (`_expert_ffn`) over
     the ranks that hold the other parts: over `model` (the hidden units)
     and, when the experts are cut over `data`, over `data`. The identity
-    with no mesh."""
-    names = ("model", "data") if p["wi_gate"].shape[0] != n_experts else ("model",)
-    return dctx.all_reduce(y, names)
+    with no mesh. own_rows: each data rank goes on with its own rows of
+    the sum (the global groups of a training batch cut over the data
+    axes), so the backward sums the ranks' gradients over `data`: a rank's
+    experts then take the gradient of every row they served."""
+    ep = p["wi_gate"].shape[0] != n_experts
+    names = ("model", "data") if ep else ("model",)
+    return dctx.all_reduce(y, names, grad_sum=("data",) if ep and own_rows else ())
 
 
 def moe_capacity(cfg, tokens: int) -> int:
@@ -309,12 +321,14 @@ def moe_capacity(cfg, tokens: int) -> int:
     return max(4, int(math.ceil(cfg.capacity_factor * tokens * cfg.top_k / cfg.n_experts)))
 
 
-def moe_gshard_einsum(x: torch.Tensor, p, cfg):
+def moe_gshard_einsum(x: torch.Tensor, p, cfg, own_rows: bool = False):
     """GShard grouped einsum dispatch with capacity. x: [B, S, D] ->
     (y, aux loss). Tokens go in groups of min(moe_group_size, B * S); a
     choice past its expert's capacity in its group is dropped (the token's
     residual passes through). B * S must be a multiple of the group, as in
-    the JAX package, which asserts it."""
+    the JAX package, which asserts it. On a mesh (the global groups of
+    `moe`) the gate weights enter the combine, whose expert outputs are
+    partial over `model`, through `enter_model`; own_rows: `_close_experts`'."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
@@ -327,17 +341,18 @@ def moe_gshard_einsum(x: torch.Tensor, p, cfg):
     C = moe_capacity(cfg, group)
     dispatch, wte = _dispatch_mask(gate_idx.reshape(G, group, K),
                                    gate_vals.reshape(G, group, K), E, C, x.dtype)
-    combine = dispatch * wte[..., None].to(x.dtype)
+    combine = dctx.enter_model(dispatch * wte[..., None].to(x.dtype))
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
     ye = _expert_ffn(xe, p)
-    y = _close_experts(torch.einsum("gtec,gecd->gtd", combine, ye), p, E)
+    y = _close_experts(torch.einsum("gtec,gecd->gtd", combine, ye), p, E, own_rows)
     return y.reshape(B, S, D), aux * cfg.router_aux_weight
 
 
-def moe_sort(x: torch.Tensor, p, cfg):
+def moe_sort(x: torch.Tensor, p, cfg, own_rows: bool = False):
     """Sort-based dispatch: choices sorted by expert (stable), each expert's
     first C kept in equal buffers, gathered back and summed per token; no
-    one-hot products. One group of all B * S tokens.
+    one-hot products. One group of all B * S tokens. On a mesh, as
+    `moe_gshard_einsum`.
 
     A dropped choice writes zeros to the last buffer slot, as the JAX
     package's scatter does; where a kept choice of the last expert holds
@@ -367,11 +382,11 @@ def moe_sort(x: torch.Tensor, p, cfg):
     if hits.numel():
         buf[last] = vals[hits[-1]]
     ye = _expert_ffn(buf.reshape(1, E, C, D), p).reshape(E * C, D)
-    w = gate_vals.reshape(-1)[order].to(x.dtype)
+    w = dctx.enter_model(gate_vals.reshape(-1)[order].to(x.dtype))
     contrib = torch.where(ok[:, None], ye[torch.clamp(slot, max=last)] * w[:, None],
                           torch.zeros((), dtype=x.dtype, device=x.device))
     y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add_(0, tok_of, contrib)
-    y = _close_experts(y, p, E)
+    y = _close_experts(y, p, E, own_rows)
     return y.reshape(B, S, D), aux * cfg.router_aux_weight
 
 
@@ -397,7 +412,14 @@ def moe_shard_map(x: torch.Tensor, p, cfg):
         layer's leaves, cut over `data` along d_model, are gathered whole.
 
     Either way the combined [groups, t, D / |model|] output is gathered
-    over `model`. Returns (y [B, S, D], aux loss)."""
+    over `model`. Returns (y [B, S, D], aux loss).
+
+    The backward is the `shard_map` body's transpose: the all-to-alls send
+    the gradients back, the reduce-scatter's gathers them, and the dispatched
+    slots and the gate weights, replicated over `model` where they enter
+    the products cut over it (the hidden units; d in the combine), sum their
+    gradients over `model` (`enter_model`), as the transpose of an input
+    unmapped over `model` psums it."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     i_dp, n_dp = dctx.coordinate(dctx.DP)
@@ -417,7 +439,7 @@ def moe_shard_map(x: torch.Tensor, p, cfg):
     C = moe_capacity(cfg, group)
     dispatch, wte = _dispatch_mask(gate_idx.reshape(g_loc, group, K),
                                    gate_vals.reshape(g_loc, group, K), E, C, dt)
-    combine = dispatch * wte[..., None].to(dt)
+    combine = dctx.enter_model(dispatch * wte[..., None].to(dt))
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xl)          # [g_loc, E, C, D]
     wg, wu, wo = p["wi_gate"].to(dt), p["wi_up"].to(dt), p["wo"].to(dt)
     if E % n_data == 0:
@@ -446,7 +468,11 @@ def moe(x: torch.Tensor, p, cfg):
     it through GSPMD: the batch's rows gathered over the data axes (when
     the rank holds a cut of them), the dispatch run on every rank, each
     rank's experts computed, summed over the ranks (`_close_experts`), and
-    the rank's rows kept."""
+    the rank's rows kept. In training (rows cut over the data axes) each
+    rank's experts then take the gradient of every row
+    (`_close_experts`' own_rows), and the router loss, which every data
+    rank computes over the whole batch, enters the gradient once
+    (`ctx.once_over`)."""
     if dctx.mesh_size() == 1:
         impl = moe_sort if cfg.moe_impl == "sort" else moe_gshard_einsum
         y, aux = impl(x, p, cfg)
@@ -459,9 +485,10 @@ def moe(x: torch.Tensor, p, cfg):
             y, aux = moe_shard_map(x, p, cfg)
         else:
             impl = moe_sort if cfg.moe_impl == "sort" else moe_gshard_einsum
-            y, aux = impl(dctx.gather(x, 0, dctx.DP) if cut else x, p, cfg)
+            y, aux = impl(dctx.gather(x, 0, dctx.DP) if cut else x, p, cfg, own_rows=cut)
             if cut:
                 y = y.narrow(0, i_dp * B, B)
+                aux = dctx.once_over(aux, dctx.DP)
     if cfg.n_shared_experts:
         y = y + mlp(x, p["shared"])
     return y, aux
@@ -595,7 +622,9 @@ def _ssm_local(xBC: torch.Tensor, cfg):
     if cfg.ssm_ngroups != 1:
         raise NotImplementedError(f"{cfg.name}: {cfg.ssm_ngroups} SSM groups over "
                                   f"{m} model ranks")
-    xs, Bm, Cm = _ssm_split(dctx.gather_model_last(xBC), cfg)
+    # each rank goes on with its own heads of the whole: the gather's
+    # backward sums the ranks' gradients over `model` before the slice
+    xs, Bm, Cm = _ssm_split(dctx.gather(xBC, -1, ("model",), grad_sum=("model",)), cfg)
     di = cfg.d_inner // m
     return xs[..., j * di:(j + 1) * di], Bm, Cm
 
@@ -603,11 +632,13 @@ def _ssm_local(xBC: torch.Tensor, cfg):
 def _rmsnorm_gated_ssm(y, z, w, cfg):
     """`rmsnorm_gated` over d_inner. On a tensor-parallel rank, which holds
     a cut of the d_inner channels, the sum of squares is summed over
-    `model` (in fp32) before the mean and the rsqrt."""
+    `model` (in fp32) before the mean and the rsqrt; every rank scales its
+    own channels by it, so its backward sums over `model` too."""
     if dctx.model_coordinate()[1] == 1:
         return rmsnorm_gated(y, z, w, cfg.norm_eps)
     xf = (y * F.silu(z.to(y.dtype))).float()
-    var = dctx.all_reduce_model((xf * xf).sum(-1, keepdim=True)) / cfg.d_inner
+    var = dctx.all_reduce((xf * xf).sum(-1, keepdim=True), ("model",),
+                          grad_sum=("model",)) / cfg.d_inner
     return (xf * torch.rsqrt(var + cfg.norm_eps) * w.float()).to(y.dtype)
 
 
@@ -629,9 +660,11 @@ def ssm_block(x, p, cfg, init_state=None, return_state=False, pos_offset=None):
     [B, h, p, n] fp32)). On a tensor-parallel rank the weights are its
     shards (in_z, norm_w over d_inner; in_xbc, conv_w, conv_b over
     conv_dim; in_dt, dt_bias, A_log, D over heads; out_proj row-parallel)
-    and conv_dim, h and the state are the rank's (`_ssm_local`)."""
+    and conv_dim, h and the state are the rank's (`_ssm_local`); x enters
+    the input projections, cut over `model`, through `enter_model`."""
     B, L, D = x.shape
     dt_ = x.dtype
+    x = dctx.enter_model(x)
     z = x @ p["in_z"].to(dt_)
     xBC = x @ p["in_xbc"].to(dt_)
     dtr = x @ p["in_dt"].to(dt_)

@@ -303,24 +303,41 @@ def _xattn_forward(x, p, enc: torch.Tensor, cfg: ModelConfig, *, pos_offset=None
     masked and emits 0. Returns (out [B, S, D], {"ck", "cv"} [B, Sa, kh,
     hd]) or this rank's cut of them along the sequence, the keys and values
     every decode step attends."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     q, k, v = _qkv(x, p, enc, cfg=cfg)
+    # the cache keeps the weights' layout; attention runs on the train
+    # rules' layout (`_attn_layout`), as self-attention does
+    cache = {"ck": k, "cv": v}
+    q, k, v, back = _attn_layout(q, k, v, cfg)
     qpos = torch.arange(S, device=x.device)
     if pos_offset is not None:
         qpos = qpos[None, :] - pos_offset.to(device=x.device, dtype=torch.int64)[:, None]
     kpos = torch.arange(k.shape[1], device=x.device)
-    kh, g, hd = q.shape[2:]
-    o = L.attention(q.reshape(B, S, kh * g, hd), k, v, qpos, kpos, causal=False, window=0)
-    return _out(o.reshape(B, S, kh, g, hd), p["wo"], cfg), _seq_local({"ck": k, "cv": v})
+    b, kh, g, hd = q.shape[0], *q.shape[2:]
+    o = L.attention(q.reshape(b, S, kh * g, hd), k, v, qpos, kpos, causal=False, window=0)
+    return _out(back(o.reshape(b, S, kh, g, hd)), p["wo"], cfg), _seq_local(cache)
+
+
+def _enc_block(x, bp: Tree, cfg: ModelConfig) -> torch.Tensor:
+    """One encoder block: its FSDP-cut weights gathered (`_fsdp_layer`),
+    the non-causal self-attention, the MLP."""
+    bp = _fsdp_layer(bp, cfg, ("attn", "mlp"))
+    h = L.rmsnorm(x, bp["mixer"]["ln"], cfg.norm_eps)
+    o, _ = _attn_forward(h, bp["mixer"], cfg, causal=False, make_cache=False)
+    x = x + o
+    h = L.rmsnorm(x, bp["ffn"]["ln"], cfg.norm_eps)
+    return x + L.mlp(h, bp["ffn"])
 
 
 def encode_audio(params: Tree, audio_frames: Optional[torch.Tensor],
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, train: bool = False) -> torch.Tensor:
     """whisper's encoder over audio_frames [B, n_audio_ctx, d_model] (stub
     frame embeddings, after the conv front end): per layer a non-causal
     self-attention roped at positions 0..n_audio_ctx-1 and an MLP, then a
     final RMSNorm. Returns [B, n_audio_ctx, d_model] in the activation
-    dtype."""
+    dtype. Each block gathers its FSDP-cut weights as a decoder layer does;
+    train with `cfg.remat`: each block is recomputed in the backward pass,
+    as the decoder layers are."""
     if audio_frames is None:
         raise ValueError(
             f"{cfg.name} is an encoder-decoder: its prefill needs audio_frames "
@@ -329,11 +346,10 @@ def encode_audio(params: Tree, audio_frames: Optional[torch.Tensor],
     x = audio_frames.to(device=enc["ln"].device, dtype=_dtype(cfg))
     for i in range(cfg.enc_layers):
         bp = _layer(enc["blocks"], i)
-        h = L.rmsnorm(x, bp["mixer"]["ln"], cfg.norm_eps)
-        o, _ = _attn_forward(h, bp["mixer"], cfg, causal=False, make_cache=False)
-        x = x + o
-        h = L.rmsnorm(x, bp["ffn"]["ln"], cfg.norm_eps)
-        x = x + L.mlp(h, bp["ffn"])
+        if train and cfg.remat:
+            x = checkpoint(_enc_block, x, bp, cfg, use_reentrant=False)
+        else:
+            x = _enc_block(x, bp, cfg)
     return L.rmsnorm(x, enc["ln"], cfg.norm_eps)
 
 
@@ -364,25 +380,35 @@ def _ffn(x, sub: Tree, cfg: ModelConfig, ffn: str):
     return x + L.mlp(h, sub["ffn"]), None
 
 
-# the d_model dim of the attention and MLP weights of a layer
-_D_DIM = {"wq": 0, "wk": 0, "wv": 0, "wo": -1, "wi_gate": 0, "wi_up": 0}
+# the d_model dim of each weight of a sublayer kind that carries one (the
+# train rules' `embed`): attention (self and cross), MLP, the Mamba2 block,
+# and the MoE's router and shared experts (the routed experts' d_model cut,
+# `expert_embed`, is gathered per product: `layers._gather_d`)
+_ATTN_D = {"wq": 0, "wk": 0, "wv": 0, "wo": -1}
+_MLP_D = {"wi_gate": 0, "wi_up": 0, "wo": -1}
+_D_DIM = {"attn": _ATTN_D, "mlp": _MLP_D, "moe": {"router": 0, "shared": _MLP_D},
+          "ssm": {"in_z": 0, "in_xbc": 0, "in_dt": 0, "out_proj": -1}}
+
+
+def _gathered(tree: Tree, dims: Dict[str, Any], cfg: ModelConfig) -> Tree:
+    return {k: (w if k not in dims else _gathered(w, dims[k], cfg) if isinstance(w, dict)
+                else dctx.gather_fsdp(w, dims[k], cfg.d_model))
+            for k, w in tree.items()}
 
 
 def _fsdp_layer(sub: Tree, cfg: ModelConfig, kind: Tuple[str, str]) -> Tree:
-    """The layer's attention and MLP weights whole along d_model: those the
-    train rules cut over the data axes (FSDP) are gathered here, inside the
-    layer, so that under remat the gathered copies live only while the
-    layer runs and are gathered again in its recomputation
-    (`ctx.gather_fsdp`); the others, every weight on one device and under
-    the serve rules, are the layer's own."""
+    """The layer's weights whole along d_model: those the train rules cut
+    over the data axes (FSDP) are gathered here, inside the layer, so that
+    under remat the gathered copies live only while the layer runs and are
+    gathered again in its recomputation (`ctx.gather_fsdp`); the others,
+    every weight on one device and under the serve rules, are the layer's
+    own."""
     if dctx.coordinate(dctx.DP)[1] == 1:
         return sub
     out = dict(sub)
-    names = (["mixer"] if kind[0] == "attn" else []) + (["xattn"] if "xattn" in sub else []) \
-        + (["ffn"] if kind[1] == "mlp" else [])
-    for name in names:
-        out[name] = {k: dctx.gather_fsdp(w, _D_DIM[k], cfg.d_model) if k in _D_DIM else w
-                     for k, w in sub[name].items()}
+    for name, k in (("mixer", kind[0]), ("xattn", "attn"), ("ffn", kind[1])):
+        if name in sub and k in _D_DIM:
+            out[name] = _gathered(sub[name], _D_DIM[k], cfg)
     return out
 
 
@@ -444,7 +470,7 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  >= pos_offset.to(x.device)[:, None])
         x = x * valid[..., None].to(dt)
-    enc = encode_audio(params, audio_frames, cfg) if cfg.enc_layers else None
+    enc = encode_audio(params, audio_frames, cfg, train) if cfg.enc_layers else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     entries = []
     for kind, sub in zip(cfg.layer_kinds(), _layers(cfg, params)):

@@ -51,7 +51,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import reduced as ref_reduced  # noqa: E402
 from repro.core import steps as rsteps  # noqa: E402
-from repro.distributed import sharding as rshd  # noqa: E402
 from repro.models import api as rapi  # noqa: E402
 from repro.training import optimizer as ropt  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
@@ -64,6 +63,7 @@ from repro_torch.training import train_loop  # noqa: E402
 from repro_torch.training.grad_compression import compress_grads  # noqa: E402
 from torch_tp_ranks import (TRAIN_CASES, TRAIN_OPT, train_batches,  # noqa: E402
                             train_config, train_rank)
+from torch_train_checks import check_state, train_cut_shapes  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -132,44 +132,6 @@ def _ranks(shape, tmp_path_factory):
     return _SPAWNS[shape]
 
 
-class FakeMesh:
-    def __init__(self, sizes):
-        self.shape = dict(sizes)
-        self.axis_names = tuple(sizes)
-
-
-def _train_cut_shapes(arch, shape):
-    """{path: local shape} of the JAX package's weights cut by its train
-    PartitionSpecs on `shape`."""
-    rcfg, fake = _ref_cfg(arch), FakeMesh({"data": shape[0], "model": shape[1]})
-    rules = rshd.train_rules(fake, rcfg)
-    specs = rapi.param_specs(rcfg)
-    flat = jax.tree_util.tree_flatten_with_path(specs)[0]
-    axes = jax.tree.leaves(rapi.param_axes(rcfg), is_leaf=lambda x: isinstance(x, tuple))
-    out = {}
-    for (path, s), a in zip(flat, axes):
-        spec = rshd.spec_for(s.shape, a, rules, fake)
-        out[".".join(k.key for k in path)] = tuple(
-            d // rshd._axis_size(fake, e) if e is not None else d for d, e in zip(s.shape, spec))
-    return out
-
-
-def _check_state(got, want, init, lr_sum, tol=1e-4):
-    """tests/test_torch_train_step.py's `_check_state` on numpy trees."""
-    assert got.keys() == want.keys()
-    for path, w in want.items():
-        g = got[path]
-        assert g.dtype == w.dtype, path
-        if path.startswith("params."):
-            p0 = init[path[len("params."):]]
-            du, dw = g - p0, w - p0
-            assert np.linalg.norm(du - dw) <= 1e-3 * np.linalg.norm(dw) + 1e-12, path
-            assert np.abs(g - w).max() <= 2 * lr_sum, path
-        else:
-            assert_allclose(g, w, rtol=tol, atol=tol * max(float(np.abs(w).max()), 1e-30),
-                            err_msg=path)
-
-
 @pytest.mark.parametrize("name", list(TRAIN_CASES))
 def test_sharded_step_matches_reference(name, tmp_path_factory):
     arch, shape, b, _, mb, dp = TRAIN_CASES[name]
@@ -183,7 +145,7 @@ def test_sharded_step_matches_reference(name, tmp_path_factory):
     # model axis wider than 1; else head_dim gathered where it is cut
     relayout = dp and shape[1] > 1 and b // mb >= shape[0] * shape[1] // 2
     hd_gather = not relayout and train_config(arch).n_kv_heads % shape[1] != 0
-    want_shapes = _train_cut_shapes(arch, shape)
+    want_shapes = train_cut_shapes(_ref_cfg(arch), shape)
     for r in ranks:
         got = r[name]
         assert got["shapes"] == want_shapes, r["coord"]
@@ -196,7 +158,7 @@ def test_sharded_step_matches_reference(name, tmp_path_factory):
                 assert_allclose(m[k], w[k], rtol=METRIC_RTOL, atol=1e-7,
                                 err_msg=f"{name} {k} {r['coord']}")
     lr_sum = sum(m["lr"] for m in want_metrics)
-    _check_state(ranks[0][name]["state"], want_state, init, lr_sum)
+    check_state(ranks[0][name]["state"], want_state, init, lr_sum)
     assert int(ranks[0][name]["state"]["opt.step"]) == 2
 
 
@@ -358,7 +320,7 @@ def test_jax_sharded_step_agrees_with_the_port(jax_sharded, tmp_path_factory):
             assert_allclose(want_metrics[i][k], ref, rtol=METRIC_RTOL, err_msg=k)
     state = {k[len("state/"):]: v for k, v in jax_sharded.items() if k.startswith("state/")}
     init = dict(leaves(_weights("tinyllama-1.1b")))
-    _check_state(got["state"], state, init, sum(m["lr"] for m in want_metrics))
+    check_state(got["state"], state, init, sum(m["lr"] for m in want_metrics))
 
 
 def test_allreduce_compressed_matches_reference(jax_sharded, tmp_path_factory):
@@ -392,16 +354,30 @@ def test_allreduce_compressed_matches_reference(jax_sharded, tmp_path_factory):
                                        ("mamba2-370m", "SSM"), ("jamba-v0.1-52b", "hybrid"),
                                        ("whisper-base", "encoder-decoder")])
 def test_sharded_train_step_refuses_other_families_by_name(arch, what):
-    """The MoE, SSM, hybrid and encoder-decoder families do not train
-    sharded yet: the step refuses each by name, full and reduced, and so
-    does the train loop on a mesh; the attention families' full configs
-    are taken on the production mesh's rules."""
-    for cfg in (get_config(arch), reduced(arch)):
-        with pytest.raises(ValueError, match=f"not the {what} family.*item 7.6"):
-            steps.make_sharded_train_step(cfg, {"data": 2, "model": 2})
+    """The sharded train step refuses no family by name: the MoE, SSM,
+    hybrid and encoder-decoder families' full configs are taken on the
+    production mesh's rules (16 x 16, and 2 x 16 x 16 with `pod`), their
+    reduced configs on (2, 2), as the attention families' are. What it
+    still refuses is a layout the model's collectives cannot close, naming
+    the leaf: 2 KV heads on 3 model ranks, an SSM leaf's heads or an
+    expert leaf's hidden units that 3 or 4 model ranks do not cut."""
+    for mesh in ({"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16}):
+        steps.make_sharded_train_step(get_config(arch), mesh)
+    steps.make_sharded_train_step(reduced(arch), {"data": 2, "model": 2})
+    assert get_config(arch).family == {"MoE": "moe", "SSM": "ssm", "hybrid": "hybrid",
+                                       "encoder-decoder": "audio"}[what]
     for ok in ("tinyllama-1.1b", "h2o-danube-1.8b", "granite-3-8b", "yi-34b",
                "phi-3-vision-4.2b"):
         steps.make_sharded_train_step(get_config(ok), {"data": 16, "model": 16})
         steps.make_sharded_train_step(reduced(ok), {"data": 2, "model": 2})
     with pytest.raises(ValueError, match="is not cut over the model axis"):
         steps.make_sharded_train_step(reduced("tinyllama-1.1b"), {"data": 1, "model": 3})
+    # 16 SSM heads on 3 model ranks; 130 expert hidden units on 4
+    with pytest.raises(ValueError, match=r"mixer\.A_log dim 1 \(ssm_heads\) is not cut "
+                                         "over the model axis"):
+        steps.make_sharded_train_step(reduced("mamba2-370m"), {"data": 1, "model": 3})
+    with pytest.raises(ValueError, match=r"ffn\.wi_gate dim 3 \(expert_mlp\) is not cut "
+                                         "over the model axis"):
+        steps.make_sharded_train_step(dataclasses.replace(reduced("mixtral-8x22b"),
+                                                          moe_d_ff=130),
+                                      {"data": 1, "model": 4})

@@ -1,6 +1,7 @@
 """Rank workers of tests/test_torch_tp_serve.py, tests/test_torch_ep_moe.py,
-tests/test_torch_tp_families.py, tests/test_torch_small_serve.py and
-tests/test_torch_sharded_train.py. Spawned ranks import this module, not
+tests/test_torch_tp_families.py, tests/test_torch_small_serve.py,
+tests/test_torch_sharded_train.py and
+tests/test_torch_sharded_train_families.py. Spawned ranks import this module, not
 the test modules, so they start without JAX: they run the port only, and
 the tests compare their results with the JAX package."""
 import dataclasses
@@ -305,6 +306,9 @@ def train_batches(cfg, b, s, n=2, seed=0):
         if cfg.n_img_tokens:
             bt["img_embeds"] = rng.standard_normal(
                 (b, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.enc_layers:
+            bt["audio_frames"] = rng.standard_normal(
+                (b, cfg.n_audio_ctx, cfg.d_model)).astype(np.float32)
         out.append(bt)
     return out
 
@@ -387,4 +391,117 @@ def train_rank(rank, world, backend, shape, cases, loop_dir, compress):
             avg, err = allreduce_compressed(g, e)
         out["compress"] = ({k: v.numpy() for k, v in avg.items()},
                            {k: v.numpy() for k, v in err.items()})
+    return out
+
+
+# The sharded train step of the MoE, SSM, hybrid and encoder-decoder
+# families (tests/test_torch_sharded_train_families.py): name: (arch, mesh,
+# batch rows, sequence, microbatches, fields replaced in its reduced
+# config), at the configs' capacity. moonshot's 4 experts cut over 2 data
+# ranks (expert parallel); mixtral with 3 experts, which 2 data ranks do
+# not divide (weight-gather: the experts' d_model cut over `data`); jamba
+# in 2 microbatches (its TRAIN_MICROBATCHES, 16, does not divide 4 rows);
+# moonshot with the sort dispatch takes the MoE's global groups. A mesh of
+# three axes is (pod, data, model): on (2, 2, 1) the experts go over `data`
+# alone (EP; their gradients summed over `pod`) or their d_model over `pod`
+# and `data` (weight-gather), and the MoE groups over both.
+FAMILY_TRAIN_CASES = {
+    "moonshot-ep-2x2": ("moonshot-v1-16b-a3b", (2, 2), 4, TRAIN_SEQ, 1, {}),
+    "mixtral-wg-2x2": ("mixtral-8x22b", (2, 2), 4, TRAIN_SEQ, 1, dict(n_experts=3)),
+    "mamba2-1x4": ("mamba2-370m", (1, 4), 4, TRAIN_SEQ, 1, {}),
+    "mamba2-2x2": ("mamba2-370m", (2, 2), 4, TRAIN_SEQ, 1, {}),
+    "jamba-2x2": ("jamba-v0.1-52b", (2, 2), 4, TRAIN_SEQ, 2, {}),
+    "whisper-2x2": ("whisper-base", (2, 2), 4, TRAIN_SEQ, 1, {}),
+    "moonshot-sort-2x2": ("moonshot-v1-16b-a3b", (2, 2), 4, TRAIN_SEQ, 1,
+                          dict(moe_impl="sort")),
+    "moonshot-ep-2x2x1": ("moonshot-v1-16b-a3b", (2, 2, 1), 4, TRAIN_SEQ, 1, {}),
+    "mixtral-wg-2x2x1": ("mixtral-8x22b", (2, 2, 1), 4, TRAIN_SEQ, 1, dict(n_experts=3)),
+}
+# train() on a mesh for one MoE arch: reduced moonshot, 4 steps of 4 x 16
+# tokens. Groups of 32 tokens are the same groups on one device and on 2
+# data ranks; the router loss weighs 0, since a mesh's is the mean of the
+# data ranks' losses over their own tokens (in both packages)
+FAMILY_LOOP_ARCH = "moonshot-v1-16b-a3b"
+FAMILY_LOOP_FIELDS = dict(moe_group_size=32, router_aux_weight=0.0)
+
+
+def family_train_config(name):
+    arch, _, _, _, _, fields = FAMILY_TRAIN_CASES[name]
+    return dataclasses.replace(train_config(arch), **fields)
+
+
+def family_loop_config():
+    return dataclasses.replace(train_config(FAMILY_LOOP_ARCH), **FAMILY_LOOP_FIELDS)
+
+
+def family_train_rank(rank, world, backend, shape, cases, loop_dir):
+    """One rank of a mesh of tests/test_torch_sharded_train_families.py.
+    cases: {name: (the JAX package's weights as numpy, the batches)}, each
+    through two sharded train steps from the weights cut by
+    `shard_train_state`; returns each step's metrics, the rank's shard
+    shapes, the calls of `layers.moe_shard_map` and of the data-axis sum's
+    backward of the global groups, and on rank 0 the whole state after
+    (`unshard_train_state`). loop_dir (or None): train() of reduced
+    moonshot on the mesh, 4 steps with a checkpoint every 2, and again in
+    a second directory failing at step 3 and restarted."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import layers as L
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", shape,
+                            mesh_dim_names=("pod", "data", "model")[-len(shape):])
+    out = {"coord": list(mesh.get_coordinate())}
+    calls = {"moe_shard_map": 0, "own_rows": 0}
+    shard_map, close = L.moe_shard_map, L._close_experts
+
+    def counted_shard_map(*a, **k):
+        calls["moe_shard_map"] += 1
+        return shard_map(*a, **k)
+
+    def counted_close(y, p, n, own_rows=False):
+        calls["own_rows"] += bool(own_rows)
+        return close(y, p, n, own_rows)
+
+    L.moe_shard_map, L._close_experts = counted_shard_map, counted_close
+    for name, (jp, batches) in cases.items():
+        mb = FAMILY_TRAIN_CASES[name][4]
+        cfg = family_train_config(name)
+        params = from_reference(jp, cfg, "cpu")
+        local = steps.shard_train_state({"params": params, "opt": init_opt_state(params)},
+                                        cfg, mesh)
+        step = steps.make_sharded_train_step(cfg, mesh, OptConfig(**TRAIN_OPT), mb)
+        calls.update(moe_shard_map=0, own_rows=0)
+        metrics = []
+        for b in batches:
+            local, m = step(local, steps.shard_train_batch(b, mesh, mb))
+            metrics.append({k: float(v) for k, v in m.items()})
+        whole = steps.unshard_train_state(local, cfg, mesh)
+        out[name] = dict(metrics=metrics, calls=dict(calls),
+                         shapes={k: tuple(v.shape) for k, v in leaves(local["params"])},
+                         state=({k: v.numpy() for k, v in leaves(whole)} if rank == 0
+                                else None))
+    if loop_dir is not None:
+        cfg = family_loop_config()
+        dc = DataConfig(global_batch=4, seq_len=16)
+
+        def run(sub, **kw):
+            tc = train_loop.TrainLoopConfig(total_steps=4, ckpt_dir=os.path.join(loop_dir, sub),
+                                            ckpt_every=2, log_every=100)
+            return train_loop.train(cfg, dc, tc, device="cpu", mesh=mesh, **kw)
+
+        whole = run("whole")
+        try:
+            run("restart", fail_at_step=3)
+            failed = None
+        except RuntimeError as e:
+            failed = str(e)
+        again = run("restart")
+        final = steps.unshard_train_state(whole["final_state"], cfg, mesh)
+        out["loop"] = dict(losses=whole["losses"], failed=failed, restarted=again["losses"],
+                           final=({k: v.numpy() for k, v in leaves(final)} if rank == 0
+                                  else None))
     return out

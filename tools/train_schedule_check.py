@@ -53,7 +53,7 @@ def step_rank(rank, world, backend, shape, dtype, variant):
     if variant == "fp32-product":
         dctx._MmF32.apply = staticmethod(lambda a2, w: a2.float() @ w.float())
     mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
-    cfg = dataclasses.replace(cs.st_config(dtype), n_layers=LAYERS)
+    cfg = dataclasses.replace(cs.train_case_config(cs.SHARD_TRAIN_CASES["a"], dtype), n_layers=LAYERS)
     state = steps.init_sharded_train_state(cfg, torch.Generator("cuda").manual_seed(0),
                                            "cuda", mesh)
     step = steps.make_sharded_train_step(cfg, mesh, OptConfig(**cs.SHARD_OPT))
@@ -87,7 +87,7 @@ def main() -> int:
     print(f"card: {cs.card_line()}")
     print("allreduce", run_ranks(allreduce_rank, 2, (), device="cuda", timeout=120))
     for dtype in ("bfloat16", "float32"):
-        cfg = dataclasses.replace(cs.st_config(dtype), n_layers=LAYERS)
+        cfg = dataclasses.replace(cs.train_case_config(cs.SHARD_TRAIN_CASES["a"], dtype), n_layers=LAYERS)
         state = steps.init_train_state(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
         step = steps.make_train_step(cfg, OptConfig(**cs.SHARD_OPT))
         ms = []
