@@ -283,8 +283,8 @@ Phases, each fatal on failure:
    process) and at tp 2 (rank 0 of (a)).
 19. tensor-parallel families — the MoE, SSM and hybrid families at full
    width through core/steps.sharded_prefill and sharded_decode on spawned
-   gloo ranks that share the card: (d) moonshot-v1-16b-a3b, 4 of 48
-   layers, mesh (2, 2), its 64 experts over 2 data ranks (expert
+   gloo ranks that share the card: (d) moonshot-v1-16b-a3b, 2 of 48
+   layers (its dense first layer and one MoE layer), mesh (2, 2), its 64 experts over 2 data ranks (expert
    parallel); (e) mixtral-8x22b, 1 of 56 layers and 1 decode step, (3,
    2), weight-gather (8 experts, d_model over 3 data ranks: each forward
    gathers the layer's expert leaves through host memory), 12 rows; (f)
@@ -331,7 +331,7 @@ Phases, each fatal on failure:
    no valid key among them); weight and cache bytes equal to its share of
    every cut leaf plus the whole ones. bf16: agreement printed. Printed:
    the decode step's wall ms unsharded and sharded.
-21. sharded training — tinyllama-1.1b at full width, 4 of 22 layers,
+21. sharded training — tinyllama-1.1b at full width, 2 of 22 layers,
    through core/steps.make_sharded_train_step on spawned gloo ranks that
    share the card, from the seed-0 state cut by the train rules (FSDP:
    d_model over `data`; TP over `model`: KV heads, or head_dim where the
@@ -371,6 +371,30 @@ Phases, each fatal on failure:
    loss, whose last loss must be below the first (gated). Printed: each
    rank's master and peak bytes, the steps' wall ms sharded and on one
    card. No kernel runs in it.
+23. the GPipe pipeline and the dry run — (a) distributed/pipeline.py on 4
+   ranks (gloo sharing the card; NCCL with a card a rank where there are
+   4), each stage 2 full-width tinyllama-1.1b decoder layers
+   (lm._sublayer), 8 microbatches of [1, 512, 2,048], in fp32 and bf16:
+   the outputs must equal (torch.equal) the same 8 layers applied
+   microbatch by microbatch on one card, and at fp32 each stage's weight
+   gradients of sum(out * r) must lie within 1e-6 of their max abs of one
+   card's (gated); printed: the bubble fraction, ms a schedule step, the
+   pipeline's wall against one card's. (b) The dry run
+   (launch/dryrun.py, a subprocess on the CPU, a fake world of 256 or 512
+   ranks) of tinyllama-1.1b train_4k and decode_32k on pod16x16 and
+   train_4k on pod2x16x16, each gated on status ok and the JAX package's
+   record keys; moonshot-v1-16b-a3b decode_32k on pod2x16x16 printed, not
+   gated; printed: each cell's roofline terms, bottleneck, bytes a device,
+   logical and sent wire bytes. (c) The count held against the card, on a
+   1 x 1 mesh, full-width tinyllama-1.1b in bf16: the train step at 4 x
+   2,048 and a decode step at B 8 against a 2,048-slot cache. Gated: the
+   lowered step's argument bytes equal the real state's and inputs' bytes
+   exactly, and the measured median step is no faster than the roofline's
+   t_bound; printed: max_memory_allocated beside the count's
+   bytes_per_device, and the step's share of the bf16 peak from the
+   counted dot FLOPs. No kernel of the seven runs in (a) or (c)'s train
+   step; (c)'s decode step runs decode attention, not counted in the
+   kernels line.
 
 Every phase prints its seconds ("phase N seconds:").
 
@@ -409,8 +433,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_S = 3.35e12   # H100 SXM data sheet
-FP32_FLOPS_S = 67e12    # H100 SXM data sheet, fp32 on the CUDA cores
+if str(ROOT / "src") not in sys.path:
+    sys.path.insert(0, str(ROOT / "src"))
+# H100 SXM data-sheet peaks: HBM3 bytes/s, fp32 FLOP/s on the CUDA cores
+from repro_torch.analysis.roofline import FP32_FLOPS as FP32_FLOPS_S  # noqa: E402
+from repro_torch.analysis.roofline import HBM_BW as HBM_BYTES_S  # noqa: E402
 # audio (N, L) at 48 kHz: 1 s, 4 s and 30 s utterances (T = 98, 398, 2,998 frames)
 SHAPES = [(1, 48_000), (16, 48_000), (1, 192_000), (16, 192_000), (1, 1_440_000),
           (16, 1_440_000)]
@@ -3697,9 +3724,11 @@ FAM_TP_PROMPT, FAM_TP_STEPS = 32, 8
 # host staging, ~4 s a leaf on the card (two steps until phase 21 came:
 # the script's time limit); (f) the SSM block's channels and
 # heads over 2 and 4 model ranks; (g) one whole block of jamba's 8 layers
-# (attention, SSM, MoE, MLP), EP. moonshot at 4 layers and mamba2 at 24
-# of 48, so that the script with phase 22 stays within its time limit.
-FAM_TP_CASES = {"d": ("moonshot-v1-16b-a3b", (2, 2), 4, 8, FAM_TP_STEPS),
+# (attention, SSM, MoE, MLP), EP. moonshot at 2 layers (4 until phase 23
+# came) and mamba2 at 24 of 48, so that the script stays within its time
+# limit. At 12 layers mamba2's bf16 tokens at (1, 4) flipped at a top-2 gap
+# of 3.131e-02, just past the 3e-2 near-tie allowance (ROADMAP Queue 3 C).
+FAM_TP_CASES = {"d": ("moonshot-v1-16b-a3b", (2, 2), 2, 8, FAM_TP_STEPS),
                 "e": ("mixtral-8x22b", (3, 2), 1, 12, 1),
                 "f2": ("mamba2-370m", (1, 2), 24, 8, FAM_TP_STEPS),
                 "f4": ("mamba2-370m", (1, 4), 24, 8, FAM_TP_STEPS),
@@ -4459,7 +4488,7 @@ def small_serve_phase(torch, F, np, card, cases=None) -> dict:
 # --- phases 21 and 22: the sharded train step ---
 
 SHARD_TRAIN_ARCH = "tinyllama-1.1b"
-SHARD_TRAIN_LAYERS = 4
+SHARD_TRAIN_LAYERS = 2   # 4 until phase 23 came: the script's time limit
 SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 4, 256   # every case's global batch
 SHARD_TRAIN_STEPS = 2           # fp32 steps held against one card
 SHARD_BF16_STEPS = 5
@@ -4855,6 +4884,349 @@ def sharded_families_train_phase(torch, np, card, cases=None) -> dict:
                        "sharded family training")
 
 
+# ---------------------------------------------------------------------------
+# 23. the GPipe pipeline and the dry-run tooling
+# ---------------------------------------------------------------------------
+
+PIPE_ARCH = "tinyllama-1.1b"
+PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO, PIPE_SEQ = 4, 8, 8, 512   # 2 layers a stage
+PIPE_GRAD_TOL = 1e-6   # a stage's gradient leaf: max abs difference over its max abs
+PIPE_DTYPES = ("float32", "bfloat16")
+# (arch, shape, multi_pod, gated)
+DRYRUN_CELLS = [("tinyllama-1.1b", "train_4k", False, True),
+                ("tinyllama-1.1b", "decode_32k", False, True),
+                ("tinyllama-1.1b", "train_4k", True, True),
+                ("moonshot-v1-16b-a3b", "decode_32k", True, False)]
+COUNT_TRAIN = (4, 2048)     # phase 17's batch x sequence
+COUNT_DECODE = (8, 2048)    # rows x cache slots
+COUNT_TRAIN_STEPS, COUNT_DECODE_STEPS = 3, 10
+
+
+def pipe_inputs(torch):
+    """(cfg, every stage's layers stacked [stages, layers a stage, ...],
+    microbatches [micro, 1, seq, d_model], r of their shape), in fp32:
+    full-width tinyllama-1.1b cut to PIPE_LAYERS layers, its seed-0 layer
+    weights drawn on the card (the body's leaves come first in the draw
+    order, so the rest is not drawn), inputs from seeds 1 and 2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import _set, iter_params, tree_map
+
+    cfg = dataclasses.replace(get_config(PIPE_ARCH), n_layers=PIPE_LAYERS)
+    per = PIPE_LAYERS // PIPE_STAGES
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    params = {}
+    for path, t in iter_params(cfg, gen(0), "cuda", "float32"):
+        if not path.startswith("body."):
+            break
+        _set(params, path, t)
+    stacked = tree_map(lambda *ls: torch.stack(ls).reshape((PIPE_STAGES, per) + ls[0].shape),
+                       *lm._layers(cfg, params))
+    shape = (PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model)
+    mbs = torch.randn(shape, generator=gen(1), device="cuda")
+    r = torch.randn(shape, generator=gen(2), device="cuda")
+    return cfg, stacked, mbs, r
+
+
+def pipe_stage_fn(cfg):
+    """A stage: its layers (the leading dim of each leaf) in turn."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_map
+
+    kind = cfg.layer_kinds()[0]
+
+    def stage_fn(sub, x):
+        for i in range(PIPE_LAYERS // PIPE_STAGES):
+            x, _, _ = lm._sublayer(x, tree_map(lambda t: t[i], sub), None, cfg, kind,
+                                   train=True, cache_len=0, pos_offset=None)
+        return x
+
+    return stage_fn
+
+
+def pipe_rank(rank, world, backend, ref_dir):
+    """One stage of phase 23 (a): the pipeline's outputs against one card's
+    (saved by the parent in `ref_dir`), and at fp32 its stage's weight
+    gradients of sum(out * r) against one card's. Each dtype's timed run
+    follows a warm-up on one microbatch. Returns plain data."""
+    import torch
+
+    from repro_torch.distributed import pipeline as pp
+    from repro_torch.models.params import leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pp.make_pipe_mesh(world)
+    stage = mesh.get_local_rank("pipe")
+    cfg, stacked, mbs32, r = pipe_inputs(torch)
+    mine32 = pp.stage_params(stacked, mesh)
+    del stacked
+    out = {"backend": backend, "stage": stage}
+    for dtype in PIPE_DTYPES:
+        dt, grad = getattr(torch, dtype), dtype == "float32"
+        mine = tree_map(lambda t: t.detach().to(dt).requires_grad_(grad), mine32)
+        mbs, fn = mbs32.to(dt), pipe_stage_fn(dataclasses.replace(cfg, dtype=dtype))
+        with torch.no_grad():
+            pp.pipeline_apply(fn, mine, mbs[:1], mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pp.pipeline_apply(fn, mine, mbs, mesh)
+        torch.cuda.synchronize()
+        out[f"{dtype}_wall_s"] = time.perf_counter() - t0
+        want = torch.load(os.path.join(ref_dir, f"{dtype}_out.pt"), map_location="cuda")
+        out[f"{dtype}_equal"] = bool(torch.equal(y, want))
+        out[f"{dtype}_max_abs_err"] = float((y.detach().float() - want.float()).abs().max())
+        if grad:
+            (y * r).sum().backward()
+            ref = torch.load(os.path.join(ref_dir, "grads.pt"), mmap=True)
+            worst, where = 0.0, ""
+            for path, p in leaves(mine):
+                g = ref[path][stage].to("cuda")
+                err = float((p.grad - g).abs().max() / g.abs().max())
+                if err >= worst:
+                    worst, where = err, path
+            out["grad_rel_err"], out["grad_worst_leaf"] = worst, where
+        del mine, y, mbs
+        torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_check(torch, card) -> dict:
+    """Phase 23 (a): one card's reference in this process (outputs of both
+    dtypes and the fp32 gradients, saved to a temporary directory), then
+    the pipeline on PIPE_STAGES spawned ranks."""
+    import tempfile
+
+    from repro_torch.distributed.pipeline import bubble_fraction
+    from repro_torch.launch.mesh import backend_for, run_ranks
+    from repro_torch.models.params import leaves, tree_map
+
+    out = {"stages": PIPE_STAGES, "layers": PIPE_LAYERS, "micro": PIPE_MICRO,
+           "microbatch": [1, PIPE_SEQ], "bubble_fraction": bubble_fraction(PIPE_STAGES,
+                                                                          PIPE_MICRO)}
+    with tempfile.TemporaryDirectory() as ref_dir:
+        cfg, stacked32, mbs32, r = pipe_inputs(torch)
+        for dtype in PIPE_DTYPES:
+            dt, grad = getattr(torch, dtype), dtype == "float32"
+            stacked = tree_map(lambda t: t.detach().to(dt).requires_grad_(grad), stacked32)
+            mbs, fn = mbs32.to(dt), pipe_stage_fn(dataclasses.replace(cfg, dtype=dtype))
+
+            def one_card(mbs):
+                ys = []
+                for mb in mbs:
+                    for s in range(PIPE_STAGES):
+                        mb = fn(tree_map(lambda t: t[s], stacked), mb)
+                    ys.append(mb)
+                return torch.stack(ys)
+
+            with torch.no_grad():
+                one_card(mbs[:1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = one_card(mbs)
+            torch.cuda.synchronize()
+            out[f"{dtype}_one_card_wall_s"] = time.perf_counter() - t0
+            torch.save(y.detach(), os.path.join(ref_dir, f"{dtype}_out.pt"))
+            if grad:
+                (y * r).sum().backward()
+                torch.save({path: p.grad for path, p in leaves(stacked)},
+                           os.path.join(ref_dir, "grads.pt"))
+            del stacked, mbs, y
+            torch.cuda.empty_cache()
+        del stacked32, mbs32, r
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(pipe_rank, PIPE_STAGES, (ref_dir,), device="cuda", timeout=600)
+        out["ranks_wall_s"] = time.perf_counter() - t0
+    out["backend"] = backend_for("cuda", PIPE_STAGES)
+    steps_n = PIPE_MICRO + PIPE_STAGES - 1
+    for dtype in PIPE_DTYPES:
+        if not all(rk[f"{dtype}_equal"] for rk in ranks):
+            fail(f"pipeline ({dtype}): outputs differ from one card's, max abs "
+                 f"{max(rk[f'{dtype}_max_abs_err'] for rk in ranks):.3e}")
+        wall = max(rk[f"{dtype}_wall_s"] for rk in ranks)
+        out[f"{dtype}_wall_s"] = wall
+        out[f"{dtype}_ms_a_step"] = 1e3 * wall / steps_n
+    worst = max(ranks, key=lambda rk: rk["grad_rel_err"])
+    out["grad_rel_err"], out["grad_worst_leaf"] = worst["grad_rel_err"], (
+        f"stage {worst['stage']} {worst['grad_worst_leaf']}")
+    if not out["grad_rel_err"] <= PIPE_GRAD_TOL:
+        fail(f"pipeline: a stage's gradient is {out['grad_rel_err']:.3e} of its max abs from "
+             f"one card's ({out['grad_worst_leaf']}), over {PIPE_GRAD_TOL}")
+    print(f"pipeline: {PIPE_ARCH} full width, {PIPE_LAYERS} layers as {PIPE_STAGES} stages "
+          f"({out['backend']}), {PIPE_MICRO} microbatches of [1, {PIPE_SEQ}, {cfg.d_model}]: "
+          f"outputs equal one card's in fp32 and bf16; fp32 gradients within "
+          f"{out['grad_rel_err']:.2e} of their max abs ({out['grad_worst_leaf']}); bubble "
+          f"fraction {out['bubble_fraction']:.4f}; {steps_n} schedule steps, fp32 "
+          f"{out['float32_ms_a_step']:.1f} ms a step ({1e3 * out['float32_wall_s']:.1f} ms "
+          f"against {1e3 * out['float32_one_card_wall_s']:.1f} ms on one card), bf16 "
+          f"{out['bfloat16_ms_a_step']:.1f} ms a step ({1e3 * out['bfloat16_wall_s']:.1f} ms "
+          f"against {1e3 * out['bfloat16_one_card_wall_s']:.1f} ms) | {card}")
+    return out
+
+
+def dryrun_start(out_dir):
+    """Phase 23 (b), started: one subprocess (on the CPU) runs every cell of
+    DRYRUN_CELLS through launch/dryrun.run_cell."""
+    cells = [(a, s, m) for a, s, m, _ in DRYRUN_CELLS]
+    code = ("import json, pathlib, sys; from repro_torch.launch.dryrun import run_cell; "
+            f"[run_cell(a, s, m, pathlib.Path({str(out_dir)!r}), force=True) "
+            f"for a, s, m in {cells!r}]")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", code], env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def dryrun_check(proc, out_dir, card) -> dict:
+    """Phase 23 (b), read: each cell's record; the gated ones must be ok
+    with the JAX package's record keys (but compile_s)."""
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    if proc.returncode != 0:
+        fail(f"dryrun: the subprocess failed ({proc.returncode}): {err[-2000:]}")
+    ref = json.loads((ROOT / "results/dryrun/tinyllama-1.1b__train_4k__pod16x16.json")
+                     .read_text())
+    out = {}
+    for arch, shape, multi, gated in DRYRUN_CELLS:
+        cell = f"{arch}__{shape}__{'pod2x16x16' if multi else 'pod16x16'}"
+        rec = json.loads((Path(out_dir) / f"{cell}.json").read_text())
+        out[cell] = rec
+        if rec["status"] != "ok":
+            if gated:
+                fail(f"dryrun: {cell} is {rec['status']}: {rec.get('error', '')[:500]}")
+            print(f"dryrun {cell}: {rec['status']} ({rec.get('error', '')[:300]}) | {card}")
+            continue
+        if gated and not (set(ref) - {"compile_s"} <= set(rec)
+                          and set(ref["roofline"]) <= set(rec["roofline"])
+                          and set(ref["memory_analysis"]) == set(rec["memory_analysis"])):
+            fail(f"dryrun: {cell}'s record lacks the JAX package's keys")
+        r = rec["roofline"]
+        print(f"dryrun {cell}: ok in {rec['lower_s']:.1f} s; t_compute {r['t_compute']:.4e} s, "
+              f"t_memory {r['t_memory']:.4e} s, t_collective {r['t_collective']:.4e} s "
+              f"(logical {r['t_collective_logical']:.4e}), bottleneck {r['bottleneck']}, "
+              f"{rec['bytes_per_device'] / 2**30:.2f} GiB a device, wire "
+              f"{r['logical_wire_bytes_per_chip'] / 2**30:.3f} GiB logical / "
+              f"{r['wire_bytes_per_chip'] / 2**30:.3f} GiB sent a chip, collectives "
+              f"{r['collectives']}{'' if gated else ' (not gated)'} | {card}")
+    return out
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.models.params import leaves
+
+    return sum(t.numel() * t.element_size() for _, t in leaves(tree))
+
+
+def _timed_steps(torch, fn, n, warmup):
+    walls = []
+    for i in range(warmup + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            walls.append(time.perf_counter() - t0)
+    return 1e3 * float(sorted(walls)[len(walls) // 2])
+
+
+def count_check(torch, card) -> dict:
+    """Phase 23 (c): the lowered train and decode steps of full-width
+    tinyllama-1.1b on a 1 x 1 mesh on the card, their counts against the
+    real steps: argument bytes exactly, step ms no faster than t_bound."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(PIPE_ARCH)
+    mesh = make_local_mesh("cuda")   # a world of one in this process
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    b, s = COUNT_TRAIN
+    shape = ShapeConfig("train", "train", s, b)
+    low = steps.lower_train_step(cfg, shape, mesh)
+    cost = low.analyze()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_train_state(cfg, gen(0), "cuda")
+    batch = api.make_train_batch(cfg, b, s, gen(1), "cuda")
+    real = _nbytes(state) + _nbytes(batch)
+    holder = {"state": state}
+
+    def train_step():
+        holder["state"], m = low.fn(holder["state"], batch)
+        float(m["loss"])
+
+    ms = _timed_steps(torch, train_step, COUNT_TRAIN_STEPS, 1)
+    out["train"] = dict(cost=cost, real_argument_bytes=real, ms=ms,
+                        peak=torch.cuda.max_memory_allocated())
+    del state, holder, batch
+    torch.cuda.empty_cache()
+    b, s = COUNT_DECODE
+    shape = ShapeConfig("decode", "decode", s, b)
+    low = steps.lower_decode(cfg, shape, mesh)
+    cost = low.analyze()
+    torch.cuda.reset_peak_memory_stats()
+    params = steps.shard_params(init_params(cfg, gen(0), "cuda", cfg.dtype), cfg, mesh)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen(1), device="cuda",
+                         dtype=torch.int32)
+    _, cache = steps.sharded_prefill(cfg, mesh, batch=b)(
+        params, {"tokens": toks[:, :s - 1], "cache_len": s})
+    inputs = {"cache": cache, "tokens": toks[:, s - 1:].clone(),
+              "pos": torch.tensor(s - 1, dtype=torch.int32)}
+    real = _nbytes(params) + _nbytes(cache) + _nbytes({"t": inputs["tokens"]}) + 4
+    ms = _timed_steps(torch, lambda: low.fn(params, inputs), COUNT_DECODE_STEPS, 3)
+    out["decode"] = dict(cost=cost, real_argument_bytes=real, ms=ms,
+                         peak=torch.cuda.max_memory_allocated())
+    del params, cache, inputs
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    for kind, shp in (("train", COUNT_TRAIN), ("decode", COUNT_DECODE)):
+        v = out[kind]
+        cost = v.pop("cost")
+        shape = ShapeConfig(kind, kind, shp[1], shp[0])
+        rep = roofline.build_report(cfg, shape, "1x1", 1, cost)
+        v.update(argument_bytes=cost.argument_bytes, bytes_per_device=cost.bytes_per_device,
+                 dot_flops=cost.dot_flops, t_bound_ms=1e3 * rep.t_bound,
+                 bound_by=rep.bottleneck,
+                 peak_flop_share=cost.dot_flops / (v["ms"] / 1e3) / roofline.PEAK_FLOPS)
+        if v["argument_bytes"] != v["real_argument_bytes"]:
+            fail(f"count ({kind}): the lowered step's argument bytes {v['argument_bytes']:.0f} "
+                 f"differ from the real step's {v['real_argument_bytes']}")
+        if not v["ms"] >= v["t_bound_ms"]:
+            fail(f"count ({kind}): the measured step ({v['ms']:.3f} ms) is faster than its "
+                 f"roofline bound ({v['t_bound_ms']:.3f} ms): the count is wrong")
+        print(f"count ({kind}, {PIPE_ARCH} bf16, {shp[0]} x {shp[1]}, 1 x 1 mesh): argument "
+              f"bytes {v['argument_bytes']:.0f} = the real step's; median step "
+              f"{v['ms']:.3f} ms >= t_bound {v['t_bound_ms']:.3f} ms ({v['bound_by']}); "
+              f"counted dot FLOPs {v['dot_flops']:.4e}, {100 * v['peak_flop_share']:.2f}% of "
+              f"the bf16 peak (989 TFLOP/s, data sheet) at the measured step; "
+              f"max_memory_allocated {v['peak']} bytes against the count's bytes_per_device "
+              f"{v['bytes_per_device']:.0f} | {card}")
+    return out
+
+
+def pipeline_dryrun_phase(torch, card) -> dict:
+    """Phase 23: the dry run (b) starts in a subprocess on the CPU, then
+    (a) the pipeline and (c) the count against the card run, then (b) is
+    read."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        proc = dryrun_start(out_dir)
+        try:
+            out = {"pipeline": pipeline_check(torch, card), "count": count_check(torch, card)}
+            out["dryrun"] = dryrun_check(proc, out_dir, card)
+        finally:
+            proc.kill()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch package")
     ap.add_argument("--out", default="", help="also write the detailed numbers here (JSON)")
@@ -4966,11 +5338,14 @@ def main() -> int:
     ss_stats = timed(20, small_serve_phase, torch, F, np, card)
     decode_rows += ss_stats["kernel_rows"]
 
-    # 21. the sharded train step: tinyllama-1.1b at 4 layers on two meshes
+    # 21. the sharded train step: tinyllama-1.1b at 2 layers on two meshes
     st_stats = timed(21, sharded_train_phase, torch, np, card)
 
     # 22. the sharded train step of the MoE, SSM, hybrid and encoder-decoder families
     ft_stats = timed(22, sharded_families_train_phase, torch, np, card)
+
+    # 23. the GPipe pipeline, the dry run and the count held against the card
+    pd_stats = timed(23, pipeline_dryrun_phase, torch, card)
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
                                                 controller_stats, mt_stats, *new_runs[:5],
@@ -5031,7 +5406,7 @@ def main() -> int:
                                           if k != "kernel_rows"},
              "small_serve": {k: v for k, v in ss_stats.items() if k != "kernel_rows"},
              "sharded_training": st_stats, "sharded_family_training": ft_stats,
-             "phase_s": phase_s},
+             "pipeline_dryrun": pd_stats, "phase_s": phase_s},
             indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")

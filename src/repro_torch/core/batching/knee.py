@@ -21,8 +21,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 # NVIDIA H100 SXM data-sheet peaks (not measured here): dense bf16
 # tensor-core rate and HBM3 bandwidth at the 700 W power limit.
-PEAK_FLOPS = 989e12
-HBM_BW = 3.35e12
+from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
 
 
 @dataclass(frozen=True)

@@ -38,20 +38,27 @@ experts' per product, `layers._gather_d`), whose backward reduce-scatters
 their gradients; attention runs on rows cut over every mesh axis when the
 (micro)batch can fill the mesh (`_train_cfg`'s `attn_dp_axes`), the MoE
 routes the tokens of each data rank in its own groups (`moe_shard_map`),
-and the loss is the global batch's mean."""
+and the loss is the global batch's mean.
+
+The dry run's lowering (`lower_train_step`, `lower_prefill`,
+`lower_decode`, `lower_cell`, the JAX package's `lower_*`) builds the step
+one rank runs from these sharded steps, with the rank's local shards as
+meta tensors for arguments; `Lowered.analyze()` runs it once under the op
+counter (`analysis/op_trace.py`)."""
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import Shard
 
-from repro_torch.configs.base import ModelConfig, serve_config
+from repro_torch.analysis import op_trace
+from repro_torch.configs.base import ModelConfig, ShapeConfig, serve_config
 from repro_torch.distributed import ctx as dctx
 from repro_torch.distributed import sharding as shd
-from repro_torch.models import lm
+from repro_torch.models import api, lm
 from repro_torch.models.params import (_set, cache_axes, cache_specs, init_params,
                                        iter_params, leaves, param_axes, param_specs,
                                        ring_len, tree_map, unflatten)
@@ -571,3 +578,89 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, oc: Optional[OptConfig] = No
         return {"params": new_params, "opt": new_opt}, dict(metrics, **opt_metrics)
 
     return sharded_train_step
+
+
+# ---------------------------------------------------------------------------
+# The dry run: one rank's step of an (arch x shape x mesh) cell
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Lowered:
+    """The step one rank runs in a cell: fn(*args), args its local shards,
+    each a tensor of its own (meta tensors but the decode position, a 0-d
+    int32 on the host, whose value the port's decode reads); params, the
+    weights among them."""
+    fn: Callable
+    args: Tuple[Any, ...]
+    params: Any
+
+    def analyze(self, sites: bool = False) -> op_trace.StepCost:
+        return op_trace.analyze_step(self.fn, *self.args, sites=sites, params=self.params)
+
+
+def _local(tree: Tree, placements: Tree, mesh, coord) -> Tree:
+    return tree_map(lambda t, pl: shd.local_shard(t, pl, mesh, coord).clone(
+        memory_format=torch.contiguous_format), tree, placements)
+
+
+def lower_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, oc: Optional[OptConfig] = None,
+                     microbatches: Optional[int] = None, coordinate=None) -> Lowered:
+    """`make_sharded_train_step` on this rank's cut of the fp32 train state
+    (`train_state_specs` through `shard_train_state`) and its rows of the
+    global batch (`api.train_batch_specs` through `shard_train_batch`), in
+    `TRAIN_MICROBATCHES` microbatches on a mesh of more than one rank.
+    Raises ValueError for a layout the port refuses, naming the leaf."""
+    if microbatches is None:
+        n = math.prod(shd.axis_sizes(mesh).values())
+        microbatches = TRAIN_MICROBATCHES.get(cfg.name, 1) if n > 1 else 1
+    fn = make_sharded_train_step(cfg, mesh, oc, microbatches)
+    coord = _coordinate(mesh, coordinate)
+    state = shard_train_state(train_state_specs(cfg), cfg, mesh, coord)
+    batch = shard_train_batch(api.train_batch_specs(cfg, shape), mesh, microbatches, coord)
+    return Lowered(fn, (state, batch), state["params"])
+
+
+def _serve_params(cfg: ModelConfig, mesh, coord) -> Tree:
+    return shard_params(param_specs(cfg, dtype=cfg.dtype), cfg, mesh, coord)
+
+
+def lower_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh, coordinate=None) -> Lowered:
+    """`sharded_prefill` of the global batch on this rank's weights
+    (`shard_params` of `param_specs` in cfg.dtype) and rows
+    (`api.prefill_input_specs` through `shard_batch`); the cache holds the
+    prompt. Raises ValueError for a layout the port refuses."""
+    fn = sharded_prefill(cfg, mesh, batch=shape.global_batch)
+    coord = _coordinate(mesh, coordinate)
+    params = _serve_params(cfg, mesh, coord)
+    inputs = {k: shard_batch(v, mesh, coord).clone()
+              for k, v in api.prefill_input_specs(cfg, shape).items()}
+    return Lowered(fn, (params, inputs), params)
+
+
+def lower_decode(cfg: ModelConfig, shape: ShapeConfig, mesh, coordinate=None) -> Lowered:
+    """`sharded_decode` of one token a row against a cache of
+    `shape.seq_len` slots (this rank's cut of `api.decode_input_specs`'
+    cache of the serve config, by `serve_cache_shardings`), at the last
+    position. Raises ValueError for a layout the port refuses."""
+    scfg = tp_serve_cfg(cfg, mesh)
+    b, s = shape.global_batch, shape.seq_len
+    fn = sharded_decode(cfg, mesh, batch=b, cache_len=s)
+    coord = _coordinate(mesh, coordinate)
+    params = _serve_params(cfg, mesh, coord)
+    specs = api.decode_input_specs(scfg, shape)
+    inputs = {"cache": _local(specs["cache"], serve_cache_shardings(scfg, mesh, b, s), mesh,
+                              coord),
+              "tokens": shard_batch(specs["tokens"], mesh, coord).clone(),
+              "pos": torch.tensor(s - 1, dtype=torch.int32)}
+    return Lowered(fn, (params, inputs), params)
+
+
+def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, oc: Optional[OptConfig] = None,
+               coordinate=None) -> Lowered:
+    """The step an (arch x shape) cell runs, lowered for this rank."""
+    if shape.kind == "train":
+        return lower_train_step(cfg, shape, mesh, oc, coordinate=coordinate)
+    if shape.kind == "prefill":
+        return lower_prefill(cfg, shape, mesh, coordinate)
+    return lower_decode(cfg, shape, mesh, coordinate)

@@ -47,6 +47,11 @@ of), the backward sums their gradients over those axes (`grad_sum`); a
 loss term every data rank computes alike from the whole batch enters the
 gradient once (`once_over`).
 
+Each collective reports itself to the dry run's op counter
+(`analysis/op_trace.py`) as the collective it implements (an all-gather,
+a reduce-scatter, an all-to-all, a collective-permute) beside the
+all-reduce it runs; with no step being counted that is one check.
+
 The JAX package also keeps a `shard_map` version shim here, for its
 `moe_shard_map`. This package has none: its `models/layers.moe_shard_map`
 runs on the shards a rank already holds (`core/steps.shard_params`) and
@@ -56,14 +61,20 @@ calls the collectives below where the JAX version's `shard_map` body calls
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
+
+from repro_torch.analysis import op_trace
 
 _MESH = None
 _ROWS_CUT = True
 _SEQ_CUT = False
+# the collective the all-reduces under `_as` implement: (kind, per-rank output bytes)
+_KIND: Optional[Tuple[str, float]] = None
+_GROUPS: Dict[tuple, tuple] = {}
 
 
 def set_mesh(mesh) -> None:
@@ -155,9 +166,45 @@ def model_coordinate() -> Tuple[int, int]:
     return coordinate(("model",))
 
 
-def _sum_(x: torch.Tensor, names: Sequence[str], op=None) -> torch.Tensor:
+@contextmanager
+def _as(kind: str, out_bytes: float):
+    """Count the all-reduces of the body as one collective of `kind` with a
+    per-rank output of `out_bytes` (the op counter's logical kind)."""
+    global _KIND
+    prev, _KIND = _KIND, (kind, out_bytes)
+    try:
+        yield
+    finally:
+        _KIND = prev
+
+
+def _groups(names: Sequence[str]) -> Tuple[List[int], List[List[int]]]:
+    """The ranks of this rank's group over the axes `names` together, and
+    of its group over each of them of size > 1 (for the op counter)."""
+    mesh = _MESH
+    key = (id(mesh), tuple(names))
+    if key not in _GROUPS or _GROUPS[key][0] is not mesh:
+        with _disable_current_modes():
+            dims = [mesh.mesh_dim_names.index(n) for n in names if _axis(n) is not None]
+            coord = mesh.get_coordinate()
+
+            def ranks(cut):
+                idx = tuple(slice(None) if d in cut else c for d, c in enumerate(coord))
+                return mesh.mesh[idx].flatten().tolist()
+
+            _GROUPS[key] = mesh, ranks(dims), [ranks([d]) for d in dims]
+    return _GROUPS[key][1:]
+
+
+def _sum_(x: torch.Tensor, names: Sequence[str], op=None, kind: str = "all-reduce",
+          out_bytes: Optional[float] = None) -> torch.Tensor:
     """All-reduce x in place over each axis of `names` in turn (a sum, or
-    `op`)."""
+    `op`). kind, out_bytes: the collective this implements and its
+    per-rank output (x's bytes by default), as the op counter records it
+    (overridden under `_as`)."""
+    if op_trace._ACTIVE is not None and coordinate(names)[1] > 1:
+        k, b = _KIND or (kind, x.nbytes if out_bytes is None else out_bytes)
+        op_trace.note_collective(k, b, x.nbytes, *_groups(names))
     for name in names:
         ax = _axis(name)
         if ax is not None:
@@ -180,14 +227,16 @@ def _grad(*xs: torch.Tensor) -> bool:
 
 
 def _all_reduce(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
-    return _sum_(_summable(x), names).to(x.dtype)
+    return _sum_(_summable(x), names, out_bytes=x.nbytes).to(x.dtype)
 
 
-def _sum_copy(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+def _sum_copy(x: torch.Tensor, names: Sequence[str], kind: str = "all-reduce",
+              out_bytes: Optional[float] = None) -> torch.Tensor:
     """`_all_reduce` that leaves x as it is (a Function's input or incoming
     gradient may be shared)."""
     y = _summable(x)
-    return _sum_(y.clone() if y is x else y, names).to(x.dtype)
+    return _sum_(y.clone() if y is x else y, names, kind=kind,
+                 out_bytes=x.nbytes if out_bytes is None else out_bytes).to(x.dtype)
 
 
 def _gather(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
@@ -198,7 +247,7 @@ def _gather(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
     shape[dim] = k * n
     full = torch.zeros(shape, dtype=x.dtype, device=x.device)
     full.narrow(dim, idx * k, k).copy_(x)
-    return _sum_(full, names)
+    return _sum_(full, names, kind="all-gather")
 
 
 def _own(x: torch.Tensor, dim: int, names: Sequence[str]) -> torch.Tensor:
@@ -350,12 +399,15 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, names, summed):
         ctx.dim, ctx.names, ctx.summed = dim % x.dim(), names, summed
+        # the op counter's kind of the backward: an all-to-all's is one too
+        ctx.kind = "all-to-all" if _KIND and _KIND[0] == "all-to-all" else "reduce-scatter"
         return _gather(x, dim, names)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.summed and coordinate(ctx.summed)[1] > 1:
-            g = _sum_copy(g, ctx.summed)
+            g = _sum_copy(g, ctx.summed, kind=ctx.kind,
+                          out_bytes=g.nbytes / coordinate(ctx.names)[1])
         return _own(g, ctx.dim, ctx.names), None, None, None
 
 
@@ -418,11 +470,13 @@ def _rows_to(x: torch.Tensor, dim: int) -> torch.Tensor:
     pad = -x.shape[0] % m
     if pad:
         x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-    return _own(_gather(x, dim, ("model",)), 0, ("model",))
+    with _as("all-to-all", x.nbytes):
+        return _own(_gather(x, dim, ("model",)), 0, ("model",))
 
 
 def _rows_from(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
-    return _own(_gather(x, 0, ("model",)), dim, ("model",))[:rows].contiguous()
+    with _as("all-to-all", x.nbytes):
+        return _own(_gather(x, 0, ("model",)), dim, ("model",))[:rows].contiguous()
 
 
 class _RowsTo(torch.autograd.Function):
@@ -512,7 +566,7 @@ class _ReduceScatterModel(torch.autograd.Function):
 
 def _reduce_scatter_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     _, rank, size = _model_axis()
-    y = _sum_(_summable(x), ("model",))
+    y = _sum_(_summable(x), ("model",), kind="reduce-scatter", out_bytes=x.nbytes / size)
     k = x.shape[dim] // size
     return y.narrow(dim, rank * k, k).to(x.dtype).contiguous()
 
@@ -539,7 +593,26 @@ def all_to_all_data(x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.T
     if ax is None:
         return x
     _, rank, size = ax
-    full = gather(x[None], 0, ("data",))          # [size, *x.shape]
+    with _as("all-to-all", x.nbytes):
+        full = gather(x[None], 0, ("data",))      # [size, *x.shape]
     k = x.shape[split_dim] // size
     return torch.cat([full[s].narrow(split_dim, rank * k, k) for s in range(size)],
                      dim=concat_dim)
+
+
+def shift(x: torch.Tensor, name: str, step: int = 1) -> torch.Tensor:
+    """The x of the rank `step` places before this one on the axis `name`,
+    cyclically: rank r's x goes to rank (r + step) % n (the JAX package's
+    `ppermute` with perm [(i, (i + step) % n)]). Written as an all-reduce
+    into a zero-filled buffer of n slots, each rank writing its x into its
+    receiver's slot: exact, since one rank contributes each element. The
+    op counter counts it as a collective-permute. Not differentiated here:
+    the pipeline (`distributed/pipeline.py`), its one caller, runs its
+    transpose, the shift by -step, in its own backward. Every rank of the
+    axis calls it."""
+    _, rank, n = _axis(name)
+    buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    buf[(rank + step) % n].copy_(x)
+    with _as("collective-permute", x.nbytes):
+        _sum_(buf, (name,))
+    return buf[rank]

@@ -16,7 +16,9 @@ it launches the hand-written Hopper kernel once (csrc/decode_attention.cu,
 which replaces the TPU kernel
 src/repro/kernels/decode_attention.py::decode_attention_pallas: a cluster
 of 8 blocks per KV head and sequence splits S and merges in one launch); on
-a CPU tensor it runs the plain PyTorch version below. The kernel is
+a CPU tensor it runs the plain PyTorch version below; on a meta tensor
+(the dry run) it returns outputs of the right shapes and types and reports
+its two products to the op counter (`decode_attention_meta`). The kernel is
 compiled for the head sizes in HEAD_DIMS (80 is h2o-danube's, 96
 phi-3-vision's); any other raises. `LAUNCHES` counts kernel launches, with
 and without the lse.
@@ -27,6 +29,7 @@ import math
 
 import torch
 
+from repro_torch.analysis import op_trace
 from repro_torch.kernels import build
 
 LAUNCHES = 0
@@ -111,10 +114,34 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+def decode_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          valid_len: torch.Tensor, return_lse: bool = False):
+    """The kernel's outputs on the meta device (shapes and types, nothing
+    computed), for the dry run. Its QK and PV products are reported to the
+    op counter (`analysis/op_trace.note_dot`) over the whole ring, 2 B H S
+    D FLOPs each: the work of the JAX package's dense attention dots at the
+    same shape, whatever computes the function. Their bytes are those
+    dots' operands and outputs: q, K, the fp32 scores; the probabilities
+    in V's type, V, the output."""
+    B, H, D = q.shape
+    S = k.shape[1]
+    flops = 2.0 * B * H * S * D
+    op_trace.note_dot("decode_attention.qk", q.shape, (B, H, S), flops,
+                      q.nbytes + k.nbytes + 4 * B * H * S)
+    op_trace.note_dot("decode_attention.pv", (B, H, S), (B, H, D), flops,
+                      v.element_size() * B * H * S + v.nbytes + q.nbytes)
+    out = torch.empty_like(q)
+    if not return_lse:
+        return out
+    return out, torch.empty((B, H), dtype=torch.float32, device=q.device)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len: torch.Tensor, return_lse: bool = False):
     """q: [B, H, D]; k, v: [B, S, KH, D]; valid_len: [B] -> [B, H, D], and
     with return_lse lse [B, H] fp32."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid_len, return_lse)
+    if q.device.type == "meta":
+        return decode_attention_meta(q, k, v, valid_len, return_lse)
     return decode_attention_kernel(q, k, v, valid_len, return_lse)

@@ -1,7 +1,9 @@
 """Public model API: the LM of any family (dense, MoE, SSM, the jamba
 hybrid, whisper's encoder-decoder, phi-3-vision's vision-language decoder)
 as an `nn.Module` over the reference-layout weight tree, the functions it
-serves with, and the training loss (`train_loss`)."""
+serves with, and the training loss (`train_loss`); and each step's inputs,
+as meta tensors for the dry run (`input_specs`: shapes and types, nothing
+allocated) or drawn from a generator (`make_train_batch`)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -9,10 +11,73 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import lm
 from repro_torch.models.lm import forward, train_loss  # noqa: F401  (re-exports)
-from repro_torch.models.params import from_reference, init_params, leaves  # noqa: F401
+from repro_torch.models.params import (cache_specs, from_reference, init_params,  # noqa: F401
+                                       leaves)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def frontend_stub_specs(cfg: ModelConfig, batch: int) -> Dict[str, torch.Tensor]:
+    """The modality front ends' stand-ins (precomputed frame and patch
+    embeddings) in cfg.dtype: whisper's `audio_frames` [B, n_audio_ctx,
+    d_model], phi-3-vision's `img_embeds` [B, n_img_tokens, d_model]."""
+    dt = getattr(torch, cfg.dtype)
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.enc_layers:
+        out["audio_frames"] = _meta((batch, cfg.n_audio_ctx, cfg.d_model), dt)
+    if cfg.n_img_tokens:
+        out["img_embeds"] = _meta((batch, cfg.n_img_tokens, cfg.d_model), dt)
+    return out
+
+
+def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    b, s = shape.global_batch, shape.seq_len
+    specs = {"tokens": _meta((b, s), torch.int32), "labels": _meta((b, s), torch.int32)}
+    specs.update(frontend_stub_specs(cfg, b))
+    return specs
+
+
+def prefill_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    b, s = shape.global_batch, shape.seq_len
+    specs = {"tokens": _meta((b, s), torch.int32)}
+    specs.update(frontend_stub_specs(cfg, b))
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The cache of `shape.seq_len` slots a row (`params.cache_specs`), one
+    token a row and the position, a 0-d int32."""
+    b, s = shape.global_batch, shape.seq_len
+    return {"cache": cache_specs(cfg, b, s), "tokens": _meta((b, 1), torch.int32),
+            "pos": _meta((), torch.int32)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    if shape.kind == "train":
+        return train_batch_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return prefill_input_specs(cfg, shape)
+    return decode_input_specs(cfg, shape)
+
+
+def make_train_batch(cfg: ModelConfig, batch: int, seq: int, generator: torch.Generator,
+                     device) -> Dict[str, torch.Tensor]:
+    """A random batch with `train_batch_specs`' keys and types: tokens and
+    labels uniform in [0, vocab), the stub inputs normal(0, 1) in
+    cfg.dtype, drawn from `generator` (which lives on `device`). Torch's
+    generator is not JAX's threefry, so the values are not the JAX
+    package's."""
+    out = {k: torch.randint(0, cfg.vocab, (batch, seq), generator=generator, device=device,
+                            dtype=torch.int32) for k in ("tokens", "labels")}
+    dt = getattr(torch, cfg.dtype)
+    for k, spec in frontend_stub_specs(cfg, batch).items():
+        out[k] = torch.randn(spec.shape, generator=generator, device=device).to(dt)
+    return out
 
 
 def _to_module(tree: Dict[str, Any]) -> nn.Module:

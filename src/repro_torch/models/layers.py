@@ -27,6 +27,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import ctx as dctx
 
@@ -123,10 +124,27 @@ def attention_dense(q, k, v, qpos, kpos, *, causal=True, window=0):
     return o.reshape(B, Sq, H, D)
 
 
+def _kv_block(qg, kb, vb, mask, m, l_, acc, scale):
+    """One KV block's step of the online softmax: (m, l, acc) updated."""
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qg, kb.float()) * scale
+    s = torch.where(mask, s, torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    # fully-masked pad queries stay exactly 0
+    p = torch.where(mask, p, torch.zeros((), dtype=p.dtype, device=p.device))
+    corr = torch.exp(m - m_new)
+    l_ = l_ * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum("bkgqj,bjkd->bkgqd", p, vb.float())
+    return m_new, l_, acc
+
+
 def attention_blockwise(q, k, v, qpos, kpos, *, causal=True, window=0, kv_block=512):
     """Online-softmax (flash-style) attention over KV blocks of kv_block
     keys: O(Sq * kv_block) scores at a time instead of O(Sq * Skv). Shapes
-    and masks as attention_dense; the output is cast to q's type."""
+    and masks as attention_dense; the output is cast to q's type. Where a
+    gradient is taken, each block runs under `torch.utils.checkpoint` (the
+    JAX package's nested remat): the backward recomputes a block's scores
+    instead of keeping every block's."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -141,20 +159,13 @@ def attention_blockwise(q, k, v, qpos, kpos, *, causal=True, window=0, kv_block=
     m = torch.full((B, KH, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     l_ = torch.zeros((B, KH, G, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KH, G, Sq, D), dtype=torch.float32, device=q.device)
-    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
-    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
     for j in range(0, Skv, kv_block):
-        kb, vb = k[:, j:j + kv_block].float(), v[:, j:j + kv_block].float()
-        s = torch.einsum("bqkgd,bjkd->bkgqj", qg, kb) * scale
         mask = _batch_mask(_pair_mask(qpos, kpos[..., j:j + kv_block], causal, window))
-        s = torch.where(mask, s, neg)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        p = torch.where(mask, p, zero)  # fully-masked pad queries stay exactly 0
-        corr = torch.exp(m - m_new)
-        l_ = l_ * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgqj,bjkd->bkgqd", p, vb)
-        m = m_new
+        args = (qg, k[:, j:j + kv_block], v[:, j:j + kv_block], mask, m, l_, acc, scale)
+        m, l_, acc = (checkpoint(_kv_block, *args, use_reentrant=False) if remat
+                      else _kv_block(*args))
     out = acc / torch.clamp(l_, min=1e-30)[..., None]  # [B, KH, G, Sq, D]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
@@ -666,9 +677,9 @@ def ssm_block(x, p, cfg, init_state=None, return_state=False, pos_offset=None):
     dt_ = x.dtype
     x = dctx.enter_model(x)
     z = x @ p["in_z"].to(dt_)
-    xBC = x @ p["in_xbc"].to(dt_)
+    xbc_in = x @ p["in_xbc"].to(dt_)
     dtr = x @ p["in_dt"].to(dt_)
-    xBC = F.silu(conv1d_causal(xBC, p["conv_w"], p["conv_b"]))
+    xBC = F.silu(conv1d_causal(xbc_in, p["conv_w"], p["conv_b"]))
     valid = None
     if pos_offset is not None:
         valid = (torch.arange(L, device=x.device)[None, :]
@@ -691,15 +702,10 @@ def ssm_block(x, p, cfg, init_state=None, return_state=False, pos_offset=None):
     if valid is not None:
         out = out * valid[..., None].to(out.dtype)
     if return_state:
-        return out, (_conv_tail(x, p, cfg), fstate)
+        # the decode handoff: the last k-1 pre-conv, pre-SiLU inputs (the
+        # JAX package recomputes the product, which XLA merges with this one)
+        return out, (xbc_in[:, -(cfg.ssm_conv - 1):, :], fstate)
     return out
-
-
-def _conv_tail(x, p, cfg) -> torch.Tensor:
-    """The last k-1 pre-conv, pre-SiLU inputs, recomputed from the block's
-    input (the decode handoff after prefill)."""
-    xBC = x @ p["in_xbc"].to(x.dtype)
-    return xBC[:, -(cfg.ssm_conv - 1):, :]
 
 
 def ssm_block_decode(x1, p, cfg, conv_state, state):

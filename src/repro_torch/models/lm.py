@@ -330,14 +330,14 @@ def _enc_block(x, bp: Tree, cfg: ModelConfig) -> torch.Tensor:
 
 
 def encode_audio(params: Tree, audio_frames: Optional[torch.Tensor],
-                 cfg: ModelConfig, train: bool = False) -> torch.Tensor:
+                 cfg: ModelConfig) -> torch.Tensor:
     """whisper's encoder over audio_frames [B, n_audio_ctx, d_model] (stub
     frame embeddings, after the conv front end): per layer a non-causal
     self-attention roped at positions 0..n_audio_ctx-1 and an MLP, then a
     final RMSNorm. Returns [B, n_audio_ctx, d_model] in the activation
-    dtype. Each block gathers its FSDP-cut weights as a decoder layer does;
-    train with `cfg.remat`: each block is recomputed in the backward pass,
-    as the decoder layers are."""
+    dtype. Each block gathers its FSDP-cut weights as a decoder layer does.
+    No block is recomputed in the backward pass (the JAX package's encoder
+    scan has no remat)."""
     if audio_frames is None:
         raise ValueError(
             f"{cfg.name} is an encoder-decoder: its prefill needs audio_frames "
@@ -345,11 +345,7 @@ def encode_audio(params: Tree, audio_frames: Optional[torch.Tensor],
     enc = params["encoder"]
     x = audio_frames.to(device=enc["ln"].device, dtype=_dtype(cfg))
     for i in range(cfg.enc_layers):
-        bp = _layer(enc["blocks"], i)
-        if train and cfg.remat:
-            x = checkpoint(_enc_block, x, bp, cfg, use_reentrant=False)
-        else:
-            x = _enc_block(x, bp, cfg)
+        x = _enc_block(x, _layer(enc["blocks"], i), cfg)
     return L.rmsnorm(x, enc["ln"], cfg.norm_eps)
 
 
@@ -434,15 +430,43 @@ def _sublayer(x, sub: Tree, enc, cfg: ModelConfig, kind: Tuple[str, str], *,
     return x, aux, entry
 
 
+def _remat_layers(x, aux, subs, kinds, enc, cfg: ModelConfig, kw):
+    """Training's layers under remat, nested as the JAX package nests it:
+    the prefix layers (`first_k_dense`) are not recomputed; each body layer
+    runs under a checkpoint of its own and, where a block holds several
+    layers (jamba's 8), each block under one more, so the backward
+    recomputes the block for each layer's input and each layer again for
+    its own backward. Returns (x, aux)."""
+    npre, period = cfg.first_k_dense, block_period(cfg)
+
+    def add(aux, a):
+        return aux if a is None else aux + a.float()
+
+    def block(x, aux, j):
+        for i in range(npre + j * period, npre + (j + 1) * period):
+            x, a, _ = checkpoint(_sublayer, x, subs[i], enc, cfg, kinds[i], **kw,
+                                 use_reentrant=False)
+            aux = add(aux, a)
+        return x, aux
+
+    for i in range(npre):
+        x, a, _ = _sublayer(x, subs[i], enc, cfg, kinds[i], **kw)
+        aux = add(aux, a)
+    for j in range((len(subs) - npre) // period):
+        x, aux = (checkpoint(block, x, aux, j, use_reentrant=False) if period > 1
+                  else block(x, aux, j))
+    return x, aux
+
+
 def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
             mode: str = "prefill", cache_len: int = 0, pos_offset=None,
             img_embeds=None, audio_frames=None):
     """mode "prefill": (final hidden [B, S, D], cache tree); mode "train":
     (final hidden [B, S, D], aux), aux the fp32 sum of every MoE layer's
     router loss (0 without MoE), and no cache. In training with `cfg.remat`
-    each layer runs under `torch.utils.checkpoint`: the backward pass keeps
-    only the layer inputs and recomputes the rest (the JAX package's
-    per-sublayer and per-block `jax.checkpoint`).
+    each body layer runs under `torch.utils.checkpoint`: the backward pass
+    keeps only the layer inputs and recomputes the rest (the JAX package's
+    per-sublayer and per-block `jax.checkpoint`, `_remat_layers`).
 
     pos_offset: optional [B] left-pad amounts (bucketed serving): row b's
     first pos_offset[b] token slots are padding. Their embeddings are zeroed
@@ -470,19 +494,19 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  >= pos_offset.to(x.device)[:, None])
         x = x * valid[..., None].to(dt)
-    enc = encode_audio(params, audio_frames, cfg, train) if cfg.enc_layers else None
+    enc = encode_audio(params, audio_frames, cfg) if cfg.enc_layers else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
+    kinds, subs = cfg.layer_kinds(), _layers(cfg, params)
+    kw = dict(train=train, cache_len=cache_len, pos_offset=pos_offset)
     entries = []
-    for kind, sub in zip(cfg.layer_kinds(), _layers(cfg, params)):
-        kw = dict(train=train, cache_len=cache_len, pos_offset=pos_offset)
-        if train and cfg.remat:
-            x, a, entry = checkpoint(_sublayer, x, sub, enc, cfg, kind, **kw,
-                                     use_reentrant=False)
-        else:
+    if train and cfg.remat:
+        x, aux = _remat_layers(x, aux, subs, kinds, enc, cfg, kw)
+    else:
+        for kind, sub in zip(kinds, subs):
             x, a, entry = _sublayer(x, sub, enc, cfg, kind, **kw)
-        if train and a is not None:
-            aux = aux + a.float()
-        entries.append(entry)
+            if train and a is not None:
+                aux = aux + a.float()
+            entries.append(entry)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     if train:
         return x, aux
@@ -912,9 +936,11 @@ def softmax_xent_chunked(params: Tree, x: torch.Tensor, labels: torch.Tensor,
     """x: [B, S, D] final hidden; labels [B, S] (-100 = ignore). Mean
     cross-entropy and mean squared log-partition (the z-loss term) over the
     labelled positions, computed over sequence chunks of c = min(chunk, S),
-    lowered until it divides S, as the JAX package chunks them. Each chunk
-    is checkpointed: its fp32 logits [B, c, V] are recomputed in the
-    backward pass, never kept. Returns (nll, z2), fp32 scalars. On a mesh
+    lowered until it divides S, as the JAX package chunks them. With more
+    than one chunk each is checkpointed: its fp32 logits [B, c, V] are
+    recomputed in the backward pass, never kept. A single chunk keeps them,
+    as the JAX package's compiled step does (XLA merges a one-trip loop's
+    recomputation with its forward). Returns (nll, z2), fp32 scalars. On a mesh
     whose data axes cut the rows, the means are over the global batch: the
     sums and the count of labelled positions are all-reduced over those
     axes (not the mean of the ranks' means, which differs where their
@@ -927,8 +953,9 @@ def softmax_xent_chunked(params: Tree, x: torch.Tensor, labels: torch.Tensor,
                              for _ in range(3))
     labels = labels.to(x.device)
     for i in range(0, S, c):
-        n, z, k = checkpoint(_xent_chunk, params, x[:, i:i + c], labels[:, i:i + c], cfg,
-                             use_reentrant=False)
+        args = (params, x[:, i:i + c], labels[:, i:i + c], cfg)
+        n, z, k = _xent_chunk(*args) if c == S else checkpoint(_xent_chunk, *args,
+                                                                use_reentrant=False)
         nll_sum, z_sum, count = nll_sum + n, z_sum + z, count + k
     if dctx.rows_cut() and dctx.coordinate(dctx.DP)[1] > 1:
         # rows cut over the data axes: the global batch's sums, one all-reduce

@@ -1,7 +1,7 @@
 """Rank workers of tests/test_torch_tp_serve.py, tests/test_torch_ep_moe.py,
 tests/test_torch_tp_families.py, tests/test_torch_small_serve.py,
-tests/test_torch_sharded_train.py and
-tests/test_torch_sharded_train_families.py. Spawned ranks import this module, not
+tests/test_torch_sharded_train.py,
+tests/test_torch_sharded_train_families.py and tests/test_torch_pipeline.py. Spawned ranks import this module, not
 the test modules, so they start without JAX: they run the port only, and
 the tests compare their results with the JAX package."""
 import dataclasses
@@ -504,4 +504,57 @@ def family_train_rank(rank, world, backend, shape, cases, loop_dir):
         out["loop"] = dict(losses=whole["losses"], failed=failed, restarted=again["losses"],
                            final=({k: v.numpy() for k, v in leaves(final)} if rank == 0
                                   else None))
+    return out
+
+
+# tests/test_torch_pipeline.py: (n_stages, n_micro) -> the mesh the pipe
+# axis sits in; a pipe of 2 on 4 ranks is the minor axis of (data, pipe)
+PIPE_CASES = {(4, 8): ((4,), ("pipe",)), (4, 2): ((4,), ("pipe",)),
+              (2, 1): ((2, 2), ("data", "pipe"))}
+
+
+def pipe_rank(rank, world, backend, cases, layers):
+    """pipeline_apply of the tanh(x @ w + b) stage for each case of
+    PIPE_CASES, with the gradients of sum(out * r); then reduced tinyllama
+    layers, two a stage on a (data, pipe) = (2, 2) mesh, at fp32."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import pipeline as pp
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_map
+
+    out = {}
+    for key, (w, b, mbs, r) in cases.items():
+        shape, names = PIPE_CASES[key]
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        w, b, x = (torch.tensor(a, requires_grad=True) for a in (w, b, mbs))
+        mine = tuple(t.detach().requires_grad_() for t in pp.stage_params((w, b), mesh))
+        y = pp.pipeline_apply(lambda p, v: torch.tanh(v @ p[0] + p[1]), mine, x, mesh)
+        (y * torch.from_numpy(r)).sum().backward()
+        out[key] = (mesh.get_local_rank("pipe"), y.detach().numpy(), mine[0].grad.numpy(),
+                    mine[1].grad.numpy(), x.grad.numpy())
+    cfg, params, tokens = layers
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "pipe"))
+    n_stages = 2
+    per = cfg.n_layers // n_stages
+    params = tree_map(torch.from_numpy, params)
+    kinds = cfg.layer_kinds()
+    # every layer's subtree stacked [n_stages, per, ...], cut to this stage's
+    stacked = tree_map(lambda *ls: torch.stack(ls).reshape((n_stages, per) + ls[0].shape),
+                       *lm._layers(cfg, params))
+
+    def stage_fn(sub, x):
+        for i in range(per):
+            x, _, _ = lm._sublayer(x, tree_map(lambda t: t[i], sub), None, cfg, kinds[i],
+                                   train=True, cache_len=0, pos_offset=None)
+        return x
+
+    tok = torch.from_numpy(tokens)
+    with torch.no_grad():
+        mbs = torch.stack([lm._embed(params, t, cfg) for t in tok])
+        y = pp.pipeline_apply(stage_fn, pp.stage_params(stacked, mesh), mbs, mesh)
+        got = torch.stack([lm.L.rmsnorm(v, params["final_ln"], cfg.norm_eps) for v in y])
+        want = torch.stack([lm.forward(params, t, cfg, mode="train")[0] for t in tok])
+    out["layers"] = (got.numpy(), want.numpy())
     return out
