@@ -349,7 +349,9 @@ Phases, each fatal on failure:
    steps on one batch, the learning rate warming up from 3e-6, whose last
    loss must be below the first (gated), printed beside one card's.
    Printed: the steps' wall ms (after the first) sharded and on one card,
-   max_memory_allocated a rank. No kernel runs in it.
+   max_memory_allocated a rank beside the same figure of the tree before
+   the carry between blocks was cut over `model` and the loss stopped
+   gathering its logits (PHASE21_PEAK_BEFORE). No kernel runs in it.
 22. sharded training of the other families — the same step, one spawn of
    gloo ranks on the mesh (2, 2) for every case, batch 4 x 256 of each
    case's seeded stream (with its stub audio frames): (a) moonshot-v1-16b-
@@ -396,6 +398,28 @@ Phases, each fatal on failure:
    step; (c)'s decode step runs decode attention, not counted in the
    kernels line.
 
+24. several cards — (a) each of the seven kernels once at its serve shape
+   on the last visible card, cuda:0 current, against its plain version
+   on a CPU copy of its inputs at its tolerance; its output must lie on
+   that card. (b) Phase 10's fleet (its weights on cuda:0, its 32
+   requests) over every visible card, one slice a card, the DPU service
+   on cuda:0, then resized N -> N/2 -> N (N = 1 on one card: three rounds
+   of one slice), the same requests served after each resize. Gated per
+   round: every request once, 0 shed, 0 dead, conservation, no CPU path;
+   every slice's engine admitted one or more; the fleet holds one replica
+   of the weights a card, each of their bytes, and no card's allocated
+   bytes grew by a second copy; tokens equal phase 10's single-slice
+   engine's bit for bit per rid; audio launches = the service's groups,
+   decode attention = layers x the round's decode steps. (c) The real-DPU
+   part of examples/serve_audio_preba_torch.py on the card (one 5 s
+   utterance, one launch of each audio kernel), its features within
+   rtol 1e-3, atol 1e-2 of the same part on the CPU; printed: the
+   example's per-unit whole-call ms on 7.5 s. (d) The dry run of
+   tinyllama-1.1b and yi-34b train_4k on pod16x16 (run in phase 23's
+   subprocess): bytes a device at most twice the JAX package's record for
+   tinyllama, under 80 x 10^9 for yi-34b (gated). Its fleet and example
+   launches join the kernels line.
+
 Every phase prints its seconds ("phase N seconds:").
 
 In every serve phase (4, 6, 8-11, 13-17) the decode kernel's launches must
@@ -410,8 +434,9 @@ are the sum over the phases that run it — decode_attention's over the seven
 serve phases, the knee pass, the controller's first replay, phase 15's
 six serves and phase 16's two serves, whisper's generate and phi-3-vision's
 image path, phase 17's serve of the trained weights, and phase 18's,
-phase 19's and phase 20's ranks' decode steps, summed over ranks; the
-audio kernels' over phases 4, 10, 11, 13, 14, 15 and 16;
+phase 19's and phase 20's ranks' decode steps, summed over ranks, and
+phase 24's fleet; the audio kernels' over phases 4, 10, 11, 13, 14, 15,
+16 and 24's fleet and example;
 its max_abs_err is the largest over all its shapes; worst_library_ratio is the
 largest ms / library_ms over a kernel's shapes and worst_library_shape
 where it falls, so a kernel that loses off its main shape shows), the
@@ -4507,6 +4532,12 @@ SHARD_BF16_OPT = dict(lr=3e-4, warmup_steps=100, total_steps=1000)
 # Phase 21: (a) KV heads (4) cut over 2 model ranks, d_model over 2 data
 # ranks; (b) 4 KV heads do not cut over 8 model ranks: head_dim is cut, and
 # the 4 rows are padded to 8 for attention's batch-DP layout
+# each case's max_memory_allocated a rank (bytes, rank order) on the tree
+# before the carry between blocks was cut over `model` and the loss stopped
+# gathering its logits over the vocab
+PHASE21_PEAK_BEFORE = {"a": [1693405184, 1692356608, 1694453760, 1692356608],
+                       "b": [1211302912] * 8}
+PHASE21_PEAK_ORIGIN = "phase 21 of the tree before, NVIDIA H100 80GB HBM3, 700.00 W"
 SHARD_TRAIN_CASES = {
     "a": dict(arch=SHARD_TRAIN_ARCH, mesh=(2, 2), layers=SHARD_TRAIN_LAYERS, opt=SHARD_OPT,
               bf16=True, compress=True),
@@ -4869,10 +4900,16 @@ def train_cases(torch, np, card, cases, label) -> dict:
 def sharded_train_phase(torch, np, card, cases=None) -> dict:
     """Phase 21: full-width tinyllama-1.1b at SHARD_TRAIN_LAYERS layers
     trained sharded on each mesh of SHARD_TRAIN_CASES (or the names in
-    `cases`), against the one-card train step (`train_cases`)."""
-    return train_cases(torch, np, card, {n: SHARD_TRAIN_CASES[n]
-                                         for n in cases or SHARD_TRAIN_CASES},
-                       "sharded training")
+    `cases`), against the one-card train step (`train_cases`); each rank's
+    max_memory_allocated printed beside PHASE21_PEAK_BEFORE's."""
+    out = train_cases(torch, np, card, {n: SHARD_TRAIN_CASES[n]
+                                        for n in cases or SHARD_TRAIN_CASES},
+                      "sharded training")
+    for n in cases or SHARD_TRAIN_CASES:
+        print(f"sharded training ({n}): max_memory_allocated a rank {out[n]['peak_bytes']} "
+              f"bytes; before the carry cut and the vocab-cut loss "
+              f"{PHASE21_PEAK_BEFORE[n]} ({PHASE21_PEAK_ORIGIN}) | {card}")
+    return out
 
 
 def sharded_families_train_phase(torch, np, card, cases=None) -> dict:
@@ -5064,10 +5101,11 @@ def pipeline_check(torch, card) -> dict:
     return out
 
 
-def dryrun_start(out_dir):
-    """Phase 23 (b), started: one subprocess (on the CPU) runs every cell of
-    DRYRUN_CELLS through launch/dryrun.run_cell."""
-    cells = [(a, s, m) for a, s, m, _ in DRYRUN_CELLS]
+def dryrun_start(out_dir, cells):
+    """Phase 23 (b), started: one subprocess (on the CPU) runs each cell of
+    `cells` ((arch, shape, multi_pod, ...) each, run once) through
+    launch/dryrun.run_cell."""
+    cells = list(dict.fromkeys((a, s, m) for a, s, m, *_ in cells))
     code = ("import json, pathlib, sys; from repro_torch.launch.dryrun import run_cell; "
             f"[run_cell(a, s, m, pathlib.Path({str(out_dir)!r}), force=True) "
             f"for a, s, m in {cells!r}]")
@@ -5076,22 +5114,31 @@ def dryrun_start(out_dir):
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
 
-def dryrun_check(proc, out_dir, card) -> dict:
-    """Phase 23 (b), read: each cell's record; the gated ones must be ok
-    with the JAX package's record keys (but compile_s)."""
+def dryrun_records(proc, out_dir, cells):
+    """The records of `dryrun_start`'s subprocess, once it ends: {cell id:
+    record} for each (arch, shape, multi_pod, ...) of `cells`."""
     try:
         _, err = proc.communicate(timeout=600)
     finally:
         proc.kill()
     if proc.returncode != 0:
         fail(f"dryrun: the subprocess failed ({proc.returncode}): {err[-2000:]}")
+    out = {}
+    for arch, shape, multi, *_ in cells:
+        cell = f"{arch}__{shape}__{'pod2x16x16' if multi else 'pod16x16'}"
+        out[cell] = json.loads((Path(out_dir) / f"{cell}.json").read_text())
+    return out
+
+
+def dryrun_check(recs, card) -> dict:
+    """Phase 23 (b), read: each DRYRUN_CELLS record of `recs`; the gated
+    ones must be ok with the JAX package's record keys (but compile_s)."""
     ref = json.loads((ROOT / "results/dryrun/tinyllama-1.1b__train_4k__pod16x16.json")
                      .read_text())
     out = {}
     for arch, shape, multi, gated in DRYRUN_CELLS:
         cell = f"{arch}__{shape}__{'pod2x16x16' if multi else 'pod16x16'}"
-        rec = json.loads((Path(out_dir) / f"{cell}.json").read_text())
-        out[cell] = rec
+        out[cell] = rec = recs[cell]
         if rec["status"] != "ok":
             if gated:
                 fail(f"dryrun: {cell} is {rec['status']}: {rec.get('error', '')[:500]}")
@@ -5210,19 +5257,272 @@ def count_check(torch, card) -> dict:
 
 
 def pipeline_dryrun_phase(torch, card) -> dict:
-    """Phase 23: the dry run (b) starts in a subprocess on the CPU, then
-    (a) the pipeline and (c) the count against the card run, then (b) is
-    read."""
+    """Phase 23: the dry run (b) starts in a subprocess on the CPU (with
+    phase 24's memory cells, returned as "memory_cells"), then (a) the
+    pipeline and (c) the count against the card run, then (b) is read."""
     import tempfile
 
     t0 = time.perf_counter()
+    cells = DRYRUN_CELLS + MEMORY_CELLS  # phase 24 reads the memory cells
     with tempfile.TemporaryDirectory() as out_dir:
-        proc = dryrun_start(out_dir)
+        proc = dryrun_start(out_dir, cells)
         try:
             out = {"pipeline": pipeline_check(torch, card), "count": count_check(torch, card)}
-            out["dryrun"] = dryrun_check(proc, out_dir, card)
+            recs = dryrun_records(proc, out_dir, cells)
         finally:
             proc.kill()
+    out["dryrun"] = dryrun_check(recs, card)
+    out["memory_cells"] = recs
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 24. the fleet over every card, each kernel on the last card, the audio example
+# ---------------------------------------------------------------------------
+
+# the dry-run cells phase 24 gates on bytes a device (the train step's
+# memory in the JAX package's layout): (arch, shape, multi_pod, limit bytes)
+MEMORY_CELLS = [("tinyllama-1.1b", "train_4k", False, None),   # 2x the JAX record's
+                ("yi-34b", "train_4k", False, 80e9)]            # fits an 80 GB card
+
+
+def other_card_kernels(torch, np, dev) -> dict:
+    """Phase 24 (a): each of the seven kernels once at its serve shape on
+    `dev` while cuda:0 stays the current card, through the ops the serve
+    path calls, against its plain version on a CPU copy of the same
+    inputs at its tolerance; each output must lie on `dev`. These launches
+    compare, so the kernels line does not count them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.image_normalize import image_crop_normalize_batch
+
+    rng = np.random.default_rng(24)
+    n, length = MAIN_SHAPE
+    x = torch.from_numpy(rng.standard_normal((n, length)).astype(np.float32))
+    r = ops.audio_resample_batch(x.to(dev), 1, 3)
+    m = ops.mel_spectrogram_batch(r)
+    nb, h, w = IMAGE_MAIN_SHAPE
+    coeffs = torch.from_numpy(np.stack([jpeg_coeffs(np, rng, h // 8, w // 8)
+                                        for _ in range(nb)]))
+    qt = torch.tensor(QTABLE_K1, dtype=torch.float32)
+    imgs = ops.jpeg_decode_batch(coeffs.to(dev), qt.to(dev))
+    small = ops.image_resize_batch(imgs, RESIZE_TO, RESIZE_TO)
+    B, H, KH, D, S, dt = DECODE_MAIN_SHAPE
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)
+               for s in ((B, H, D), (B, S, KH, D), (B, S, KH, D)))
+    vl = torch.from_numpy(rng.integers(1, S + 1, B).astype(np.int32))
+    cases = [  # name, kernel's output on dev, plain version's on the CPU
+        ("audio_resample", r, ops.audio_resample_batch(x, 1, 3)),
+        ("mel_spectrogram", m, ops.mel_spectrogram_batch(r.cpu())),
+        ("audio_normalize", ops.audio_normalize_batch(m), ops.audio_normalize_batch(m.cpu())),
+        ("jpeg_idct", imgs, ops.jpeg_decode_batch(coeffs, qt)),
+        ("image_resize", small, ops.image_resize_batch(imgs.cpu(), RESIZE_TO, RESIZE_TO)),
+        ("image_normalize", image_crop_normalize_batch(small, CROP_TO, CROP_TO, MEAN, STD),
+         image_crop_normalize_batch(small.cpu(), CROP_TO, CROP_TO, MEAN, STD)),
+        ("decode_attention", ops.decode_attention(q.to(dev), k.to(dev), v.to(dev), vl.to(dev)),
+         ops.decode_attention(q, k, v, vl))]
+    torch.cuda.synchronize(dev)
+    out = {}
+    for name, got, want in cases:
+        key = f"{name}/{dt}" if name == "decode_attention" else name
+        err, rel, ok = errors(torch, key, got.cpu().float(), want.float())
+        if got.device != torch.device(dev) or not ok:
+            fail(f"{name} on {dev}: output on {got.device}, max abs error {err:.3e} against "
+                 f"the plain version (tolerance {TOL[key]})")
+        out[name] = dict(max_abs_err=err, max_rel_err=rel)
+    if torch.cuda.current_device() != 0:
+        fail(f"the kernels on {dev} left cuda:{torch.cuda.current_device()} current")
+    print(f"kernels on {dev} (cuda:0 current): " + ", ".join(
+        f"{k} {v['max_abs_err']:.2e}" for k, v in out.items()) + " max abs error, each "
+        "within its tolerance of the plain version")
+    return out
+
+
+def multi_card_fleet(torch, np, model, ref, card) -> dict:
+    """Phase 24 (b): phase 10's fleet (its weights on cuda:0, its requests)
+    over every visible card, one slice a card, fed by the DPU service on
+    cuda:0, then resized N -> N/2 -> N (two-card slices in the middle,
+    each serving on its first card), the same requests served after each
+    resize. Gated per round: every request once, 0 shed, 0 dead,
+    conservation; every slice's engine admitted one or more; one replica
+    of the weights a card (the fleet's map, and each card's allocated
+    bytes grew by less than a second copy); tokens equal phase 10's
+    single-slice engine's bit for bit per rid; audio launches equal the
+    service's groups and decode attention n_layers x the decode steps of
+    every engine of the round."""
+    from repro_torch import kernels
+    from repro_torch.core.dpu.runtime import DpuConfig
+    from repro_torch.core.dpu.service import DpuService, DpuServiceConfig
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.runtime import RuntimeConfig, build_pipelined_runtime
+
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n)]
+    cfg = model.cfg
+    weight_bytes = tree_bytes(model.tree())
+    alloc0 = [torch.cuda.memory_allocated(d) for d in devices]
+    ec = EngineConfig(max_new_tokens=8, continuous=True, max_slots=8, segment_len=8,
+                      max_prompt_len=128)
+    service = DpuService(DpuServiceConfig(clock="wall", dpu=DpuConfig(backend="dpu")),
+                         device="cuda:0")
+    rt = build_pipelined_runtime(cfg, n_slices=n, ec=ec, service=service, params=model,
+                                 hedge_factor=3.0, device="cuda:0", devices=devices,
+                                 rc=RuntimeConfig(clock="wall", max_ingest=64))
+    ms = rt.engine
+    if [str(e.device) for e in ms.engines.values()] != devices:
+        fail(f"multi-card fleet: slices on {[str(e.device) for e in ms.engines.values()]}, "
+             f"not one a card of {devices}")
+
+    def drive(reqs):
+        t0 = time.monotonic()
+        for r in reqs:
+            r.arrival += t0
+        rt.submit(reqs)
+        done = rt.run_until_idle()
+        for d in devices:
+            torch.cuda.synchronize(d)
+        return done, time.monotonic() - t0
+
+    drive(fleet_traffic(np, cfg, n, 98, rid0=50_000))  # warm-up: one request a slice
+    rounds, runs = [n, max(1, n // 2), n], []
+    for size in rounds:
+        if size != len(ms.engines):
+            ms.resize(n_slices=size)
+        rt.reset_metrics()
+        ms.reset_metrics()  # and the generation the resize stashed, whose steps it counts
+        groups0 = service.stats["groups"]
+        admitted0 = {sid: e.stats["admitted"] for sid, e in ms.engines.items()}
+        reqs = fleet_traffic(np, cfg, FLEET_REQUESTS, 2026)
+        kernels.reset_launch_counts()              # the fleet's path starts here
+        done, wall = drive(reqs)
+        launches = kernels.launch_counts()         # ... and ends here
+        groups = service.stats["groups"] - groups0
+        where = f"multi-card fleet ({size} slices over {n} cards)"
+        rids = [r.rid for r in done]
+        if len(done) != FLEET_REQUESTS or len(set(rids)) != FLEET_REQUESTS:
+            fail(f"{where}: served {len(done)} ({len(set(rids))} distinct) of {FLEET_REQUESTS}")
+        if rt.shed or rt.dead or not rt.conservation_ok():
+            fail(f"{where}: shed {rt.shed_counts()}, dead {rt.dead_counts()}, conservation "
+                 f"{rt.conservation_ok()}")
+        check_no_fallback(rt, where)
+        idle = [sid for sid, e in ms.engines.items()
+                if e.stats["admitted"] - admitted0.get(sid, 0) <= 0]
+        if idle:
+            fail(f"{where}: slices {idle} admitted no request {ms.slice_stats()}")
+        check_fleet_tokens(np, done, ref, where)
+        for k in kernels.AUDIO_KERNELS:
+            if launches[k] <= 0 or launches[k] != groups:
+                fail(f"{k}: {launches[k]} launches on the {where}, the service launched "
+                     f"{groups} groups")
+        steps = check_decode_launches(launches, cfg, ms, where)
+        held = ms.weights_by_device()
+        grown = [torch.cuda.memory_allocated(d) - a for d, a in zip(devices, alloc0)]
+        if sorted(held) != sorted(set(devices)) \
+                or any(set(v) != {cfg.name} for v in held.values()) \
+                or any(tree_bytes(v[cfg.name].tree()) != weight_bytes for v in held.values()) \
+                or any(g >= weight_bytes + (weight_bytes if d != "cuda:0" else 0)
+                       for d, g in zip(devices, grown)):
+            fail(f"{where}: weights held {({d: list(v) for d, v in held.items()})}, "
+                 f"allocated bytes grown {grown} against {weight_bytes} weight bytes")
+        stats = fleet_stats(np, rt, done, wall, launches, steps, card)
+        stats.update(groups=groups, cards=n, slice_cards=[str(e.device)
+                                                          for e in ms.engines.values()],
+                     weight_bytes=weight_bytes, allocated_grown=grown,
+                     tokens_equal_single_slice=len(done))
+        runs.append(stats)
+        print("multi-card fleet: " + json.dumps(stats))
+    rt.close()
+    launches = {k: sum(st["launches"][k] for st in runs) for k in kernels.KERNELS}
+    return {"runs": runs, "launches": launches}
+
+
+def audio_example_dpu(torch, np, card) -> dict:
+    """Phase 24 (c): the real-DPU part of examples/serve_audio_preba_torch.py
+    on the card (one 5 s utterance through DPU(backend="dpu"): the three
+    audio kernels), its features against the same part on the CPU (the
+    plain versions), rtol 1e-3, atol 1e-2; and the example's per-unit
+    costs on the card (each unit's whole call on 7.5 s)."""
+    import importlib.util
+
+    from repro_torch import kernels
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_audio_preba_torch", ROOT / "examples" / "serve_audio_preba_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    kernels.reset_launch_counts()                  # the example's DPU path starts here
+    _, feats = ex.real_dpu("cuda")
+    launches = kernels.launch_counts()             # ... and ends here
+    _, plain = ex.real_dpu("cpu")
+    err = float(np.abs(feats - plain).max())
+    if feats.shape != plain.shape or not np.isfinite(feats).all() \
+            or not np.allclose(feats, plain, rtol=1e-3, atol=1e-2):
+        fail(f"audio example: features {feats.shape} differ from the plain versions' "
+             f"{plain.shape} (max abs {err:.3e})")
+    if any(launches[k] != 1 for k in kernels.AUDIO_KERNELS):
+        fail(f"audio example: launches {launches}, one of each audio kernel expected")
+    unit_ms = ex.dpu_unit_ms(torch.device("cuda"))
+    print(f"audio example: features {feats.shape} within {err:.2e} of the plain versions; "
+          f"unit whole-call ms on 7.5 s: {json.dumps(unit_ms)} | {card}")
+    return {"launches": launches, "max_abs_err": err, "unit_ms": unit_ms}
+
+
+def memory_cells_check(recs, card) -> dict:
+    """Phase 24 (d): each MEMORY_CELLS record of `recs` (phase 23's dry
+    run) with its bytes a device under its limit (tinyllama's: twice the
+    JAX package's record)."""
+    ref = json.loads((ROOT / "results/dryrun/tinyllama-1.1b__train_4k__pod16x16.json")
+                     .read_text())
+    out = {}
+    for arch, shape, multi, limit in MEMORY_CELLS:
+        cell = f"{arch}__{shape}__{'pod2x16x16' if multi else 'pod16x16'}"
+        rec = recs[cell]
+        limit = 2 * ref["bytes_per_device"] if limit is None else limit
+        if rec["status"] != "ok" or not rec["bytes_per_device"] <= limit:
+            fail(f"dryrun {cell}: {rec['status']}, {rec.get('bytes_per_device')} bytes a "
+                 f"device against {limit:.0f}")
+        out[cell] = rec["bytes_per_device"]
+        print(f"dryrun {cell}: {rec['bytes_per_device']:.0f} bytes a device "
+              f"({rec['bytes_per_device'] / 2**30:.2f} GiB), limit {limit:.0f} | {card}")
+    return out
+
+
+def multi_card_phase(torch, np, card, model=None, ref=None, dry=None) -> dict:
+    """Phase 24: (a) the kernels on the last card, (b) the fleet over every
+    card on phase 10's weights and reference tokens (`model`, `ref`; drawn
+    and served here when phase 10 did not run), (c) the audio example's
+    real-DPU part, (d) the memory cells of phase 23's dry run (`dry`, its
+    records; run here, in a subprocess beside (a)-(c), when phase 23 did
+    not run)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import LM
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.multislice import _seeded_params
+
+    t0 = time.perf_counter()
+    if model is None:
+        cfg = get_config("tinyllama-1.1b")
+        model = LM(cfg, _seeded_params(cfg, 0, torch.device("cuda")))
+        ec = EngineConfig(max_new_tokens=8, continuous=True, max_slots=8, segment_len=8,
+                          max_prompt_len=128)
+        ref = single_slice_tokens(torch, np, cfg, ec, model,
+                                  fleet_traffic(np, cfg, FLEET_REQUESTS, 2026))
+    with tempfile.TemporaryDirectory() as out_dir:
+        proc = None if dry is not None else dryrun_start(out_dir, MEMORY_CELLS)
+        try:
+            out = {"kernels": other_card_kernels(
+                       torch, np, f"cuda:{torch.cuda.device_count() - 1}"),
+                   "fleet": multi_card_fleet(torch, np, model, ref, card),
+                   "example": audio_example_dpu(torch, np, card)}
+            if proc is not None:
+                dry = dryrun_records(proc, out_dir, MEMORY_CELLS)
+        finally:
+            if proc is not None:
+                proc.kill()
+    out["dryrun"] = memory_cells_check(dry, card)
     out["phase_s"] = time.perf_counter() - t0
     return out
 
@@ -5346,17 +5646,24 @@ def main() -> int:
 
     # 23. the GPipe pipeline, the dry run and the count held against the card
     pd_stats = timed(23, pipeline_dryrun_phase, torch, card)
+
+    # 24. phase 10's fleet over every card, the kernels on the last card, the
+    # audio example's real DPU part, the train step's memory by the dry run
+    mc_stats = timed(24, multi_card_phase, torch, np, card, model, fleet_ref,
+                     pd_stats.pop("memory_cells"))
     audio_run = {"launches": {k: sum(st["launches"][k]
                                      for st in (stats, fleet_stats_, chaos_stats,
                                                 controller_stats, mt_stats, *new_runs[:5],
-                                                *family_serves))
+                                                *family_serves, mc_stats["fleet"],
+                                                mc_stats["example"]))
                               for k in ("audio_resample", "mel_spectrogram",
                                         "audio_normalize")}}
     decode_run = {"launches": {"decode_attention": sum(
         st["launches"]["decode_attention"]
         for st in (stats, image_stats, rtc_stats, chunk_stats, fleet_stats_, chaos_stats,
                    knee_stats, controller_stats, mt_stats, *new_runs, *family_runs,
-                   train_stats["serve"], tp_stats, fam_tp_stats, ss_stats))}}
+                   train_stats["serve"], tp_stats, fam_tp_stats, ss_stats,
+                   mc_stats["fleet"]))}}
 
     line = []
     for name, shape_rows, main_of, run in (
@@ -5406,7 +5713,7 @@ def main() -> int:
                                           if k != "kernel_rows"},
              "small_serve": {k: v for k, v in ss_stats.items() if k != "kernel_rows"},
              "sharded_training": st_stats, "sharded_family_training": ft_stats,
-             "pipeline_dryrun": pd_stats, "phase_s": phase_s},
+             "pipeline_dryrun": pd_stats, "multi_card": mc_stats, "phase_s": phase_s},
             indent=1))
     print(json.dumps({"kernels": line}))
     print(f"card: {card}")

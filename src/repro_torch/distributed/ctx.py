@@ -465,16 +465,21 @@ def split_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _own(x, dim, ("model",))
 
 
-def _rows_to(x: torch.Tensor, dim: int) -> torch.Tensor:
+def _rows_to(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
     m = _model_axis()[2]
     pad = -x.shape[0] % m
     if pad:
         x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    if dim is None:  # x whole on every rank: a copy of its own rows, no
+        # collective (a view would keep the whole rows' storage alive)
+        return _own(x, 0, ("model",)).clone()
     with _as("all-to-all", x.nbytes):
         return _own(_gather(x, dim, ("model",)), 0, ("model",))
 
 
-def _rows_from(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
+def _rows_from(x: torch.Tensor, dim: Optional[int], rows: int) -> torch.Tensor:
+    if dim is None:  # every rank's rows, whole
+        return _gather(x, 0, ("model",))[:rows].contiguous()
     with _as("all-to-all", x.nbytes):
         return _own(_gather(x, 0, ("model",)), dim, ("model",))[:rows].contiguous()
 
@@ -501,26 +506,28 @@ class _RowsFrom(torch.autograd.Function):
         return _rows_to(g, ctx.dim), None, None
 
 
-def rows_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+def rows_to_model(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
     """The all-to-all over `model` from a layout cut along `dim` (KV heads
     or head_dim) with every rank holding the same rows, to rows cut over
     `model` with `dim` whole: x [B, ...] -> this rank's chunk [ceil(B / m),
     ...] of the rows, padded with zero rows to a multiple of m (GSPMD pads
-    so). Written as a gather into zeros, exact. Backward: `rows_from_model`
-    of the gradient."""
+    so). Written as a gather into zeros, exact. With `dim` None, x is whole
+    on every rank (the block carry): the rank keeps its chunk of the rows,
+    with no collective. Backward: `rows_from_model` of the gradient."""
     if _model_axis() is None:
         return x
-    dim = dim % x.dim()
+    dim = None if dim is None else dim % x.dim()
     return _RowsTo.apply(x, dim) if _grad(x) else _rows_to(x, dim)
 
 
-def rows_from_model(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
+def rows_from_model(x: torch.Tensor, dim: Optional[int], rows: int) -> torch.Tensor:
     """The inverse of `rows_to_model`: each rank's chunk of the rows, with
     `dim` whole, back to all `rows` rows (the padding dropped) with `dim`
-    cut over `model`. Backward: `rows_to_model` of the gradient."""
+    cut over `model`; with `dim` None, every row whole on every rank (an
+    all-gather). Backward: `rows_to_model` of the gradient."""
     if _model_axis() is None:
         return x
-    dim = dim % x.dim()
+    dim = None if dim is None else dim % x.dim()
     return _RowsFrom.apply(x, dim, rows) if _grad(x) else _rows_from(x, dim, rows)
 
 
@@ -545,6 +552,50 @@ def merge_seq_shards(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
         num = num + parts[r] * w[r, ..., None]
         den = den + w[r]
     return (num / torch.clamp(den, min=1e-30)[..., None]).to(o.dtype)
+
+
+class _VocabXent(torch.autograd.Function):
+    """(lse, gold) of fp32 logits cut along the vocab over `model`; the
+    backward is this rank's softmax columns minus its one-hot columns,
+    scaled by the incoming gradients: no gather either way."""
+
+    @staticmethod
+    def forward(ctx, z, labels, start, vocab):
+        n = z.shape[-1]
+        col = torch.arange(start, start + n, device=z.device)
+        z = z.masked_fill(col >= vocab, float("-inf"))  # the padded vocab slots
+        top = all_max(z.amax(-1), ("model",))
+        lab = labels.long().clamp(min=0) - start
+        own = (lab >= 0) & (lab < n)
+        idx = lab.clamp(0, n - 1)
+        pick = torch.gather(z, -1, idx[..., None])[..., 0]
+        sums = torch.stack([torch.exp(z - top[..., None]).sum(-1),
+                            torch.where(own, pick, torch.zeros_like(pick))])
+        se, gold = _sum_copy(sums, ("model",)).unbind()
+        ctx.save_for_backward(z, top, se, idx, own)
+        return top + torch.log(se), gold
+
+    @staticmethod
+    def backward(ctx, g_lse, g_gold):
+        # the softmax as exp(z - top) / se: the exponent is not rounded to
+        # the lse's ulp (which at |lse| ~ 20 is 1.9e-6)
+        z, top, se, idx, own = ctx.saved_tensors
+        g = torch.exp(z - top[..., None]) * (g_lse / se)[..., None]
+        g.scatter_add_(-1, idx[..., None], torch.where(own, g_gold, 0.0)[..., None])
+        return g, None, None, None
+
+
+def vocab_xent(z: torch.Tensor, labels: torch.Tensor, start: int,
+               vocab: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-entropy's log-sum-exp and gold logit of each row, from
+    this `model` rank's vocab columns [start, start + n) of fp32 logits z
+    [..., n] (columns at or past `vocab` are padding, left out): the
+    global lse from one all-reduce of the row max and one of the row sum of
+    exponentials (with the gold logit, a masked local pick, beside it);
+    labels < 0 pick column 0, as the gathered loss does. Both fp32 [...].
+    The logits are never gathered; the backward (`_VocabXent`) is the
+    rank's local softmax and one-hot columns."""
+    return _VocabXent.apply(z, labels, start, vocab)
 
 
 def gather_model_last(x: torch.Tensor) -> torch.Tensor:

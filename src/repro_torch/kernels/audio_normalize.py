@@ -52,7 +52,8 @@ def plan(t: int, f: int) -> Plan:
 
 
 def audio_normalize_batch_kernel(feats: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+    """Launch the CUDA kernel on its input's card, on that card's current
+    stream (no sync)."""
     global LAUNCHES
     if feats.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor (got {feats.device})")
@@ -68,9 +69,10 @@ def audio_normalize_batch_kernel(feats: torch.Tensor, eps: float = 1e-5) -> torc
     out = torch.empty_like(feats)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    err = build.library().preba_normalize(feats.data_ptr(), out.data_ptr(), n, t, f,
-                                          float(eps), stream)
+    with torch.cuda.device(feats.device):  # the attribute and the stream are the card's
+        err = build.library().preba_normalize(feats.data_ptr(), out.data_ptr(), n, t, f,
+                                              float(eps),
+                                              torch.cuda.current_stream().cuda_stream)
     build.check(err, "audio_normalize")
     LAUNCHES += 1
     return out

@@ -52,7 +52,8 @@ def audio_resample_batch_plain(x: torch.Tensor, h: torch.Tensor, down: int,
 def audio_resample_batch_kernel(x: torch.Tensor, h: torch.Tensor, down: int,
                                 n_out: Optional[int] = None,
                                 pad_left: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+    """Launch the CUDA kernel on its input's card, on that card's current
+    stream (no sync)."""
     global LAUNCHES
     if x.device.type != "cuda" or h.device != x.device:
         raise ValueError(f"kernel needs both tensors on one CUDA device "
@@ -75,9 +76,10 @@ def audio_resample_batch_kernel(x: torch.Tensor, h: torch.Tensor, down: int,
     y = torch.empty((nsig, n), dtype=torch.float32, device=x.device)
     if nsig == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.preba_resample(x.data_ptr(), h.data_ptr(), y.data_ptr(), nsig, length, taps,
-                             down, pad_left, n, stream)
+    with torch.cuda.device(x.device):  # the SM count and the stream are the card's
+        err = lib.preba_resample(x.data_ptr(), h.data_ptr(), y.data_ptr(), nsig, length,
+                                 taps, down, pad_left, n,
+                                 torch.cuda.current_stream().cuda_stream)
     build.check(err, "audio_resample")
     LAUNCHES += 1
     return y

@@ -372,12 +372,17 @@ template <bool VEC, bool STAGED>
 int launch(const Plan& p, const float* x, float* y, int n, int t, int f, float eps,
            cudaStream_t stream) {
   auto kernel = normalize_kernel<VEC, STAGED>;
-  static bool configured = false;  // per instantiation; setting it twice is harmless
-  if (!configured) {
+  // CUDA holds the attribute per card: set it once on each card a launch
+  // meets (per instantiation; setting it twice is harmless)
+  constexpr int kMaxCards = 64;
+  static bool configured[kMaxCards] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxCards || !configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    if (dev >= 0 && dev < kMaxCards) configured[dev] = true;
   }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

@@ -88,15 +88,20 @@ crop_normalize_kernel(const float* __restrict__ x, float* __restrict__ y, int h,
   }
 }
 
+// The current card's SM count, cached per card (the caller sets the card
+// of its tensors current before a launch).
 int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
+  constexpr int kMaxCards = 64;
+  static int n[kMaxCards] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxCards) dev = 0;
+  if (n[dev] == 0) {
+    int v = 0;
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    n[dev] = v > 0 ? v : 132;
   }
-  return n;
+  return n[dev];
 }
 
 }  // namespace

@@ -65,8 +65,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             valid_len: torch.Tensor, return_lse: bool = False):
-    """Launch the CUDA kernel on PyTorch's current stream (no sync); with
-    return_lse, (o, lse [B, H] fp32)."""
+    """Launch the CUDA kernel on its input's card, on that card's current
+    stream (no sync); with return_lse, (o, lse [B, H] fp32)."""
     global LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v), ("valid_len", valid_len)):
         if t.device.type != "cuda" or t.device != q.device:
@@ -104,11 +104,12 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     if B == 0:
         return (out, lse) if return_lse else out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.preba_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     valid_len.data_ptr(), out.data_ptr(),
-                                     None if lse is None else lse.data_ptr(), B, H, KH, S,
-                                     D, bf16, _scale(D), stream)
+    with torch.cuda.device(q.device):  # the attribute and the stream are the card's
+        err = lib.preba_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         valid_len.data_ptr(), out.data_ptr(),
+                                         None if lse is None else lse.data_ptr(), B, H,
+                                         KH, S, D, bf16, _scale(D),
+                                         torch.cuda.current_stream().cuda_stream)
     build.check(err, "decode_attention")
     LAUNCHES += 1
     return (out, lse) if return_lse else out

@@ -42,7 +42,8 @@ def image_crop_normalize_batch_plain(imgs: torch.Tensor, ch: int, cw: int,
 
 def image_crop_normalize_batch_kernel(imgs: torch.Tensor, ch: int, cw: int,
                                       mean: float, std: float) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+    """Launch the CUDA kernel on its input's card, on that card's current
+    stream (no sync)."""
     global LAUNCHES
     if imgs.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor (got {imgs.device})")
@@ -57,9 +58,10 @@ def image_crop_normalize_batch_kernel(imgs: torch.Tensor, ch: int, cw: int,
     if n == 0:
         return out
     lib = build.library()
-    stream = torch.cuda.current_stream(imgs.device).cuda_stream
-    err = lib.preba_crop_normalize(imgs.data_ptr(), out.data_ptr(), n, h, w, y0, x0,
-                                   ch, cw, float(mean), _inv_std(std), stream)
+    with torch.cuda.device(imgs.device):  # the SM count and the stream are the card's
+        err = lib.preba_crop_normalize(imgs.data_ptr(), out.data_ptr(), n, h, w, y0, x0,
+                                       ch, cw, float(mean), _inv_std(std),
+                                       torch.cuda.current_stream().cuda_stream)
     build.check(err, "image_normalize")
     LAUNCHES += 1
     return out

@@ -33,8 +33,8 @@ def image_resize_batch_plain(imgs: torch.Tensor, ytaps: Taps, xtaps: Taps) -> to
 
 
 def image_resize_batch_kernel(imgs: torch.Tensor, ytaps: Taps, xtaps: Taps) -> torch.Tensor:
-    """Launch the kernel once for the stack on PyTorch's current stream (no
-    sync)."""
+    """Launch the kernel once for the stack on its input's card, on that
+    card's current stream (no sync)."""
     global LAUNCHES
     (yi, yw), (xi, xw) = ytaps, xtaps
     ts = (imgs, yi, yw, xi, xw)
@@ -57,9 +57,10 @@ def image_resize_batch_kernel(imgs: torch.Tensor, ytaps: Taps, xtaps: Taps) -> t
     if out.numel() == 0 or h == 0 or w == 0:
         return out.zero_()
     lib = build.library()
-    stream = torch.cuda.current_stream(imgs.device).cuda_stream
-    err = lib.preba_resize(imgs.data_ptr(), yi.data_ptr(), yw.data_ptr(), xi.data_ptr(),
-                           xw.data_ptr(), out.data_ptr(), n, h, w, h_out, w_out, stream)
+    with torch.cuda.device(imgs.device):  # the attribute and the stream are the card's
+        err = lib.preba_resize(imgs.data_ptr(), yi.data_ptr(), yw.data_ptr(),
+                               xi.data_ptr(), xw.data_ptr(), out.data_ptr(), n, h, w,
+                               h_out, w_out, torch.cuda.current_stream().cuda_stream)
     build.check(err, "image_resize")
     LAUNCHES += 1
     return out

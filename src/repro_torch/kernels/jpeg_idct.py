@@ -38,7 +38,8 @@ def jpeg_idct_batch_plain(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.T
 
 
 def jpeg_idct_batch_kernel(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+    """Launch the CUDA kernel on its input's card, on that card's current
+    stream (no sync)."""
     global LAUNCHES
     if coeffs.device.type != "cuda" or qtable.device != coeffs.device:
         raise ValueError(f"kernel needs both tensors on one CUDA device "
@@ -60,9 +61,10 @@ def jpeg_idct_batch_kernel(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.
                          "must start on 16 bytes")
     lib = build.library()
     basis = idct_basis(coeffs.device)
-    stream = torch.cuda.current_stream(coeffs.device).cuda_stream
-    err = lib.preba_idct(coeffs.data_ptr(), qtable.data_ptr(), basis.data_ptr(),
-                         out.data_ptr(), n * by, bx, stream)
+    with torch.cuda.device(coeffs.device):  # the launch and the stream are the card's
+        err = lib.preba_idct(coeffs.data_ptr(), qtable.data_ptr(), basis.data_ptr(),
+                             out.data_ptr(), n * by, bx,
+                             torch.cuda.current_stream().cuda_stream)
     build.check(err, "jpeg_idct")
     LAUNCHES += 1
     return out

@@ -143,8 +143,8 @@ def mel_spectrogram_batch_plain(y: torch.Tensor, win: torch.Tensor, twiddles: to
 def mel_spectrogram_batch_kernel(y: torch.Tensor, win: torch.Tensor, twiddles: torch.Tensor,
                                  weights: torch.Tensor, bands: torch.Tensor,
                                  hop: int) -> torch.Tensor:
-    """Launch the CUDA kernel once for the stack on PyTorch's current
-    stream (no sync)."""
+    """Launch the CUDA kernel once for the stack on its input's card, on
+    that card's current stream (no sync)."""
     global LAUNCHES
     ts = (y, win, twiddles, weights, bands)
     if any(t.device.type != "cuda" or t.device != y.device for t in ts):
@@ -173,10 +173,11 @@ def mel_spectrogram_batch_kernel(y: torch.Tensor, win: torch.Tensor, twiddles: t
     out = torch.empty((nsig, t, n_mels), dtype=torch.float32, device=y.device)
     if nsig == 0:
         return out
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    err = lib.preba_mel(y.data_ptr(), win.data_ptr(), twiddles.data_ptr(), weights.data_ptr(),
-                        bands.data_ptr(), out.data_ptr(), nsig, length, frame, hop, n_fft,
-                        n_mels, weights.numel(), stream)
+    with torch.cuda.device(y.device):  # the attribute and the stream are the card's
+        err = lib.preba_mel(y.data_ptr(), win.data_ptr(), twiddles.data_ptr(),
+                            weights.data_ptr(), bands.data_ptr(), out.data_ptr(), nsig,
+                            length, frame, hop, n_fft, n_mels, weights.numel(),
+                            torch.cuda.current_stream().cuda_stream)
     build.check(err, "mel_spectrogram")
     LAUNCHES += 1
     return out

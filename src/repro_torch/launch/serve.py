@@ -11,7 +11,9 @@ Continuous batching alone: --continuous [--max-slots 8 --segment-len 8];
 chunked prefill on top: --continuous --chunk-lens 16,32. The multi-slice
 fleet: --slices 4 (four engines, each on its own CUDA stream, behind one
 shared admission queue; on one card they are logical replicas, not MIG
-instances), or a multi-tenant fleet --tenants tinyllama-1.1b:2,mamba2-370m:2
+instances; --devices cuda:0,cuda:1 spreads them over several cards, one
+slice a card by default, each card holding one replica of the weights),
+or a multi-tenant fleet --tenants tinyllama-1.1b:2,mamba2-370m:2
 (model:slices asks, PREBA's two-family fleet: the attention LM and a Mamba2
 SSM behind one admission queue; a second tenant of the same arch is named
 arch@1). Every entry point serves every arch of SERVED_ARCHS: tinyllama-1.1b,
@@ -117,7 +119,8 @@ def _calibrate_knee(cfg, ec, out_path: str, *, max_batch: int,
 def _print_fleet(engine, tenanted: bool) -> None:
     """Per-slice (and, for a multi-tenant fleet, per-tenant) summary."""
     for sid, st in sorted(engine.slice_stats().items()):
-        print(f"  slice {sid} [{st['model']}]: admitted={st['admitted']} "
+        print(f"  slice {sid} [{st['model']}] on {engine.engines[sid].device}: "
+              f"admitted={st['admitted']} "
               f"segments={st['segments']} occupancy={st['mean_slot_occupancy']:.3f}")
     print(f"  fleet: hedges={engine.hedges} requeued={engine.stats['requeued']} "
           f"dead_lettered={engine.stats['dead_lettered']}")
@@ -169,10 +172,11 @@ def _parser() -> argparse.ArgumentParser:
                          "the policy-chosen chunk admit chunk-by-chunk, "
                          "interleaved with decode segments (--continuous; "
                          "empty = monolithic admission)")
-    ap.add_argument("--slices", type=int, default=1,
+    ap.add_argument("--slices", type=int, default=None,
                     help="number of slices, each its own continuous-batching "
                          "engine on its own CUDA stream behind one shared "
-                         "admission queue")
+                         "admission queue (default 1, or one a card of "
+                         "--devices)")
     ap.add_argument("--hedge-factor", type=float, default=3.0,
                     help="straggler threshold: hedge a request past this "
                          "multiple of its expected execution time")
@@ -220,6 +224,16 @@ def _parser() -> argparse.ArgumentParser:
                          "the partition controller's cost model")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--devices", default="",
+                    help="comma-separated cards the fleet's slices serve on "
+                         "(e.g. 'cuda:0,cuda:1'): the slices are spread over "
+                         "them, each on its first card, and each card holds "
+                         "one replica of each tenant's weights, drawn on the "
+                         "first; the DPU service stays on --device. Default: "
+                         "the one card of --device, all slices sharing it "
+                         "(the MIG analogue; the JAX package's fleet spreads "
+                         "over every device by default). A named card that "
+                         "is not there raises")
     return ap
 
 
@@ -252,6 +266,9 @@ def main(argv=None):
     tenant_asks = _tenant_asks(ap, args.tenants)
     if not tenant_asks and not args.arch:
         ap.error("--arch is required unless --tenants is given")
+    devices = [d.strip() for d in args.devices.split(",") if d.strip()] or None
+    if args.slices is None:
+        args.slices = len(devices) if devices else 1
     if args.slices < 1:
         ap.error(f"--slices must be >= 1 (got {args.slices})")
     if args.controller and not args.pipelined:
@@ -372,7 +389,7 @@ def main(argv=None):
             rc=RuntimeConfig(clock=args.clock, slo_s=args.slo,
                              max_ingest=max(64, 2 * args.requests)),
             hedge_factor=args.hedge_factor, tenants=tenants,
-            controller=controller, knee_profiles=knee_profiles,
+            controller=controller, knee_profiles=knee_profiles, devices=devices,
         )
         t0 = time.monotonic()
         if args.clock == "virtual":
@@ -414,12 +431,12 @@ def main(argv=None):
                 args.clock == "virtual")
         return
 
-    if n_slices > 1 or tenants:
+    if n_slices > 1 or tenants or devices:
         from repro_torch.serving.multislice import build_multislice_engine
 
         engine = build_multislice_engine(cfg, n_slices=n_slices, ec=ec, device=args.device,
-                                         hedge_factor=args.hedge_factor, tenants=tenants,
-                                         knee_profiles=knee_profiles)
+                                         devices=devices, hedge_factor=args.hedge_factor,
+                                         tenants=tenants, knee_profiles=knee_profiles)
         engine.submit_many(reqs)
         done = engine.run_until_idle()
         lats = [r.completed_at - r.dispatched_at for r in done]

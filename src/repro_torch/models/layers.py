@@ -24,6 +24,7 @@ term for term, so outputs stay comparable across the two.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +35,8 @@ from repro_torch.distributed import ctx as dctx
 NEG_INF = -1e30
 
 
-def constrain_batch_dp(x: torch.Tensor, axes, dim: int, rows=None) -> torch.Tensor:
+def constrain_batch_dp(x: torch.Tensor, axes, dim: Optional[int],
+                       rows=None) -> torch.Tensor:
     """The attention batch-DP layout (the JAX package's constraint of q, k,
     v and the attention output to rows over `axes`, a train config's
     `attn_dp_axes`). x [B, S, ...] holds this rank's rows over the data
@@ -43,8 +45,11 @@ def constrain_batch_dp(x: torch.Tensor, axes, dim: int, rows=None) -> torch.Tens
     `axes` with `dim` whole: rows over the data axes stay as they are, and
     over `model` an all-to-all (`ctx.rows_to_model`) cuts them, zero rows
     padding them to a multiple of the axis. With `rows` (the rank's rows
-    before) it is the way back, for the attention output before `wo`. The
-    identity where `axes` is empty or holds no `model` axis wider than 1."""
+    before) it is the way back, for the attention output before `wo`. With
+    `dim` None, x is whole on every `model` rank (the block carry between
+    training's layers, `lm._train_layers`): the cut keeps the rank's rows
+    and the way back gathers them. The identity where `axes` is empty or
+    holds no `model` axis wider than 1."""
     if "model" not in axes:
         return x
     if rows is None:

@@ -430,32 +430,44 @@ def _sublayer(x, sub: Tree, enc, cfg: ModelConfig, kind: Tuple[str, str], *,
     return x, aux, entry
 
 
-def _remat_layers(x, aux, subs, kinds, enc, cfg: ModelConfig, kw):
-    """Training's layers under remat, nested as the JAX package nests it:
-    the prefix layers (`first_k_dense`) are not recomputed; each body layer
-    runs under a checkpoint of its own and, where a block holds several
-    layers (jamba's 8), each block under one more, so the backward
-    recomputes the block for each layer's input and each layer again for
-    its own backward. Returns (x, aux)."""
+def _train_layers(x, aux, subs, kinds, enc, cfg: ModelConfig, kw):
+    """Training's layers. Between the body's blocks the carry holds this
+    rank's rows cut over every axis of `cfg.attn_dp_axes`
+    (`layers.constrain_batch_dp`, the JAX package's constraint of its scan
+    carry, `lm.py` `block_fn`): a block gathers its rows over `model`
+    first and cuts them again last. With `cfg.remat`, remat nests as the
+    JAX package nests it: the prefix layers (`first_k_dense`) are not
+    recomputed; each block runs under a checkpoint, so its saved input is
+    the cut carry, and where a block holds several layers (jamba's 8) each
+    layer under one more, so the backward recomputes the block for each
+    layer's input and each layer again for its own backward. Returns (x
+    whole over `model`, aux)."""
     npre, period = cfg.first_k_dense, block_period(cfg)
+    inner = cfg.remat and period > 1
+    # the carry's axes; none where `model` is 1 wide (the rows are cut already)
+    axes = cfg.attn_dp_axes if dctx.model_coordinate()[1] > 1 else ()
 
     def add(aux, a):
         return aux if a is None else aux + a.float()
 
-    def block(x, aux, j):
+    def block(xc, aux, j, rows):
+        x = L.constrain_batch_dp(xc, axes, None, rows)
         for i in range(npre + j * period, npre + (j + 1) * period):
-            x, a, _ = checkpoint(_sublayer, x, subs[i], enc, cfg, kinds[i], **kw,
-                                 use_reentrant=False)
+            x, a, _ = (checkpoint(_sublayer, x, subs[i], enc, cfg, kinds[i], **kw,
+                                  use_reentrant=False) if inner
+                       else _sublayer(x, subs[i], enc, cfg, kinds[i], **kw))
             aux = add(aux, a)
-        return x, aux
+        return L.constrain_batch_dp(x, axes, None), aux
 
     for i in range(npre):
         x, a, _ = _sublayer(x, subs[i], enc, cfg, kinds[i], **kw)
         aux = add(aux, a)
+    rows = x.shape[0]
+    x = L.constrain_batch_dp(x, axes, None)
     for j in range((len(subs) - npre) // period):
-        x, aux = (checkpoint(block, x, aux, j, use_reentrant=False) if period > 1
-                  else block(x, aux, j))
-    return x, aux
+        x, aux = (checkpoint(block, x, aux, j, rows, use_reentrant=False) if cfg.remat
+                  else block(x, aux, j, rows))
+    return L.constrain_batch_dp(x, axes, None, rows), aux
 
 
 def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -463,10 +475,12 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
             img_embeds=None, audio_frames=None):
     """mode "prefill": (final hidden [B, S, D], cache tree); mode "train":
     (final hidden [B, S, D], aux), aux the fp32 sum of every MoE layer's
-    router loss (0 without MoE), and no cache. In training with `cfg.remat`
-    each body layer runs under `torch.utils.checkpoint`: the backward pass
-    keeps only the layer inputs and recomputes the rest (the JAX package's
-    per-sublayer and per-block `jax.checkpoint`, `_remat_layers`).
+    router loss (0 without MoE), and no cache. In training the carry
+    between blocks is cut to rows over `cfg.attn_dp_axes`, and with
+    `cfg.remat` each body block runs under `torch.utils.checkpoint`: the
+    backward pass keeps only the blocks' cut inputs and recomputes the rest
+    (the JAX package's per-sublayer and per-block `jax.checkpoint`,
+    `_train_layers`).
 
     pos_offset: optional [B] left-pad amounts (bucketed serving): row b's
     first pos_offset[b] token slots are padding. Their embeddings are zeroed
@@ -499,13 +513,11 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     kinds, subs = cfg.layer_kinds(), _layers(cfg, params)
     kw = dict(train=train, cache_len=cache_len, pos_offset=pos_offset)
     entries = []
-    if train and cfg.remat:
-        x, aux = _remat_layers(x, aux, subs, kinds, enc, cfg, kw)
+    if train:
+        x, aux = _train_layers(x, aux, subs, kinds, enc, cfg, kw)
     else:
         for kind, sub in zip(kinds, subs):
-            x, a, entry = _sublayer(x, sub, enc, cfg, kind, **kw)
-            if train and a is not None:
-                aux = aux + a.float()
+            x, _, entry = _sublayer(x, sub, enc, cfg, kind, **kw)
             entries.append(entry)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     if train:
@@ -513,23 +525,32 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     return x, _assemble(cfg, entries)
 
 
-def logits_from_hidden(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """fp32 logits [..., vocab]: products of the activation-dtype inputs
-    accumulated in fp32 (the JAX package's preferred_element_type=f32).
-    Over a vocab shard the local columns are gathered along the vocab over
-    the `model` axis first, and the padded vocab is stripped after; x
-    enters the cut product through `ctx.enter_model`. A weight whose
-    d_model dim the train rules cut over the data axes is gathered."""
+def _local_logits(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """fp32 logits of this rank's columns of the padded vocab [..., n]:
+    products of the activation-dtype inputs accumulated in fp32 (the JAX
+    package's preferred_element_type=f32). Over a vocab shard x enters the
+    cut product through `ctx.enter_model`; a weight whose d_model dim the
+    train rules cut over the data axes is gathered. Raises for a vocab
+    shard with no mesh of as many `model` ranks set."""
     w = (dctx.gather_fsdp(params["embed"], 1, cfg.d_model).t() if cfg.tie_embeddings
          else dctx.gather_fsdp(params["lm_head"], 0, cfg.d_model))
-    if w.shape[-1] != cfg.padded_vocab:
+    n = w.shape[-1]
+    if n != cfg.padded_vocab:
+        if n * dctx.model_coordinate()[1] != cfg.padded_vocab:
+            raise ValueError(f"vocab shard of {n} columns with no mesh of "
+                             f"{cfg.padded_vocab // n} model ranks set")
         x = dctx.enter_model(x)
-    logits = x.float() @ w.to(x.dtype).float()
+    return x.float() @ w.to(x.dtype).float()
+
+
+def logits_from_hidden(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """fp32 logits [..., vocab] (`_local_logits`). Over a vocab shard the
+    local columns are gathered along the vocab over the `model` axis, and
+    the padded vocab is stripped after: serving picks a token from whole
+    rows. The loss does not gather them (`_xent_chunk`)."""
+    logits = _local_logits(params, x, cfg)
     if logits.shape[-1] != cfg.padded_vocab:
         logits = dctx.gather_model_last(logits)
-        if logits.shape[-1] != cfg.padded_vocab:
-            raise ValueError(f"vocab shard of {w.shape[-1]} columns with no mesh of "
-                             f"{cfg.padded_vocab // w.shape[-1]} model ranks set")
     return logits[..., : cfg.vocab]  # strip the padded vocab slots
 
 
@@ -923,10 +944,18 @@ def prefill_chunk_into_slots(params: Tree, tokens: torch.Tensor, pool: Tree,
 
 def _xent_chunk(params: Tree, xc: torch.Tensor, lc: torch.Tensor, cfg: ModelConfig):
     """One chunk's (sum of nll, sum of lse^2, count) over its labelled
-    positions: fp32 logits [B, c, V], labels < 0 ignored."""
-    logits = logits_from_hidden(params, xc, cfg)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    positions: fp32 logits [B, c, V], labels < 0 ignored. Over a vocab
+    shard each `model` rank keeps its columns of the logits: the lse and
+    the gold logit come from all-reduces of row sums (`ctx.vocab_xent`),
+    never a gather of the logits."""
+    logits = _local_logits(params, xc, cfg)
+    n = logits.shape[-1]
+    if n == cfg.padded_vocab:
+        logits = logits[..., : cfg.vocab]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    else:
+        lse, gold = dctx.vocab_xent(logits, lc, dctx.model_coordinate()[0] * n, cfg.vocab)
     mask = (lc >= 0).float()
     return torch.sum((lse - gold) * mask), torch.sum(lse * lse * mask), torch.sum(mask)
 

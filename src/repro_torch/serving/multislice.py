@@ -10,15 +10,23 @@ beats one monolithic GPU. This module composes:
   serving/engine.ServingEngine     -> one continuous-batching engine PER
                                       slice (own KV slot pool allocated on
                                       the slice's stream, own shape caches);
-                                      every slice of a tenant serves that
-                                      tenant's ONE LM, uncopied
+                                      the slices of a tenant on one card
+                                      serve that tenant's ONE LM there,
+                                      uncopied
   core/batching SliceScheduler     -> REQUEST -> slice dispatch tracking
                                       with per-request straggler hedging
                                       and failure/resize requeue
 
 On one GPU without MIG instances the V slices are logical replicas that
 share every SM of the card (`replicated`); each issues its work on its own
-stream. Such a fleet says nothing about MIG isolation.
+stream. Such a fleet says nothing about MIG isolation. Over several cards
+(`devices=["cuda:0", "cuda:1", ...]`) each slice serves on its first card
+(`PodSlice.device`), and each tenant's weights are replicated once onto
+every card one of its slices serves on (`_weights_on`; the JAX package
+places them on the slice's mesh, `_params_for`): one copy a (tenant,
+card), made at the first build that needs it and kept across resizes,
+so a card never holds a tenant's weights twice. A slice on the card
+that holds the weights serves them as they are.
 
 THE SLICE IS THE UNIT OF TENANCY. A fleet hosts one or more tenants, each
 a (model config, weights, policy, EngineConfig) bundle with its own slice
@@ -110,6 +118,7 @@ from repro_torch.core.slicing.mig import (
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
 from repro_torch.models.api import LM
+from repro_torch.models.params import tree_map
 from repro_torch.serving import telemetry as tm
 from repro_torch.serving.engine import (
     EngineConfig, ServingEngine, enqueue_requests,
@@ -138,6 +147,14 @@ def _slice_pod(devices: Sequence, n_slices: int):
     slices = [PodSlice(i, devs.copy()) for i in range(n_slices)]
     spec = SliceSpec(slice_name(devs.size, n_slices), int(devs.size), n_slices)
     return SlicedPod(spec=spec, slices=slices, stranded_chips=0), True
+
+
+def _card(dev) -> torch.device:
+    """`dev` with its index: a bare "cuda" is the current card."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _as_model(cfg: ModelConfig, params) -> LM:
@@ -312,6 +329,9 @@ class MultiSliceEngine:
         # and slot pools intact — instead of rebuilding them
         self._engine_cache: Dict[Any, Dict[int, ServingEngine]] = {}
         self._gen_key: Any = None
+        # each tenant's weights on the other cards its slices serve on:
+        # (tenant, card) -> LM, one copy each, kept across resizes
+        self._replicas: Dict[Any, LM] = {}
         self._build(n_slices)
 
     # --- tenancy -------------------------------------------------------------
@@ -473,20 +493,43 @@ class MultiSliceEngine:
         # once at the shared queue, and batch formation too — their
         # internal batcher is a pass-through
         t = self._tenants[self.slice_tenant[ps.slice_id]]
-        w = t.model.tree()["embed"].device
-        if w.type != ps.device.type or None not in (w.index, ps.device.index) \
-                and w.index != ps.device.index:
-            raise ValueError(f"slice {ps.slice_id} serves on {ps.device} but "
-                             f"tenant {t.name!r}'s weights live on {w}")
+        model = self._weights_on(t, ps.device)
         ec_s = dc_replace(t.ec, continuous=True, preprocess="none")
         pol = dc_replace(t.policy, time_queue=0.0)
-        e = ServingEngine(t.cfg, t.model, pol, ec_s, device=ps.device,
+        e = ServingEngine(t.cfg, model, pol, ec_s, device=ps.device,
                           knee_profiles=t.knee_profiles, tracer=self.tracer,
                           slice_id=ps.slice_id, tenant=t.name, stream=ps.stream)
         e._virtual = self._virtual
         self.registry.attach(e.registry)
         self._built.append(e)
         return e
+
+    def _weights_on(self, t: _Tenant, dev: torch.device) -> LM:
+        """Tenant t's weights on `dev`: its own LM where they live there,
+        else its replica on that card, copied at the first call and kept
+        (resize and readmit reuse it). Weights on a device the fleet does
+        not use raise."""
+        home = _card(t.model.tree()["embed"].device)
+        dev = _card(dev)
+        if home not in {_card(d) for d in self._devices}:
+            raise ValueError(f"tenant {t.name!r}'s weights live on {home}, which this "
+                             f"fleet ({[str(d) for d in self._devices]}) does not use")
+        if dev == home:
+            return t.model
+        key = (t.name, str(dev))
+        if key not in self._replicas:
+            self._replicas[key] = LM(t.cfg, tree_map(lambda a: a.to(dev), t.model.tree()))
+        return self._replicas[key]
+
+    def weights_by_device(self) -> Dict[str, Dict[str, LM]]:
+        """card -> {tenant: the LM its slices there serve}: each tenant's
+        own weights on their card and its replicas on the others."""
+        out: Dict[str, Dict[str, LM]] = {}
+        for t in self._tenants.values():
+            out.setdefault(str(_card(t.model.tree()["embed"].device)), {})[t.name] = t.model
+        for (name, dev), model in self._replicas.items():
+            out.setdefault(dev, {})[name] = model
+        return out
 
     @property
     def hedges(self) -> int:

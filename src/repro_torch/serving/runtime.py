@@ -680,7 +680,7 @@ def build_pipelined_runtime(
     max_retries: int = 3, retry_backoff_s: float = 0.0,
     watchdog_rounds: int = 0, probe_interval_s: float = 0.0,
     tenants=None, controller=None, knee_profiles=None,
-    device: DeviceLike = "cuda",
+    device: DeviceLike = "cuda", devices=None,
 ) -> PipelinedRuntime:
     """One continuous-batching engine (or a multi-slice fleet) behind the
     pipelined stages, on `device`. The engine's own inline DPU pass is
@@ -693,7 +693,9 @@ def build_pipelined_runtime(
     per-tenant EngineConfig overrides are normalized the same way the
     fleet default is (continuous, no inline preprocessing). A `controller`
     (core/control/partition.py) is bound to the runtime; it needs a
-    resizable fleet, so one is built even at n_slices=1."""
+    resizable fleet, so one is built even at n_slices=1. `devices`: the
+    cards the fleet's slices serve on (`build_multislice_engine`; a fleet
+    is built even at n_slices=1); by default the one of `device`."""
     from dataclasses import replace as dc_replace
 
     from repro_torch.models.api import LM
@@ -705,7 +707,7 @@ def build_pipelined_runtime(
     fleet = dict(n_slices=n_slices, seed=seed, ec=ec, hedge_factor=hedge_factor,
                  max_retries=max_retries, retry_backoff_s=retry_backoff_s,
                  watchdog_rounds=watchdog_rounds, probe_interval_s=probe_interval_s,
-                 knee_profiles=knee_profiles, device=device)
+                 knee_profiles=knee_profiles, device=device, devices=devices)
     if tenants is not None:
         tenants = [
             t if t.ec is None
@@ -713,7 +715,7 @@ def build_pipelined_runtime(
             for t in tenants
         ]
         engine: Engine = build_multislice_engine(tenants=tenants, **fleet)
-    elif n_slices > 1 or controller is not None:
+    elif n_slices > 1 or controller is not None or devices is not None:
         # a partition controller needs a resizable fleet even when the
         # starting menu point is a single coarse slice
         engine = build_multislice_engine(cfg, params=params, **fleet)

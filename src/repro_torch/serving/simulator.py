@@ -79,12 +79,15 @@ def simulate(
     preprocess_cost_s: Callable[[float], float],  # of input length
     cfg: SimConfig,
     device: DeviceLike = "cuda",
+    dpu_costs: Optional[Dict[str, Callable[[Any], float]]] = None,
 ) -> SimResult:
     """Replay `requests` through the modeled pipeline. `device` is where the
     DPU's functional units would run (`preprocess="dpu"`): the card by
     default, as every entry point of the package; pass device="cpu" on a
     machine without one. A CUDA device that is not there raises, whatever
-    the preprocessing mode."""
+    the preprocessing mode. `dpu_costs`: {functional unit name: seconds of
+    a request of that input length}, measured costs that replace the DPU's
+    analytical ones (`core/dpu/pipeline.py`) on the virtual clock."""
     device = resolve_device(device)
     rng = np.random.default_rng(cfg.seed)
     batcher = BucketedBatcher(policy)
@@ -97,6 +100,9 @@ def simulate(
     elif cfg.preprocess == "dpu":
         pre = DPU(DpuConfig(n_cus=cfg.dpu_cus, split_audio_cus=cfg.split_audio_cus),
                   device=device)
+        for unit in (u for pool in pre.stages for u in pool.cu.units):
+            if dpu_costs and unit.name in dpu_costs:
+                unit.cost_s = dpu_costs[unit.name]
     else:
         pre = None
 

@@ -1247,3 +1247,66 @@ def test_train_step_on_card_matches_the_cpu(cuda):
         out.append({k: float(v) for k, v in m.items()})
     for k in ("loss", "grad_norm", "lr"):
         assert_allclose(out[1][k], out[0][k], rtol=1e-5, err_msg=k)
+
+
+# --- several cards --------------------------------------------------------------
+
+
+@pytest.fixture
+def other_card():
+    """The last card, where there are two or more; cuda:0 is current."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a kernel on another card, a fleet over cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    return torch.device("cuda", torch.cuda.device_count() - 1)
+
+
+@pytest.mark.gpu
+def test_each_kernel_runs_on_its_inputs_card(other_card):
+    """chip_smoke.py phase 24 (a): each of the seven kernels at its serve
+    shape on the last card while cuda:0 stays current, its output on that
+    card and within its tolerance of the plain version (a miss fails the
+    phase with SystemExit)."""
+    out = _chip_smoke().other_card_kernels(torch, np, str(other_card))
+    assert len(out) == len(kernels.KERNELS) and torch.cuda.current_device() == 0
+
+
+@pytest.mark.gpu
+def test_two_card_fleet_equals_a_single_slice_engine_on_card(full_width, other_card):
+    """A fleet of two slices on cuda:0 and the last card, the weights drawn
+    on cuda:0: per request the tokens of one engine on those weights, bit
+    for bit; one replica on the other card, the same object after 2 -> 1
+    -> 2 slices; decode attention once per layer and step."""
+    from repro_torch.serving.engine import EngineConfig, build_engine
+    from repro_torch.serving.multislice import build_multislice_engine
+
+    cfg, model, dev = full_width
+    ec = EngineConfig(continuous=True, max_slots=8, segment_len=CONTRACT_BUDGET,
+                      max_new_tokens=CONTRACT_BUDGET, max_prompt_len=128)
+    want = _serve_alone(build_engine(cfg, ec=ec, device=dev, params=model.tree()),
+                        _fleet_requests(FLEET_LENS))
+    cards = ["cuda:0", str(other_card)]
+    fleet = build_multislice_engine(cfg, n_slices=2, ec=ec, device="cuda:0", devices=cards,
+                                    params=model)
+    assert [str(e.device) for e in fleet.engines.values()] == cards
+    held = fleet.weights_by_device()
+    replica = held[cards[1]][cfg.name]
+    assert sorted(held) == cards and held["cuda:0"][cfg.name] is model
+    assert all(t.device == other_card for t in replica.weights.parameters())
+    for n_slices in (2, 1, 2):
+        if n_slices != len(fleet.engines):
+            fleet.resize(n_slices=n_slices)
+        fleet.reset_metrics()
+        kernels.reset_launch_counts()
+        fleet.submit_many(_fleet_requests(FLEET_LENS))
+        done = fleet.run_until_idle()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        assert sorted(r.rid for r in done) == list(range(len(FLEET_LENS)))
+        assert all(e.stats["admitted"] > 0 for e in fleet.engines.values())
+        for r in done:
+            np.testing.assert_array_equal(np.asarray(r.payload), want[r.rid][0])
+        assert kernels.launch_counts()["decode_attention"] == \
+            cfg.n_layers * fleet.decode_steps_total() > 0
+        assert fleet.weights_by_device()[cards[1]][cfg.name] is replica

@@ -283,6 +283,7 @@ def _imports(path: Path):
 @pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py",
                                    "examples/quickstart_torch.py",
                                    "examples/pod_dryrun_roofline_torch.py",
+                                   "examples/serve_audio_preba_torch.py",
                                    "src/repro_torch/core/control/partition.py",
                                    "src/repro_torch/serving/simulator.py"])
 def test_port_imports_neither_jax_nor_the_jax_package(where):

@@ -558,3 +558,50 @@ def pipe_rank(rank, world, backend, cases, layers):
         want = torch.stack([lm.forward(params, t, cfg, mode="train")[0] for t in tok])
     out["layers"] = (got.numpy(), want.numpy())
     return out
+
+
+def vocab_loss_rank(rank, world, backend, shape, cfg, w, x, labels, chunks):
+    """tests/test_torch_train_memory.py: `lm.softmax_xent_chunked` on a
+    (data, model) mesh from this rank's rows of x [B, S, D] (over `data`)
+    and its vocab columns of the head w [D, padded vocab] (over `model`),
+    at each sequence chunk of `chunks`, with the logits kept cut (the
+    port's loss) and with them gathered over the vocab
+    (`lm.logits_from_hidden`, then the lse and the gold pick): {(chunk,
+    "cut" or "gathered"): (nll, z term, loss = nll + 1e-4 z) and the
+    gradients of the rank's x and w, numpy}."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.models import lm
+
+    def gathered_chunk(params, xc, lc, cfg):
+        logits = lm.logits_from_hidden(params, xc, cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+        mask = (lc >= 0).float()
+        return torch.sum((lse - gold) * mask), torch.sum(lse * lse * mask), torch.sum(mask)
+
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    (d, m), (nd, nm) = (mesh.get_local_rank("data"), mesh.get_local_rank("model")), shape
+    rows, cols = x.shape[0] // nd, w.shape[1] // nm
+    xs = torch.from_numpy(x[d * rows:(d + 1) * rows])
+    ws = torch.from_numpy(w[:, m * cols:(m + 1) * cols])
+    lab = torch.from_numpy(labels[d * rows:(d + 1) * rows])
+    out = {}
+    for chunk in chunks:
+        for name, chunk_fn in (("cut", lm._xent_chunk), ("gathered", gathered_chunk)):
+            xg, wg = xs.clone().requires_grad_(), ws.clone().requires_grad_()
+            own = lm._xent_chunk
+            lm._xent_chunk = chunk_fn
+            try:
+                with dctx.mesh_context(mesh):
+                    nll, z2 = lm.softmax_xent_chunked({"lm_head": wg}, xg, lab, cfg,
+                                                      chunk=chunk)
+                    loss = nll + 1e-4 * z2
+                    loss.backward()
+            finally:
+                lm._xent_chunk = own
+            out[chunk, name] = dict(nll=nll.item(), z2=z2.item(), loss=loss.item(),
+                                    gx=xg.grad.numpy(), gw=wg.grad.numpy())
+    return out
